@@ -1,0 +1,76 @@
+// front_end: the strict (N=0) unit-projection front end of one tile.
+//
+// Replaces merpcr_tpu/ops/scan.py::_scan_tile_impl, packed decode and the
+// strict branch (scan.py:452-502, :522-578, _bit_at :252): per u32 unit of
+// the scan span, one bit of the qbloom_s table keyed by window bases
+// 7..19, an exact-width OR-smear for "some phase's W-mer is clean", and
+// flag = in-bounds & clean-phase & (table hit | dirty key), packed
+// LSB-first into 32-unit words; c_total counts the flags.
+//
+// Bound on the card: memory. Each unit reads its 4 plane bytes (the two
+// neighbour units come from L1/L2) and makes one random 4-byte gather into
+// an 8 MB table that stays L2-resident; the arithmetic is ~60 integer ops
+// per unit. One thread per unit keeps neighbouring threads on neighbouring
+// plane words (coalesced), __ballot_sync builds each flag word in
+// registers, and c_total costs one atomicAdd per warp, not per flag.
+
+#include "compact.cuh"
+#include "units.cuh"
+
+namespace {
+
+constexpr int kProjShift = 14;  // 2 * PROJ_UNIT_START: key starts at base 7
+constexpr uint32_t kProjHi = 0xFFu;  // bases 16..19 taken from the B register
+
+__global__ void front_end_kernel(const uint32_t* __restrict__ units,
+                                 const uint32_t* __restrict__ qbloom_s,
+                                 uint32_t m2q, int W, int n_units, int n_scan,
+                                 uint32_t* __restrict__ words,
+                                 int* __restrict__ c_total) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  bool flag = false;
+  if (r < n_units) {
+    const mp::UnitRegs g = mp::load_unit(units, r);
+    const uint32_t kfull = (g.A >> kProjShift) | ((g.B & kProjHi) << (32 - kProjShift));
+    const uint32_t vfull = (g.Aa >> kProjShift) | ((g.Ba & kProjHi) << (32 - kProjShift));
+    const uint32_t bk = kfull & m2q;
+    const bool key_clean = (vfull & m2q) == 0;
+    const bool hit = (__ldg(qbloom_s + (bk >> 5)) >> (bk & 31)) & 1u;
+    const uint32_t acc = mp::dirty_smear(g.Aa, g.Ba, W);
+    const uint32_t dirty2 = (acc | (acc >> 1)) & 0x5555u;
+    const bool some_phase_clean = dirty2 != 0x5555u;
+    const bool in_scan = static_cast<long long>(r) * 8 < n_scan;
+    flag = some_phase_clean && in_scan && (hit || !key_clean);
+  }
+  const unsigned word = __ballot_sync(0xffffffffu, flag);
+  // n_units is a multiple of 32, so a warp is wholly inside or outside
+  if ((threadIdx.x & 31) == 0 && r < n_units) {
+    words[r >> 5] = word;
+    if (word) atomicAdd(c_total, __popc(word));
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// units: the tile plane as uint32, offset to the first scan unit (LEAD/8);
+// n_units = tile_len / 8 (a multiple of 32); words: n_units / 32 outputs;
+// c_total: one int, zeroed by the caller.
+int mp_front_end(const void* units, const void* qbloom_s, int gq, int W,
+                 int n_units, int n_scan, void* words, void* c_total,
+                 void* stream) {
+  const uint32_t m2q = gq >= 32 ? 0xFFFFFFFFu : ((1u << gq) - 1u);
+  front_end_kernel<<<mp::n_blocks(n_units), mp::kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(units),
+      static_cast<const uint32_t*>(qbloom_s), m2q, W, n_units, n_scan,
+      static_cast<uint32_t*>(words), static_cast<int*>(c_total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* mp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

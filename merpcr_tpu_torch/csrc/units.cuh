@@ -1,0 +1,83 @@
+// u32-unit decode shared by the front_end and expand kernels.
+//
+// The packed genome plane holds one 4-bit letter code per base, two per
+// byte, low nibble first; a little-endian uint32 "unit" therefore holds
+// 8 bases, base k in nibble k. Codes 0-3 are A, C, G, T (the 2-bit hash
+// codes); codes >= 4 are ambiguity letters ("dirty" bases). Every value is
+// LSB-first: base j of a register sits at bits [2j, 2j+2), as in the table
+// compiler's bucket keys.
+#pragma once
+
+#include <cstdint>
+
+namespace mp {
+
+// The 8 low 2-bit fields of a unit's nibbles, packed into 16 bits.
+__device__ __forceinline__ uint32_t codes_of(uint32_t u) {
+  uint32_t m = u & 0x33333333u;
+  m = (m | (m >> 2)) & 0x0F0F0F0Fu;
+  m = (m | (m >> 4)) & 0x00FF00FFu;
+  return (m | (m >> 8)) & 0x0000FFFFu;
+}
+
+// Per-base 2-bit field that is nonzero iff the base's nibble is >= 4.
+__device__ __forceinline__ uint32_t dirty_of(uint32_t u) {
+  return codes_of(u >> 2);
+}
+
+// Registers of the 24-base window that starts at unit r: A = bases 0..15,
+// B = bases 16..23, and the matching dirty fields.
+struct UnitRegs {
+  uint32_t A, Aa, B, Ba;
+};
+
+__device__ __forceinline__ UnitRegs load_unit(const uint32_t* __restrict__ units,
+                                              int r) {
+  const uint32_t u0 = units[r], u1 = units[r + 1], u2 = units[r + 2];
+  UnitRegs g;
+  g.A = codes_of(u0) | (codes_of(u1) << 16);
+  g.Aa = dirty_of(u0) | (dirty_of(u1) << 16);
+  g.B = codes_of(u2);
+  g.Ba = dirty_of(u2);
+  return g;
+}
+
+// W-bit-pair mask (W <= 16).
+__device__ __forceinline__ uint32_t mask2w(int W) {
+  return W >= 16 ? 0xFFFFFFFFu : ((1u << (2 * W)) - 1u);
+}
+
+// Bases d .. d+15 of the window (d in 0..7). A shift by 32 is undefined in
+// C++, so phase 0 takes its own branch.
+__device__ __forceinline__ uint32_t window16(uint32_t lo, uint32_t hi, int d) {
+  return d == 0 ? lo : (lo >> (2 * d)) | (hi << (32 - 2 * d));
+}
+
+// Exact-width OR-smear of the dirty fields: field d of the result is
+// nonzero iff window d .. d+W-1 holds a dirty base. sm[k] smears over 2^k
+// bases; W is assembled from its binary digits, high first.
+__device__ __forceinline__ uint32_t dirty_smear(uint32_t Aa, uint32_t Ba,
+                                                int W) {
+  uint32_t lo[5], hi[5];
+  lo[0] = Aa;
+  hi[0] = Ba;
+#pragma unroll
+  for (int k = 1; k < 5; ++k) {
+    const int s = 1 << k;  // bits = 2 * (2^(k-1)) bases
+    lo[k] = lo[k - 1] | ((lo[k - 1] >> s) | (hi[k - 1] << (32 - s)));
+    hi[k] = hi[k - 1] | (hi[k - 1] >> s);
+  }
+  uint32_t acc = 0;
+  int got = 0;
+#pragma unroll
+  for (int k = 4; k >= 0; --k) {
+    if (W & (1 << k)) {
+      const int s = 2 * got;
+      acc |= s == 0 ? lo[k] : ((lo[k] >> s) | (hi[k] << (32 - s)));
+      got += 1 << k;
+    }
+  }
+  return acc;
+}
+
+}  // namespace mp

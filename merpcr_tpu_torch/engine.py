@@ -1,0 +1,385 @@
+"""MerPCR engine on PyTorch and CUDA: the user-facing orchestration class.
+
+API parity with the reference ``src/merpcr/core/engine.py`` class
+``MerPCR`` (engine.py:44-97), as in the JAX package ``merpcr_tpu``: the same
+constructor parameters, bounds validation, ``load_sts_file`` /
+``load_fasta_file`` / ``search`` methods and output format. The search runs
+the strict N=0 tile scan (``ops.scan``) as four hand-written CUDA kernels
+on an NVIDIA GPU; its output is byte-identical to ``merpcr_tpu`` run on its
+device path (``MERPCR_TPU_HOST_MAX=0``), which is itself held to the
+reference CLI's T=1 output.
+
+What this engine scans so far is the default configuration: -N 0, -I 0,
+W <= 11, -M <= 128, records in the 16-letter FASTA alphabet and genomes
+whose ambiguity stays below the dirty-span filter's threshold. Anything
+else raises NotImplementedError naming the ROADMAP item that ports it;
+nothing falls back to another path. Multi-record FASTA is scanned record
+by record.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .io.fasta import FASTALoader, record_packed, record_seq_bytes
+from .io.sts import STSLoader
+from .models import FASTARecord
+from .ops.encoding import AMBIG, SCODE
+from .ops.scan import ScanConfig, default_config, margin_cap, scan_record
+from .ops.table import compile_table, table_from_numpy
+
+# Constants (reference engine.py:17-39)
+DEFAULT_MARGIN = 50
+DEFAULT_WORDSIZE = 11
+DEFAULT_MISMATCHES = 0
+DEFAULT_THREE_PRIME_MATCH = 1
+DEFAULT_IUPAC_MODE = 0
+DEFAULT_THREADS = 1
+DEFAULT_PCR_SIZE = 240
+
+MIN_WORDSIZE = 3
+MAX_WORDSIZE = 16
+MIN_MISMATCHES = 0
+MAX_MISMATCHES = 10
+MIN_MARGIN = 0
+MAX_MARGIN = 10000
+MIN_THREE_PRIME_MATCH = 0
+MIN_PCR_SIZE = 1
+MAX_PCR_SIZE = 10000
+
+# Tile-length buckets (the JAX package's): the smallest bucket covering the
+# record is used, large genomes scan 2^23-position tiles.
+TILE_LEN_BUCKETS = (1 << 15, 1 << 17, 1 << 19, 1 << 21, 1 << 23)
+
+# The JAX package arms its dirty-span phase filter (ROADMAP K10) when the
+# quantized dirty-in-16/clean-in-11 position rate reaches this.
+DIRTY_BLOOM_RATE = 1.0 / 256
+
+logger = logging.getLogger(__name__)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA card. Asking for CUDA without one raises:
+    the engine never carries on silently on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class MerPCR:
+    """e-PCR engine on PyTorch/CUDA (API parity: reference engine.py:44-97)."""
+
+    def __init__(
+        self,
+        wordsize: int = DEFAULT_WORDSIZE,
+        margin: int = DEFAULT_MARGIN,
+        mismatches: int = DEFAULT_MISMATCHES,
+        three_prime_match: int = DEFAULT_THREE_PRIME_MATCH,
+        iupac_mode: int = DEFAULT_IUPAC_MODE,
+        default_pcr_size: int = DEFAULT_PCR_SIZE,
+        threads: int = DEFAULT_THREADS,
+        max_sts_line_length: int = 1022,
+        device=None,
+    ):
+        self.wordsize = wordsize
+        self.margin = margin
+        self.mismatches = mismatches
+        self.three_prime_match = three_prime_match
+        self.iupac_mode = iupac_mode
+        self.default_pcr_size = default_pcr_size
+        self.threads = threads
+        # Accepted-but-unused in the reference too (SURVEY.md §2.1, cli.py:202-208)
+        self.max_sts_line_length = max_sts_line_length
+        self.device = resolve_device(device)
+
+        self.sts_records = []
+        self.max_pcr_size = 0
+        self.total_hits = 0
+
+        self._table_host = None  # HostTable of NumPy arrays
+        self._table_dev = None  # Table on self.device (see _table)
+        self._meta = None  # TableMeta
+        # Test hook: force a specific tile length (exercises multi-tile
+        # paths on small inputs). None -> TILE_LEN_BUCKETS heuristic.
+        self._tile_len_override: Optional[int] = None
+
+        self._validate_parameters()
+        self._check_supported()
+
+    def _validate_parameters(self):
+        """Bounds validation (reference engine.py:80-97)."""
+        if not (MIN_WORDSIZE <= self.wordsize <= MAX_WORDSIZE):
+            raise ValueError(
+                f"Word size must be between {MIN_WORDSIZE} and {MAX_WORDSIZE}"
+            )
+        if not (MIN_MISMATCHES <= self.mismatches <= MAX_MISMATCHES):
+            raise ValueError(
+                f"Number of mismatches must be between {MIN_MISMATCHES} and {MAX_MISMATCHES}"
+            )
+        if not (MIN_MARGIN <= self.margin <= MAX_MARGIN):
+            raise ValueError(f"Margin must be between {MIN_MARGIN} and {MAX_MARGIN}")
+        if self.three_prime_match < MIN_THREE_PRIME_MATCH:
+            raise ValueError(
+                f"Three prime match must be at least {MIN_THREE_PRIME_MATCH}"
+            )
+        if not (MIN_PCR_SIZE <= self.default_pcr_size <= MAX_PCR_SIZE):
+            raise ValueError(
+                f"Default PCR size must be between {MIN_PCR_SIZE} and {MAX_PCR_SIZE}"
+            )
+
+    def _check_supported(self):
+        """Parameters outside what this engine scans raise, naming the
+        ROADMAP item that ports them (read again at every search, since
+        callers may change the attributes between searches)."""
+        if self.mismatches == 1:
+            raise NotImplementedError(
+                "-N 1 needs the strict1 tables (ROADMAP queue A, after K14)"
+            )
+        if self.mismatches >= 2:
+            raise NotImplementedError(
+                "-N >= 2 runs the loose front end, ROADMAP queue B item K8"
+            )
+        if self.iupac_mode:
+            raise NotImplementedError("-I 1 (IUPAC verify) is ROADMAP item K11")
+        if self.wordsize >= 12:
+            raise NotImplementedError("W >= 12 lookups are ROADMAP item K12")
+        if 2 * margin_cap(self.margin) + 1 > 257:
+            raise NotImplementedError(
+                "-M above 128 (R > 257 ranks) is ROADMAP item K13"
+            )
+
+    @property
+    def _table(self):
+        """The compiled table on the engine's device (moved on first use)."""
+        if self._table_dev is None and self._table_host is not None:
+            self._table_dev = table_from_numpy(
+                self._table_host, self._meta, self.device
+            )
+        return self._table_dev
+
+    # ------------------------------------------------------------------ load
+    def load_sts_file(self, filename: str) -> bool:
+        """Load + compile the STS set (reference engine.py:193-302)."""
+        res = STSLoader.load_file(filename, self.wordsize, self.default_pcr_size)
+        if not res.ok:
+            return False
+        self.sts_records = res.records
+        self.max_pcr_size = res.max_pcr_size
+        self._table_host, self._meta = compile_table(
+            res, self.wordsize, bool(self.iupac_mode)
+        )
+        self._table_dev = None
+        return True
+
+    def load_fasta_file(self, filename: str) -> List[FASTARecord]:
+        """Reference engine.py:361-363."""
+        return FASTALoader.load_file(filename)
+
+    # ---------------------------------------------------------------- search
+    @staticmethod
+    def _quantize_dirty(d: float) -> float:
+        """Quantize a measured dirty rate to log2 buckets (the JAX
+        package's quantization, so both decide the same way whether a
+        genome needs the dirty-span filter)."""
+        if d < 1e-3:
+            return 0.0
+        return min(0.5, 2.0 ** round(math.log2(d)))
+
+    @staticmethod
+    def _dirty_of(seq: np.ndarray, packed_rec) -> tuple:
+        """(w_unit, w_pos) WINDOW dirty rates of one record, measured
+        with the scan's unit structure (never derived from the base
+        rate — derivations are wrong by an order of magnitude for
+        run-clustered dirt):
+
+        * ``w_unit`` — fraction of u32-unit windows whose KEYED bases
+          (~7..19) contain a non-ACGT base while SOME phase's W-mer
+          window is clean: exactly the units the strict front end flags
+          for table bypass (``flag = pvU & (hitu | ~vq)``).
+        * ``w_pos`` — fraction of positions dirty-in-16 but
+          clean-in-~11: the ones that expand phases through the exact
+          CSR with no table filter.
+        """
+        if packed_rec is not None and len(packed_rec):
+            b = packed_rec
+            db = (((b & 0xF) >= 4) | ((b >> 4) >= 4)).astype(np.int32)
+            cs = np.concatenate(([0], np.cumsum(db)))
+            if len(cs) <= 13:
+                any_d = bool(db.any())
+                return (float(any_d), 0.0)
+            # byte granularity: 1 byte = 2 bases. Unit key bases 7..19
+            # ~ bytes 3..9; phase W-mer windows ~ 6-byte windows at byte
+            # offsets 0..4; position windows: 8 B = 16 bases, 6 B ~ 11.
+            idx = np.arange(0, len(cs) - 13, max(1, len(cs) >> 14))
+            key_d = (cs[idx + 10] - cs[idx + 3]) > 0
+            phase_c = np.zeros(len(idx), dtype=bool)
+            for d in range(5):
+                phase_c |= (cs[idx + d + 6] - cs[idx + d]) == 0
+            w_unit = float((key_d & phase_c).mean())
+            w16 = (cs[idx + 8] - cs[idx]) > 0
+            w11 = (cs[idx + 6] - cs[idx]) > 0
+            return (w_unit, float((w16 & ~w11).mean()))
+        if seq is None or not len(seq):
+            return (0.0, 0.0)
+        db = (SCODE[seq] == AMBIG).astype(np.int32)
+        cs = np.concatenate(([0], np.cumsum(db)))
+        if len(cs) <= 27:
+            return (float(db.any()), 0.0)
+        idx = np.arange(0, len(cs) - 27, max(1, len(cs) >> 15))
+        key_d = (cs[idx + 20] - cs[idx + 7]) > 0
+        phase_c = np.zeros(len(idx), dtype=bool)
+        for d in range(8):
+            phase_c |= (cs[idx + d + 11] - cs[idx + d]) == 0
+        w_unit = float((key_d & phase_c).mean())
+        w16 = (cs[idx + 16] - cs[idx]) > 0
+        w11 = (cs[idx + 11] - cs[idx]) > 0
+        return (w_unit, float((w16 & ~w11).mean()))
+
+    def _base_config(self, tile_len: int) -> ScanConfig:
+        """Tile geometry of the strict N=0 scan for the loaded table."""
+        m = self._meta
+        if not m.strict:
+            raise NotImplementedError(
+                "this STS set disables the strict front end; its loose front "
+                "end is ROADMAP queue B item K8"
+            )
+        return default_config(
+            wordsize=self.wordsize,
+            margin=self.margin,
+            lead=m.lead,
+            max_pcr_size=self.max_pcr_size,
+            p1_max=m.p1_max,
+            p2_max=m.p2_max,
+            tile_len=tile_len,
+            stride=m.stride,
+            t16_bits=m.t16_bits,
+        )
+
+    @staticmethod
+    def _plane(packed_rec: np.ndarray, pos_len: int, lead: int) -> np.ndarray:
+        """Host-side input plane: the nibble-packed record copied into a
+        zero-padded buffer (lead is even, so the record stays byte-aligned
+        in packed space)."""
+        buf = np.zeros(pos_len // 2, dtype=np.uint8)
+        buf[lead // 2 : lead // 2 + len(packed_rec)] = packed_rec
+        return buf
+
+    def _runtime_params(self) -> tuple:
+        """Runtime (-M, -N, -X)."""
+        return (self.margin, self.mismatches, self.three_prime_match)
+
+    @staticmethod
+    def _pick_tile_len(total_scan: int) -> int:
+        for b in TILE_LEN_BUCKETS:
+            if total_scan <= b:
+                return b
+        return TILE_LEN_BUCKETS[-1]
+
+    def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
+        """Run the four kernels over one record.
+
+        Returns an int64 array of shape (n_hits, 6) with columns
+        (pos1, pos2, entry, tile_idx, pair_order, rank), 0-based."""
+        empty = np.zeros((0, 6), dtype=np.int64)
+        n = len(seq)
+        if n <= self.wordsize:  # reference engine.py:458-459 (note <=)
+            return empty
+        if packed_rec is None:
+            raise NotImplementedError(
+                "records with bytes outside the 16-letter FASTA alphabet "
+                "take the raw-byte path, ROADMAP queue B item K9"
+            )
+        if self._quantize_dirty(self._dirty_of(seq, packed_rec)[1]) >= DIRTY_BLOOM_RATE:
+            raise NotImplementedError(
+                "genomes this ambiguous need the dirty-span phase filter, "
+                "ROADMAP queue B item K10"
+            )
+        total_scan = n - self.wordsize + 1
+        tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
+        cfg = self._base_config(tile_len)
+        L = cfg.tile_len
+        n_tiles = -(-total_scan // L)
+        plane = torch.from_numpy(
+            self._plane(packed_rec, cfg.lead + n_tiles * L + cfg.tail, cfg.lead)
+        ).to(self.device)
+        outs = scan_record(cfg, self._table, plane, 0, total_scan, n,
+                           self._runtime_params(), n_tiles)
+        chunks = []
+        for t, out in enumerate(outs):
+            if not out.hit_total:
+                continue
+            rows = np.empty((out.hit_total, 6), dtype=np.int64)
+            for col, v in ((0, out.pos1), (1, out.pos2), (2, out.entry),
+                           (4, out.pair_order), (5, out.rank)):
+                rows[:, col] = v.cpu().numpy()
+            rows[:, 3] = t
+            chunks.append(rows)
+        return np.concatenate(chunks) if chunks else empty
+
+    def search(
+        self, fasta_records: List[FASTARecord], output_file: Optional[str] = None
+    ) -> int:
+        """Search all records; emit 5-field tab-delimited hits
+        (reference engine.py:365-451; line format engine.py:442)."""
+        self._check_supported()
+        total_hits = 0
+        # None or the literal string "stdout" (any case) -> stdout
+        # (reference engine.py:368-371)
+        if output_file and output_file.lower() != "stdout":
+            output = open(output_file, "w")
+        else:
+            output = sys.stdout
+        search_t0 = time.time()
+        total_bp = 0
+        have_table = self._meta is not None and self._meta.n_entries > 0
+        try:
+            for record in fasta_records:
+                seq_label = record.label
+                seq_len = len(record.sequence)
+                logger.info("Processing sequence: %s (%d bp)", seq_label, seq_len)
+                if have_table:
+                    seq = record_seq_bytes(record)
+                    packed = record_packed(record) if seq_len > self.wordsize else None
+                    arr = self._scan_record(seq, packed)
+                else:
+                    arr = np.zeros((0, 6), dtype=np.int64)
+                if len(arr):
+                    # Reproduce T=1 ordering: stable sort by pos1 over hits
+                    # emitted scan-order (tile, pair, rank) — engine.py:434.
+                    key = np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))
+                    arr = arr[key]
+                    e2r = self._meta.entry_to_record
+                    for pos1, pos2, entry, _t, _o, _r in arr:
+                        sts = self.sts_records[int(e2r[int(entry)])]
+                        print(
+                            f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
+                            file=output,
+                        )
+                    total_hits += len(arr)
+                total_bp += seq_len
+        finally:
+            if output is not sys.stdout:
+                output.close()
+
+        elapsed = time.time() - search_t0
+        if elapsed > 0 and total_bp:
+            logger.info(
+                "Throughput: %.2f Mbp/s (%d bp in %.3fs)",
+                total_bp / 1e6 / elapsed, total_bp, elapsed,
+            )
+        logger.info(f"Total hits found: {total_hits}")
+        self.total_hits = total_hits
+        return total_hits

@@ -1,0 +1,109 @@
+"""K1 ``front_end``: the strict (N=0) unit-projection front end of a tile.
+
+Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl``, packed decode and
+strict branch (``scan.py:452-502``, ``:522-578``; ``_bit_at`` ``:252``).
+For every u32 unit (8 scan positions) of the tile's scan span: one bit of
+``qbloom_s`` keyed by window bases 7..19, an exact-width OR-smear telling
+whether some phase's W-mer window is clean, and ``flag = in bounds & some
+clean phase & (table hit | dirty key)``. Flags are packed LSB-first into
+32-unit words; ``c_total`` counts them.
+
+Kernel: ``csrc/front_end.cu`` (one thread per unit, ``__ballot_sync``
+words, one atomicAdd per warp). On the card it is bound by memory: the
+tile's plane bytes plus one 4-byte gather per unit into the 8 MB
+L2-resident table. ``front_end_plain`` is the same function in plain
+PyTorch; the wrapper uses it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .units import M32, kernel_route, require, to_i32, u32, unit_regs, units_of
+
+_PROJ_SHIFT = 14  # 2 * PROJ_UNIT_START: the key starts at window base 7
+_PROJ_HI = 0xFF  # bases 16..19 come from the B register
+
+
+def _dirty_smear(Aa, Ba, W: int):
+    """Field d of the result is nonzero iff bases d..d+W-1 hold a dirty
+    base (scan.py:546-560)."""
+    lo, hi = [Aa], [Ba]
+    for k in range(1, 5):
+        s = 1 << k
+        lo.append(lo[-1] | (lo[-1] >> s) | ((hi[-1] << (32 - s)) & M32))
+        hi.append(hi[-1] | (hi[-1] >> s))
+    acc = torch.zeros_like(Aa)
+    got = 0
+    for k in range(4, -1, -1):
+        if W & (1 << k):
+            s = 2 * got
+            acc = acc | (lo[k] if s == 0 else (lo[k] >> s) | ((hi[k] << (32 - s)) & M32))
+            got += 1 << k
+    return acc
+
+
+def _check(tile, lead: int, tile_len: int, n_scan: int) -> int:
+    n_units = tile_len // 8
+    if not 0 <= n_scan <= tile_len:
+        raise ValueError(f"n_scan {n_scan} outside [0, {tile_len}]")
+    if tile_len % 256:
+        raise ValueError(f"tile_len {tile_len} is not a multiple of 256")
+    if lead % 32:
+        raise ValueError(f"lead {lead} is not a multiple of 32")
+    if tile.numel() < lead // 2 + 4 * (n_units + 2):
+        raise ValueError("tile plane shorter than lead + tile_len + 3 units")
+    return n_units
+
+
+def front_end_plain(tile, qbloom_s, gq: int, wordsize: int, lead: int,
+                    tile_len: int, n_scan: int):
+    """(words int32[tile_len/256], c_total int32[1]) in plain PyTorch."""
+    n_units = _check(tile, lead, tile_len, n_scan)
+    units = units_of(tile[: tile.numel() // 4 * 4])
+    r = torch.arange(n_units, device=tile.device)
+    A, Aa, B, Ba = unit_regs(units, r + lead // 8)
+    kfull = (A >> _PROJ_SHIFT) | ((B & _PROJ_HI) << (32 - _PROJ_SHIFT))
+    vfull = (Aa >> _PROJ_SHIFT) | ((Ba & _PROJ_HI) << (32 - _PROJ_SHIFT))
+    m2q = (1 << gq) - 1
+    bk = kfull & m2q
+    key_clean = (vfull & m2q) == 0
+    hit = ((u32(qbloom_s)[bk >> 5] >> (bk & 31)) & 1) == 1
+    acc = _dirty_smear(Aa, Ba, wordsize)
+    some_phase_clean = ((acc | (acc >> 1)) & 0x5555) != 0x5555
+    flag = some_phase_clean & (r * 8 < n_scan) & (hit | ~key_clean)
+    lanes = torch.arange(32, device=tile.device)
+    words = (flag.view(-1, 32).to(torch.int64) << lanes).sum(dim=1)
+    c_total = flag.sum().to(torch.int32).reshape(1)
+    return to_i32(words), c_total
+
+
+def front_end(tile, qbloom_s, gq: int, wordsize: int, lead: int,
+              tile_len: int, n_scan: int):
+    """Flag words and c_total of one tile: the CUDA kernel for tensors on
+    the card, ``front_end_plain`` for CPU tensors.
+
+    ``tile``: uint8 plane of the halo-padded tile (2 bases per byte);
+    ``qbloom_s``: int32 words of the strict table (2^gq bits)."""
+    if not kernel_route(tile, qbloom_s):
+        return front_end_plain(tile, qbloom_s, gq, wordsize, lead, tile_len, n_scan)
+    require(tile, torch.uint8, "tile")
+    require(qbloom_s, torch.int32, "qbloom_s")
+    n_units = _check(tile, lead, tile_len, n_scan)
+    if (tile.data_ptr() + lead // 2) % 4:
+        raise ValueError("tile plane is not 4-byte aligned")
+    words = torch.empty(n_units // 32, dtype=torch.int32, device=tile.device)
+    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    P, I = kernels.P, kernels.I
+    fn = kernels.function("front_end", "mp_front_end", [P, P, I, I, I, I, P, P, P])
+    kernels.call(
+        fn, tile.data_ptr() + lead // 2, qbloom_s.data_ptr(), gq, wordsize,
+        n_units, n_scan, words.data_ptr(),
+        c_total.data_ptr(), kernels.stream(tile),
+    )
+    front_end.launches += 1
+    return words, c_total
+
+
+front_end.launches = 0

@@ -1,0 +1,144 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded through ``ctypes``: pointers and
+the CUDA stream travel as ``c_void_p``, and every C entry returns
+``cudaGetLastError()`` so a refused launch raises here instead of passing
+silently. Libraries land in the package's ``_build/`` directory under a
+name that carries a digest of the sources and flags, so a changed source
+rebuilds and an unchanged one is built once per checkout. Building happens
+on first use, never at import: machines without ``nvcc`` (the CPU test
+machines) import this module freely. A failed build raises; nothing falls
+back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("front_end", "expand", "verify_p1", "margin_p2")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+BUILD_TIMEOUT_S = 600
+
+_LOCK = threading.Lock()
+_FUNCS: dict = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: $CUDA_HOME/bin, /usr/local/cuda/bin, PATH."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def lib_path(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn == f"{name}.cu" or fn.endswith(".cuh"):
+            with open(os.path.join(CSRC, fn), "rb") as fh:
+                h.update(fn.encode() + fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library of ``names`` that is not built yet, one nvcc
+    process per source, all started together. Returns {name: compiler
+    output} for the sources compiled by this call (``-Xptxas -v`` prints
+    each kernel's registers and shared memory). Raises RuntimeError if any
+    compile fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = {}
+    try:
+        for name in names:
+            out = lib_path(name)
+            if os.path.exists(out):
+                continue
+            tmp = f"{out}.{os.getpid()}.tmp"
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   os.path.join(CSRC, f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )
+            jobs[name] = (proc, tmp, out)
+        logs, failed = {}, []
+        for name, (proc, tmp, out) in jobs.items():
+            logs[name], _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                # rename into place: a concurrent process never loads a
+                # half-written library
+                os.replace(tmp, out)
+    finally:
+        for proc, tmp, _out in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if failed:
+        raise RuntimeError(
+            "CUDA kernel build failed:\n"
+            + "\n".join(f"[{n}]\n{logs[n]}" for n in failed)
+        )
+    return logs
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C entry ``symbol`` of library ``name``, typed, returning int.
+
+    The first call builds every kernel library that is missing (one
+    parallel nvcc round), then loads ``name``."""
+    key = (name, symbol)
+    with _LOCK:
+        fn = _FUNCS.get(key)
+        if fn is None:
+            build()
+            lib = ctypes.CDLL(lib_path(name))
+            lib.mp_error_string.restype = ctypes.c_char_p
+            lib.mp_error_string.argtypes = [ctypes.c_int]
+            fn = getattr(lib, symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            fn.error_string = lib.mp_error_string
+            _FUNCS[key] = fn
+    return fn
+
+
+def call(fn, *args) -> None:
+    """Run a C entry; raise if it reports a CUDA error."""
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA error {rc} in {fn.__name__}: {fn.error_string(rc).decode()}"
+        )
+
+
+def stream(t: torch.Tensor) -> int:
+    """Raw handle of the current CUDA stream of ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int  # noqa: E741 - C type aliases read like the signatures
+LL = ctypes.c_longlong
+

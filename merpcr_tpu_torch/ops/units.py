@@ -1,0 +1,92 @@
+"""Helpers of the plain PyTorch kernel versions (the counterparts of
+``csrc/units.cuh`` and ``csrc/compact.cuh``).
+
+PyTorch's CPU build has no shifts on ``torch.uint32`` and its ``int32``
+right shift sign-extends, so the plain versions hold every 32-bit word in
+an int64 tensor and mask with ``M32`` after each left shift or multiply;
+the results equal the kernels' ``uint32_t`` arithmetic bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+M32 = 0xFFFFFFFF
+
+
+def u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 words (uint32 bit patterns) -> int64 values in [0, 2^32)."""
+    return t.to(torch.int64) & M32
+
+
+def to_i32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 tensor with the same bits."""
+    return torch.where(t >= (1 << 31), t - (1 << 32), t).to(torch.int32)
+
+
+def units_of(plane: torch.Tensor) -> torch.Tensor:
+    """uint8 plane -> its little-endian uint32 units (as int64)."""
+    b = plane.to(torch.int64).view(-1, 4)
+    return b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+
+
+def codes_of(u: torch.Tensor) -> torch.Tensor:
+    """The 8 low 2-bit fields of a unit's nibbles, packed into 16 bits."""
+    m = u & 0x33333333
+    m = (m | (m >> 2)) & 0x0F0F0F0F
+    m = (m | (m >> 4)) & 0x00FF00FF
+    return (m | (m >> 8)) & 0xFFFF
+
+
+def dirty_of(u: torch.Tensor) -> torch.Tensor:
+    """Per-base 2-bit field, nonzero iff the base's nibble is >= 4."""
+    return codes_of(u >> 2)
+
+
+def unit_regs(units: torch.Tensor, r: torch.Tensor):
+    """(A, Aa, B, Ba) registers of the 24-base windows at units ``r``:
+    A = bases 0..15, B = bases 16..23, with their dirty fields."""
+    u0, u1, u2 = units[r], units[r + 1], units[r + 2]
+    A = codes_of(u0) | (codes_of(u1) << 16)
+    Aa = dirty_of(u0) | (dirty_of(u1) << 16)
+    return A, Aa, codes_of(u2), dirty_of(u2)
+
+
+def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a, c in [0, 2^32), without int64 overflow."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def nibbles_at(plane: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """4-bit codes at plane positions ``pos`` (low nibble = even position);
+    positions outside the plane read 0xFF, which equals no primer code."""
+    n_pos = 2 * plane.numel()
+    inside = (pos >= 0) & (pos < n_pos)
+    p = pos.clamp(0, n_pos - 1)
+    b = plane[p >> 1].to(torch.int64)
+    nib = torch.where((p & 1) == 1, b >> 4, b & 15)
+    return torch.where(inside, nib, torch.full_like(nib, 0xFF))
+
+
+def kernel_route(*tensors: torch.Tensor) -> bool:
+    """True when the inputs lie on a CUDA device (launch the kernel), False
+    when they lie on the CPU (plain version). Mixed or other devices raise."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devs))}")
+    dev = devs.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    """A kernel argument must have ``dtype`` and be contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

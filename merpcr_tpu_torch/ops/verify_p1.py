@@ -1,0 +1,97 @@
+"""K6 ``verify_p1``: primer-1 verify of the candidate pairs -> anchors.
+
+Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl`` stage K6, the primer-1
+verify (``scan.py:979-1045``; ``_row_window`` ``:350-382``): per pair, the
+entry's ``emeta`` row, the anchor ``k = position - hash_offset``, the record
+bounds (``:1010``), then the genome's 4-bit codes against ``p1_codes`` over
+the primer length with the mismatch budget (-N) and the '+' strand's
+last-X-bases protection (-X). The passing pairs, in pair order, are the
+anchors; ``a_idx`` holds their pair indices, and ``anch_total`` is its
+length.
+
+The JAX stage gathers whole 16-byte rows and clamps them into the plane;
+here each pair reads exactly its primer's nibbles, guarded at the plane's
+edges. Kernel: ``csrc/verify_p1.cu`` (one thread per pair, then the
+order-preserving compaction of ``csrc/compact.cuh``; one host read of
+``anch_total`` sizes ``a_idx``). On the card it is launch-bound: pairs
+number in the hundreds per 2^23-base tile. ``verify_p1_plain`` is the same
+function in plain PyTorch; the wrapper uses it only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+from .units import kernel_route, nibbles_at, require
+
+
+def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, tile_start: int,
+                    record_len: int, lead: int, mismatches: int,
+                    three_prime: int):
+    """a_idx int32[anch_total] (pair indices, ascending) in plain PyTorch."""
+    dev = tile.device
+    e = entry.to(torch.int64)
+    em = emeta.to(torch.int64)[e]
+    hoff, l1 = em[:, 0], em[:, 1]
+    pos = ppos.to(torch.int64)
+    kg = tile_start + pos - hoff
+    inb = (kg >= 0) & (kg + l1 <= record_len)  # scan.py:1010
+    i = torch.arange(p1_codes.shape[1], device=dev)
+    nib = nibbles_at(tile, (pos - hoff + lead)[:, None] + i)
+    mm = (i < l1[:, None]) & (nib != p1_codes.to(torch.int64)[e])
+    prot = i >= (l1[:, None] - three_prime)  # '+': last X bases
+    ok = inb & ~(mm & prot).any(dim=1) & (mm.sum(dim=1) <= mismatches)
+    return torch.nonzero(ok).flatten().to(torch.int32)
+
+
+def verify_p1(tile, entry, ppos, emeta, p1_codes, tile_start: int,
+              record_len: int, lead: int, mismatches: int, three_prime: int):
+    """Anchors of one tile: the CUDA kernel for tensors on the card,
+    ``verify_p1_plain`` for CPU tensors.
+
+    ``entry``/``ppos``: int32 pairs from ``expand``; ``emeta``: int32[E, 8];
+    ``p1_codes``: uint8[E, P1MAX]; ``tile_start``: record position of the
+    tile's first scan position; ``lead``: its index in the tile plane."""
+    if not kernel_route(tile, entry, ppos, emeta, p1_codes):
+        return verify_p1_plain(tile, entry, ppos, emeta, p1_codes, tile_start,
+                               record_len, lead, mismatches, three_prime)
+    require(tile, torch.uint8, "tile")
+    for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
+        require(t, torch.int32, name)
+    require(p1_codes, torch.uint8, "p1_codes")
+    if entry.shape != ppos.shape:
+        raise ValueError("entry and ppos differ in length")
+    dev = tile.device
+    n = entry.numel()
+    if n == 0:  # nothing to launch over
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    n_blk = -(-n // 256)
+    ok = torch.empty(n, dtype=torch.uint8, device=dev)
+    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    P, I, LL = kernels.P, kernels.I, kernels.LL
+    count = kernels.function(
+        "verify_p1", "mp_verify_p1_count",
+        [P, LL, P, P, I, P, P, I, LL, LL, I, I, I, P, P, P, P, P],
+    )
+    write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
+    s = kernels.stream(tile)
+    blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+    kernels.call(
+        count, tile.data_ptr(), 2 * tile.numel(), entry.data_ptr(),
+        ppos.data_ptr(), n, emeta.data_ptr(), p1_codes.data_ptr(),
+        p1_codes.shape[1], tile_start, record_len, lead, mismatches,
+        three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
+        total.data_ptr(), s,
+    )
+    anch_total = int(total.item())
+    a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
+    if anch_total:
+        kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
+                     a_idx.data_ptr(), s)
+    verify_p1.launches += 1
+    return a_idx
+
+
+verify_p1.launches = 0

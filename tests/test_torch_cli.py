@@ -1,0 +1,84 @@
+"""The port's CLI (``python -m merpcr_tpu_torch``) against the JAX
+package's: legacy ``M=50`` syntax, ``-O``, ``--version``."""
+
+from __future__ import annotations
+
+import io
+import os
+import subprocess
+import sys
+from contextlib import redirect_stdout
+
+import pytest
+import torch
+
+pytest.importorskip("jax")
+
+from merpcr_tpu import cli as jax_cli  # noqa: E402
+from merpcr_tpu_torch import __version__, cli  # noqa: E402
+
+from .conftest import GOLDEN_FA, GOLDEN_LINE, GOLDEN_STS  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _jax_device_path(monkeypatch):
+    monkeypatch.setenv("MERPCR_TPU_HOST_MAX", "0")
+
+
+def _run(main, argv, **kw):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = main(argv, **kw)
+    return rc, buf.getvalue()
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["M=50"], ["M=0", "N=0", "W=11", "X=1"], ["-M", "100", "-Q", "0", "T=4"],
+     ["M=64", "Z=300", "P=3"]],
+)
+def test_legacy_and_modern_flags_match_jax(flags):
+    argv = [GOLDEN_STS, GOLDEN_FA, *flags]
+    rc, out = _run(cli.main, argv, device="cpu")
+    jrc, jout = _run(jax_cli.main, argv)
+    assert (rc, out) == (jrc, jout) == (0, out)
+    if flags != ["M=0", "N=0", "W=11", "X=1"]:
+        assert out == GOLDEN_LINE + "\n"
+
+
+def test_output_file(tmp_path):
+    out = tmp_path / "hits.txt"
+    rc, stdout = _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-O", str(out)], device="cpu")
+    assert rc == 0 and stdout == ""
+    assert out.read_text() == GOLDEN_LINE + "\n"
+    rc, stdout = _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "O=stdout"], device="cpu")
+    assert rc == 0 and stdout == GOLDEN_LINE + "\n"
+
+
+def test_version(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--version"], device="cpu")
+    assert e.value.code == 0
+    assert capsys.readouterr().out.strip() == f"merPCR-TPU version {__version__}"
+
+
+def test_failures_exit_1(tmp_path):
+    bad = tmp_path / "bad.sts"
+    bad.write_text("only\tthree\tfields\n")
+    assert _run(cli.main, [str(bad), GOLDEN_FA], device="cpu")[0] == 1
+    empty = tmp_path / "empty.fa"
+    empty.write_text("")
+    assert _run(cli.main, [GOLDEN_STS, str(empty)], device="cpu")[0] == 1
+    assert _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-N", "2"], device="cpu")[0] == 1
+
+
+def test_module_entry_point_needs_a_card():
+    """``python -m merpcr_tpu_torch`` runs on the card: without one it
+    fails loudly instead of scanning on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "merpcr_tpu_torch", GOLDEN_STS, GOLDEN_FA],
+                       cwd=root, capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and r.stdout == ""
+    assert "no CUDA device" in r.stderr
