@@ -27,11 +27,31 @@ closing device line is printed only when every phase passed):
              step and device time per kernel from torch.profiler
 6. golden    tests/data through the API and through
              ``python -m merpcr_tpu_torch``: exactly the golden line
+7. assembly  a draft assembly: 30 Mbp of random ACGT in 3,000 equal
+             scaffolds x --nsts random STS, --planted amplicons planted
+             wholly inside scaffolds; every fourth planted STS carries R/Y/N
+             letters in its primers and its sites resolve them. Three
+             variants: (a) clean at -I 0, (b) the same scaffolds with 1 %
+             scattered NRYKMSWBDHV (scattered before planting) at -I 0, (c)
+             variant (b) at -I 1. Each runs cold then warm on the card
+             through the stream path (launch counts read around the warm
+             run: every kernel launched, at most once per stream tile);
+             every planted ACGT-primer line present, the R/Y/N-primer lines
+             present in (c) only; bytes equal to device="cpu"; the
+             dirty-span filter (K10) armed in (b) and (c)
+8. stream_kernels  on one real 2^21 stream tile of variant (c), each
+             kernel's stream + dirty-span + IUPAC variant against its plain
+             version on the same card tensors (tolerance 0); the tile must
+             hold anchors and hits that only the IUPAC expansion-set match
+             admits; times from CUDA events and torch.profiler, byte/op
+             bound
 
 The second-to-last JSON line lists every kernel with its launches on the
-main path, error against its plain version, times and byte bound; the
-line before the last is nvidia-smi's name and power limit; the last line
-is {"ok": true, "device": {...}}.
+main path, error against its plain version, times and bound: the record
+path's four kernels (phase 4 times, launches of the warm 47 Mbp search)
+and their stream variants (phase 8 times, launches of the warm variant (c)
+search); the line before the last is nvidia-smi's name and power limit;
+the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -52,6 +72,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit peak (fp32 table entry)
 TILE = 1 << 23
+STREAM_TILE = 1 << 21
+ASM_MBP = 30.0  # the assembly phase's size: bench.py's scaffolds_3000 row
+ASM_RECORDS = 3000
+AMBIGUITY = np.frombuffer(b"NRYKMSWBDHV", dtype=np.uint8)
+RESOLVE = {ord("R"): b"AG", ord("Y"): b"CT", ord("N"): b"ACGT"}
+COMP = bytes.maketrans(b"ACGTRYN", b"TGCAYRN")
+WRAPPERS = ("front_end", "expand", "verify_p1", "margin_p2")
 GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -75,6 +102,38 @@ def smi() -> str:
 
 
 # ---------------------------------------------------------------- workload
+def sts_rows(rng, n_sts: int):
+    """Random STS: primers of 18-25 random bases, products of 100-399."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rows = []
+    for i in range(n_sts):
+        p1 = acgt[rng.integers(0, 4, size=int(rng.integers(18, 26)))].tobytes()
+        p2 = acgt[rng.integers(0, 4, size=int(rng.integers(18, 26)))].tobytes()
+        rows.append((f"SMOKE{i}", p1, p2, int(rng.integers(100, 400))))
+    return rows
+
+
+def write_sts(path: str, rows) -> str:
+    with open(path, "w") as fh:
+        for sid, p1, p2, size in rows:
+            fh.write(f"{sid}\t{p1.decode()}\t{p2.decode()}\t{size}\talias {sid}\n")
+    return path
+
+
+def write_fasta(path: str, records, width: int = 80) -> str:
+    """``records``: (label, uint8 sequence) pairs, written ``width`` bases
+    per line."""
+    with open(path, "wb") as fh:
+        for label, seq in records:
+            n = len(seq)
+            pad = (-n) % width
+            body = np.concatenate([seq, np.full(pad, ord("\n"), np.uint8)]).reshape(-1, width)
+            body = np.concatenate([body, np.full((len(body), 1), ord("\n"), np.uint8)], axis=1)
+            fh.write(f">{label} synthetic {n} bp\n".encode())
+            fh.write(body.tobytes()[: n + -(-n // width)])  # ends in a newline
+    return path
+
+
 def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
     """(sts path, fasta path, genome length, expected planted lines)."""
     rng = np.random.default_rng(seed)
@@ -82,11 +141,7 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     genome = acgt[rng.integers(0, 4, size=n, dtype=np.uint8)]
     comp = bytes.maketrans(b"ACGT", b"TGCA")
-    rows = []
-    for i in range(n_sts):
-        p1 = acgt[rng.integers(0, 4, size=int(rng.integers(18, 26)))].tobytes()
-        p2 = acgt[rng.integers(0, 4, size=int(rng.integers(18, 26)))].tobytes()
-        rows.append((f"SMOKE{i}", p1, p2, int(rng.integers(100, 400))))
+    rows = sts_rows(rng, n_sts)
     label = "smoke_genome"
     expect, taken = [], []
 
@@ -107,19 +162,62 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
         plant(b - 60, k % n_sts, "+")  # amplicon across the tile boundary
         plant(b - 7, (k + 1) % n_sts, "-")  # anchor W-mer straddles it
         k += 2
-    sts = os.path.join(tmp, "smoke.sts")
-    with open(sts, "w") as fh:
-        for sid, p1, p2, size in rows:
-            fh.write(f"{sid}\t{p1.decode()}\t{p2.decode()}\t{size}\talias {sid}\n")
-    fa = os.path.join(tmp, "smoke.fa")
-    width = 80
-    pad = (-n) % width
-    body = np.concatenate([genome, np.full(pad, ord("\n"), np.uint8)]).reshape(-1, width)
-    body = np.concatenate([body, np.full((len(body), 1), ord("\n"), np.uint8)], axis=1)
-    with open(fa, "wb") as fh:
-        fh.write(f">{label} synthetic {n} bp\n".encode())
-        fh.write(body.tobytes()[: n + -(-n // width)])  # ends in a newline
+    sts = write_sts(os.path.join(tmp, "smoke.sts"), rows)
+    fa = write_fasta(os.path.join(tmp, "smoke.fa"), [(label, genome)])
     return sts, fa, n, expect
+
+
+def make_assembly(tmp: str, seed: int, n_sts: int, planted: int):
+    """A draft assembly (the shape of the JAX package's bench row
+    ``scaffolds_3000``): ASM_RECORDS equal scaffolds of random ACGT,
+    ``planted`` amplicons wholly inside scaffolds, and a dirty copy with
+    1 % scattered ambiguity letters (``bench.py``'s ``iupac_genome``)
+    scattered before planting. Every fourth planted STS gets two R/Y/N
+    letters in each primer (outside its 3'-end 12 bases, which hold the
+    anchor W-mer), and its sites hold ACGT bases that resolve them: only
+    -I 1 finds those. Returns (sts path, clean fasta, dirty
+    fasta, total bases, lines of the ACGT-primer plants, lines of the
+    R/Y/N-primer plants)."""
+    rng = np.random.default_rng(seed + 1)
+    n_rec = int(ASM_MBP * 1e6) // ASM_RECORDS
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    clean = acgt[rng.integers(0, 4, size=n_rec * ASM_RECORDS, dtype=np.uint8)]
+    dirty = clean.copy()
+    hit = rng.integers(0, len(dirty), size=len(dirty) // 100)
+    dirty[hit] = AMBIGUITY[rng.integers(0, len(AMBIGUITY), size=len(hit))]
+    rows = sts_rows(rng, n_sts)
+    expect, expect_iupac = [], []
+
+    def resolved(primer: bytes) -> np.ndarray:
+        site = bytes(rng.choice(list(RESOLVE[b])) if b in RESOLVE else b for b in primer)
+        return np.frombuffer(site, dtype=np.uint8)
+
+    for i in range(planted):  # one amplicon in every (ASM_RECORDS // planted)th scaffold
+        sid, p1, p2, size = rows[i]
+        if i % 4 == 3:
+            p1, p2 = bytearray(p1), bytearray(p2)
+            for p in (p1, p2):
+                # off the 3'-end W-mer, so that each entry keeps its hash
+                for j in rng.integers(0, len(p) - 12, size=2):
+                    p[j] = int(rng.choice(list(b"RYN")))
+            rows[i] = (sid, bytes(p1), bytes(p2), size)
+            p1, p2 = rows[i][1:3]
+        r = (i * ASM_RECORDS) // planted
+        pos = int(rng.integers(0, n_rec - size))
+        strand = "+" if i % 2 else "-"
+        left, right = (p1, p2) if strand == "+" else (p2, p1.translate(COMP)[::-1])
+        left, right = resolved(left), resolved(right)
+        for g in (clean, dirty):
+            s = g[r * n_rec : (r + 1) * n_rec]
+            s[pos : pos + len(left)] = left
+            s[pos + size - len(right) : pos + size] = right
+        line = f"scaf{r}\t{pos + 1}..{pos + size}\t{sid}\talias {sid}\t({strand})"
+        (expect_iupac if i % 4 == 3 else expect).append(line)
+    sts = write_sts(os.path.join(tmp, "asm.sts"), rows)
+    fas = [write_fasta(os.path.join(tmp, f"asm_{name}.fa"),
+                       [(f"scaf{r}", g[r * n_rec : (r + 1) * n_rec]) for r in range(ASM_RECORDS)])
+           for name, g in (("clean", clean), ("dirty", dirty))]
+    return sts, fas[0], fas[1], n_rec * ASM_RECORDS, expect, expect_iupac
 
 
 # ---------------------------------------------------------------- timing
@@ -184,32 +282,55 @@ def search_bytes(engine, recs) -> tuple:
 
 
 # ---------------------------------------------------------------- phases
-def phase_kernels(eng, recs, card: str) -> dict:
-    """Each kernel and its plain version on one real 2^23 tile."""
+def record_tile(eng, recs):
+    """(cfg, card plane, tile index, scan positions, rmeta, recmap) of the
+    47 Mbp record's plane: tile 1 starts at a tile boundary and holds
+    boundary plants on both sides."""
     from merpcr_tpu_torch.io.fasta import record_packed
+    from merpcr_tpu_torch.ops.scan import record_rmeta
+
+    n = len(recs[0].sequence)
+    total = n - eng.wordsize + 1
+    cfg = eng._base_config(eng._pick_tile_len(total))
+    check(cfg.tile_len == TILE, f"tile length {cfg.tile_len}")
+    n_tiles = -(-total // cfg.tile_len)
+    plane = eng._plane(record_packed(recs[0]), cfg.lead + n_tiles * cfg.tile_len + cfg.tail,
+                       cfg.lead)
+    return (cfg, torch.from_numpy(plane).to(eng.device), 1, total,
+            record_rmeta(n, eng.device), None)
+
+
+def stream_tile(eng, recs):
+    """The same for the assembly's stream plane (tile 1 of 2^21)."""
+    (kind, _, items), = eng._plan(recs)
+    check(kind == "stream", f"assembly plan is {kind}")
+    cfg, plane, total, _, rmeta, recmap = eng._stream_plane(items)
+    check(cfg.tile_len == STREAM_TILE and cfg.stream, f"stream tile {cfg.tile_len}")
+    dev = eng.device
+    return (cfg, torch.from_numpy(plane).to(dev), 1, total,
+            torch.from_numpy(rmeta).to(dev), torch.from_numpy(recmap).to(dev))
+
+
+def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
+    """Each kernel and its plain version on one real tile of ``laid``
+    (``record_tile``/``stream_tile``), with the config's filters."""
     from merpcr_tpu_torch.ops.expand import expand, expand_plain
     from merpcr_tpu_torch.ops.front_end import front_end, front_end_plain
     from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
     from merpcr_tpu_torch.ops.units import unit_regs, units_of
     from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
 
-    rec = recs[0]
-    n = len(rec.sequence)
-    W = eng.wordsize
-    total = n - W + 1
-    cfg = eng._base_config(eng._pick_tile_len(total))
-    L, lead = cfg.tile_len, cfg.lead
-    check(L == TILE, f"tile length {L}")
-    n_tiles = -(-total // L)
-    plane = torch.from_numpy(
-        eng._plane(record_packed(rec), lead + n_tiles * L + cfg.tail, lead)
-    ).to(eng.device)
-    t = 1  # starts at a tile boundary, holds boundary plants on both sides
+    cfg, plane, t, total, rmeta, recmap = laid
+    W, L, lead = eng.wordsize, cfg.tile_len, cfg.lead
     t0 = t * L
     tile = plane[t0 // 2 : t0 // 2 + cfg.tile_buf_in]
     n_scan = min(L, total - t0)
     tb = eng._table
     margin, nmm, x = eng._runtime_params()
+    bloom = tb.bloom if cfg.dirty_bloom else None
+    p1x, p2x = (tb.p1_exp, tb.p2_exp) if cfg.iupac else (None, None)
+    code_b = 4 if cfg.iupac else 1  # bytes per primer base read
+    rec_b = 12 if cfg.stream else 0  # recmap + rmeta bytes per candidate
     res = {}
 
     def run(name, kernel, plain, args, reps, n_bytes, n_ops, replaces, out_of):
@@ -221,7 +342,7 @@ def phase_kernels(eng, recs, card: str) -> dict:
         device_ms = sum(v[0] for v in dev.values()) * 1e3 / reps
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
-            "name": name, "route": "cuda",
+            "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
             "source": f"merpcr_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
@@ -229,7 +350,7 @@ def phase_kernels(eng, recs, card: str) -> dict:
             "bound_by": b_by, "library_ms": None,
         }
         if err:
-            raise RuntimeError(f"{name}: kernel differs from plain by {err}")
+            raise RuntimeError(f"{name}[{variant}]: kernel differs from plain by {err}")
         return got
 
     # K1: plane units of the scan span + the distinct qbloom_s words looked up
@@ -247,35 +368,52 @@ def phase_kernels(eng, recs, card: str) -> dict:
     )
     c_total = int(c_total.item())
     ex_args = (tile, words, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.bsc,
-               tb.emeta.shape[0], W, lead, L, n_scan)
+               tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
     first = expand(*ex_args)
     pos_total, pair_total = first[2], first[3]
     entry, ppos, _, _ = run(
         "expand", expand, expand_plain, ex_args, 20,
         n_units // 8 + c_total * (12 + 8) + pos_total * 12 + pair_total * 8,
-        4 * n_units + 300 * c_total, "merpcr_tpu/ops/scan.py:680", lambda o: o,
+        4 * n_units + (300 + (120 if bloom is not None else 0)) * c_total,
+        "merpcr_tpu/ops/scan.py:803" if bloom is not None else "merpcr_tpu/ops/scan.py:680",
+        lambda o: o,
     )
-    v_args = (tile, entry, ppos, tb.emeta, tb.p1_codes, t0, n, lead, nmm, x)
+    v_args = (tile, entry, ppos, tb.emeta, tb.p1_codes, p1x, t0, rmeta, recmap,
+              lead, nmm, x)
     a_idx = run(
         "verify_p1", verify_p1, verify_p1_plain, v_args, 20,
-        pair_total * (8 + 32 + 16 + tb.p1_codes.shape[1]),
-        pair_total * 6 * tb.p1_codes.shape[1], "merpcr_tpu/ops/scan.py:979",
+        pair_total * (8 + rec_b + 32 + 16 + code_b * tb.p1_codes.shape[1]),
+        pair_total * 6 * tb.p1_codes.shape[1],
+        "merpcr_tpu/ops/scan.py:985" if cfg.stream else "merpcr_tpu/ops/scan.py:979",
         lambda o: (o,),
     )
     anch = a_idx.numel()
-    m_args = (tile, a_idx, entry, ppos, tb.emeta, tb.p2_codes, t0, n, lead,
-              margin, nmm, x)
+    m_args = (tile, a_idx, entry, ppos, tb.emeta, tb.p2_codes, p2x, t0, rmeta,
+              recmap, lead, margin, nmm, x)
     rows = run(
         "margin_p2", margin_p2, margin_p2_plain, m_args, 20,
-        anch * (4 + 8 + 32 + tb.p2_codes.shape[1] + (2 * margin + cfg.p2_max) // 2),
-        anch * (2 * margin + 1) * 40, "merpcr_tpu/ops/scan.py:1047",
+        anch * (4 + 8 + rec_b + 32 + code_b * tb.p2_codes.shape[1]
+                + (2 * margin + cfg.p2_max) // 2),
+        anch * (2 * margin + 1) * 40,
+        "merpcr_tpu/ops/scan.py:1058" if cfg.stream else "merpcr_tpu/ops/scan.py:1047",
         lambda o: (o,),
     )
-    emit({"phase": "kernels", "tile": t, "tile_len": L, "card": card,
+    iupac_only = {}
+    if cfg.iupac:
+        # anchors and hits that only the expansion-set match admits: without
+        # them the comparison above could not tell the IUPAC kernels from
+        # code-equality ones
+        a_eq = verify_p1_plain(*v_args[:5], None, *v_args[6:])
+        r_eq = margin_p2_plain(*m_args[:6], None, *m_args[7:])
+        iupac_only = {"anch": anch - a_eq.numel(), "hit": int(rows.shape[0] - r_eq.shape[0])}
+        check(min(iupac_only.values()) > 0, f"{variant}: no IUPAC-only matches {iupac_only}")
+    emit({"phase": phase, "variant": variant or "record", "tile": t, "tile_len": L,
+          "card": card, "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
+          "stream": cfg.stream, "iupac_only": iupac_only,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
           "kernels": [{k: r[k] for k in ("name", "equal", "kernel_ms", "device_ms",
-                                         "plain_ms", "max_abs_err")}
+                                         "plain_ms", "max_abs_err", "bound_ms")}
                       for r in res.values()]})
     return res
 
@@ -284,7 +422,7 @@ def breakdown(eng, recs) -> dict:
     """Host-clock time of each step of one record's search, and device
     time by kernel name from torch.profiler over the tile scan."""
     from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
-    from merpcr_tpu_torch.ops.scan import scan_record
+    from merpcr_tpu_torch.ops.scan import record_rmeta, scan_stream
 
     rec = recs[0]
     seq, packed = record_seq_bytes(rec), record_packed(rec)
@@ -301,11 +439,13 @@ def breakdown(eng, recs) -> dict:
     out["plane_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     plane = torch.from_numpy(plane_np).to(eng.device)
+    rmeta = record_rmeta(n, eng.device)
     torch.cuda.synchronize()
     out["upload_s"] = time.perf_counter() - t0
 
     def scan():
-        scan_record(cfg, eng._table, plane, 0, total, n, eng._runtime_params(), n_tiles)
+        scan_stream(cfg, eng._table, plane, total, n, rmeta, None,
+                    eng._runtime_params(), n_tiles)
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -322,6 +462,85 @@ def breakdown(eng, recs) -> dict:
         for k, v in dev.items()
     }
     return out
+
+
+def stream_breakdown(eng, recs) -> dict:
+    """Host-clock time of each step of one warm stream search, and device
+    busy time over its tile scan from torch.profiler."""
+    out = {}
+    t0 = time.perf_counter()
+    (_, _, items), = eng._plan(recs)
+    out["plan_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    laid = eng._stream_plane(items)  # dirty rates, layout, 0xFF plane
+    out["layout_s"] = time.perf_counter() - t0
+
+    def scan():
+        eng._scan_plane(*laid)  # upload, tiles, one download of the rows
+        torch.cuda.synchronize()
+
+    scan()  # warm
+    t0 = time.perf_counter()
+    scan()
+    out["scan_plane_s"] = time.perf_counter() - t0
+    dev = device_time(scan)
+    busy = sum(v[0] for v in dev.values())
+    out["device_busy_s"] = busy if dev else None
+    out["device_idle_share"] = (1 - busy / out["scan_plane_s"]) if dev else None
+    out["tiles"] = -(-laid[2] // laid[0].tile_len)
+    out["device_by_name"] = {
+        k.replace("(anonymous namespace)::", "").split("(")[0]: {
+            "device_s": v[0], "count": v[1]}
+        for k, v in dev.items()
+    }
+    return out
+
+
+def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
+                   n_bp: int, card: str, variant: str, want_bloom: bool):
+    """One assembly variant end to end on the card (cold, then warm with
+    the launch counts read around it) and against device="cpu": every line
+    of ``expect`` present, none of ``absent``."""
+    eng = MerPCR(iupac_mode=iupac)
+    t0 = time.perf_counter()
+    check(eng.load_sts_file(sts), "STS load failed")
+    t_table = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = eng.load_fasta_file(fa)
+    t_fasta = time.perf_counter() - t0
+    check(len(recs) == ASM_RECORDS, f"{len(recs)} records")
+    cold, hits_cold, t_cold = search_bytes(eng, recs)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    warm, hits, t_warm = search_bytes(eng, recs)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(warm == cold and hits == hits_cold, f"{variant}: warm search differs from cold")
+    (cfg, n_tiles, n_rec), = eng.last_scans
+    check(cfg.stream and n_rec == ASM_RECORDS, f"{variant}: not one stream plane: {eng.last_scans}")
+    check(cfg.dirty_bloom == want_bloom, f"{variant}: dirty_bloom {cfg.dirty_bloom}")
+    check(cfg.iupac == bool(iupac), f"{variant}: iupac {cfg.iupac}")
+    check(all(0 < v <= n_tiles for v in launches.values()),
+          f"{variant}: launches {launches} for {n_tiles} stream tiles")
+    lines = set(warm.splitlines())
+    missing = [e for e in expect if e not in lines]
+    check(not missing, f"{variant}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
+    found = [e for e in absent if e in lines]
+    check(not found, f"{variant}: R/Y/N-primer lines found at -I 0, e.g. {found[:3]}")
+    cpu = MerPCR(device="cpu", iupac_mode=iupac)
+    check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+    cpu_out, _, t_cpu = search_bytes(cpu, recs)
+    check(cpu_out == warm, f"{variant}: card output differs from the CPU (plain) output")
+    emit({"phase": "assembly", "variant": variant, "card": card, "bases": n_bp,
+          "records": ASM_RECORDS, "iupac": iupac, "dirty_bloom": cfg.dirty_bloom,
+          "stream_tiles": n_tiles, "tile_len": cfg.tile_len, "hits": hits,
+          "planted_found": len(expect), "planted_absent": len(absent),
+          "cold_s": t_cold, "warm_s": t_warm,
+          "warm_mbp_per_s": n_bp / 1e6 / t_warm, "cpu_plain_s": t_cpu,
+          "table_compile_s": t_table, "fasta_load_s": t_fasta,
+          "peak_mem_bytes": peak, "launches": launches, "equal_to_cpu": True})
+    return eng, recs, launches
 
 
 def main() -> int:
@@ -378,7 +597,7 @@ def main() -> int:
         check(len(recs) == 1 and len(recs[0].sequence) == n, "FASTA load")
 
         # 4. kernels
-        res = phase_kernels(eng, recs, card)
+        res = phase_kernels(eng, record_tile(eng, recs), card, "kernels", "")
 
         # 5. end to end
         cold, hits_cold, t_cold = search_bytes(eng, recs)
@@ -419,12 +638,48 @@ def main() -> int:
         check(cli.returncode == 0 and cli.stdout == GOLDEN_LINE + "\n",
               f"golden CLI rc={cli.returncode} out={cli.stdout!r} "
               f"err={cli.stderr[-2000:]}")
-        emit({"phase": "golden", "api": True, "cli": True})
+        gi = MerPCR(iupac_mode=1)
+        check(gi.load_sts_file(g_sts), "golden STS load failed (-I 1)")
+        api_i, _, _ = search_bytes(gi, gi.load_fasta_file(g_fa))
+        cli_i = subprocess.run(
+            [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-I", "1"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        check(cli_i.returncode == 0 and cli_i.stdout == api_i and GOLDEN_LINE in api_i,
+              f"golden -I 1: CLI rc={cli_i.returncode} out={cli_i.stdout!r} "
+              f"api={api_i!r} err={cli_i.stderr[-2000:]}")
+        emit({"phase": "golden", "api": True, "cli": True, "cli_iupac": True})
+        del eng, g, gi
+
+        # 7. assembly
+        t0 = time.perf_counter()
+        a_sts, a_clean, a_dirty, a_bp, a_expect, a_expect_i = make_assembly(
+            tmp, args.seed, args.nsts, args.planted)
+        emit({"phase": "assembly_workload", "seconds": time.perf_counter() - t0,
+              "bases": a_bp, "records": ASM_RECORDS, "sts": args.nsts,
+              "planted_lines": len(a_expect), "planted_iupac_lines": len(a_expect_i)})
+        stream_launches = {}
+        for variant, fa_v, iupac, bloom in (("a_clean_I0", a_clean, 0, False),
+                                            ("b_dirty_I0", a_dirty, 0, True),
+                                            ("c_dirty_I1", a_dirty, 1, True)):
+            expect, absent = (a_expect + a_expect_i, []) if iupac else (a_expect, a_expect_i)
+            a_eng, a_recs, stream_launches = phase_assembly(
+                MerPCR, wrappers, a_sts, fa_v, iupac, expect, absent, a_bp,
+                card, variant, bloom)
+            if variant.startswith("c"):
+                emit({"phase": "assembly_breakdown", "variant": variant, "card": card,
+                      **stream_breakdown(a_eng, a_recs)})
+                # 8. stream kernels on one real stream tile of variant (c)
+                s_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
+                                      "stream_kernels", "stream+dirty_bloom+iupac")
+            del a_eng, a_recs
 
     for k, r in res.items():
         r["launches"] = launches[k]
-    emit({"kernels": [res[k] for k in wrappers], "card": card,
-          "seconds": time.perf_counter() - t_start})
+    for k, r in s_res.items():
+        r["launches"] = stream_launches[k]
+    emit({"kernels": [res[k] for k in wrappers] + [s_res[k] for k in wrappers],
+          "card": card, "seconds": time.perf_counter() - t_start})
     print(smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,10 @@
 // _blocked_scan :287-314), the strict phase expansion through the exact
 // phase table ptab (:757-927, ptab_bits :832-862), the hashed 16-base
 // position filter t16 (:929-949) and the dense W <= 11 CSR pair expansion
-// (exact_csr :728-730, :953-964).
+// (exact_csr :728-730, :953-964); and K10, the dirty-span phase filter
+// (dirty_bloom, :803-822, applied at :859-861): with a bloom table, a
+// phase of a unit whose stride-4 span is dirty survives only if its W-mer
+// is a key of the table's occupancy bitmap.
 //
 // Pairs come out in (unit, phase, bucket slot) order, so pair j here is
 // the JAX pipeline's pair j: the order is the emission key pair_order.
@@ -15,7 +18,10 @@
 // Bound on the card: memory, and little of it. One thread per unit reads
 // its flag word; only flagged units (a few per 10^4) read their three plane
 // words and make 2 ptab gathers (32 MB table), one t16 gather and one bsc
-// row gather (32 MB) per phase. Reduce-then-scan with recompute: the
+// row gather (32 MB) per phase; with the dirty-span filter armed, one
+// 4-byte gather into the 512 KB bloom per clean phase of a dirty span
+// (L2-resident; only the phases the filter decides are looked up, not all
+// eight as in the JAX stage). Reduce-then-scan with recompute: the
 // count pass keeps nothing per unit, the write pass recomputes the unit's
 // phases and writes at block offset + block-exclusive offset, so no buffer
 // is sized before its total is known and the order is exact.
@@ -34,12 +40,25 @@ struct Tables {
   int t16_bits;  // 0: no position filter
   const int* bsc;  // [4^W, 2] (start, count)
   int n_entries;
+  const uint32_t* bloom;  // W-mer occupancy bits (K10); null: filter off
+  int bloom_shift;  // 2W - bloom_bits
 };
+
+// K10: is phase d's W-mer (bases d..d+W-1 of the window) a table key?
+__device__ __forceinline__ bool bloom_hit(const mp::UnitRegs& g, int d, int W,
+                                          const Tables& t) {
+  const uint32_t m2w = mp::mask2w(W);
+  uint32_t wm = (g.A >> (2 * d)) & m2w;
+  if (2 * (d + W) > 32) wm |= (g.B << (32 - 2 * d)) & m2w;  // d >= 1 here
+  const uint32_t bk = wm >> t.bloom_shift;
+  return (__ldg(t.bloom + (bk >> 5)) >> (bk & 31u)) & 1u;
+}
 
 // Phase nibble of a flagged unit (scan.py:796-876 for stride 4, strict):
 // bit d set iff phase d's W-mer window is clean and in bounds, and -- when
 // the 14-base span of its stride group is clean -- ptab says phase d
-// starts some bucket key.
+// starts some bucket key, or -- when the span is dirty and the bloom is
+// armed -- the bloom holds phase d's W-mer.
 __device__ __forceinline__ uint32_t phase_bits(const mp::UnitRegs& g, int r,
                                                int W, int n_scan,
                                                const Tables& t) {
@@ -62,7 +81,13 @@ __device__ __forceinline__ uint32_t phase_bits(const mp::UnitRegs& g, int r,
     const uint32_t nbt = (__ldg(t.ptab + (kf >> 3)) >> ((kf & 7u) * 4u)) & 0xFu;
     const uint32_t nbv_p = (nbv >> (4 * p)) & 0xFu;
     const bool span_clean = (Aak & m2kb) == 0;
-    nb |= (span_clean ? (nbt & nbv_p) : nbv_p) << (4 * p);
+    uint32_t dirty_p = nbv_p;
+    if (!span_clean && t.bloom) {
+      for (int k = 0; k < 4; ++k)
+        if (((dirty_p >> k) & 1u) && !bloom_hit(g, 4 * p + k, W, t))
+          dirty_p &= ~(1u << k);
+    }
+    nb |= (span_clean ? (nbt & nbv_p) : dirty_p) << (4 * p);
   }
   return nb;
 }
@@ -151,14 +176,16 @@ extern "C" {
 // ints; totals is int[2] = (pos_total, pair_total), zeroed by the caller.
 int mp_expand_count(const void* units, const void* words, const void* ptab,
                     int pf_bits, const void* t16, int t16_bits,
-                    const void* bsc, int n_entries, int W, int n_units,
-                    int n_scan, void* blk_pairs, void* blk_off, void* totals,
+                    const void* bsc, int n_entries, const void* bloom,
+                    int bloom_shift, int W, int n_units, int n_scan,
+                    void* blk_pairs, void* blk_off, void* totals,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tables t = {static_cast<const uint32_t*>(ptab),
                     (1u << pf_bits) - 1u,
                     static_cast<const uint32_t*>(t16), t16_bits,
-                    static_cast<const int*>(bsc), n_entries};
+                    static_cast<const int*>(bsc), n_entries,
+                    static_cast<const uint32_t*>(bloom), bloom_shift};
   const int nb = mp::n_blocks(n_units);
   int* tot = static_cast<int*>(totals);
   expand_count_kernel<<<nb, mp::kBlock, 0, s>>>(
@@ -174,13 +201,15 @@ int mp_expand_count(const void* units, const void* words, const void* ptab,
 // Write pass: entry/ppos hold pair_total ints each.
 int mp_expand_write(const void* units, const void* words, const void* ptab,
                     int pf_bits, const void* t16, int t16_bits,
-                    const void* bsc, int n_entries, int W, int n_units,
-                    int n_scan, const void* blk_off, void* entry, void* ppos,
+                    const void* bsc, int n_entries, const void* bloom,
+                    int bloom_shift, int W, int n_units, int n_scan,
+                    const void* blk_off, void* entry, void* ppos,
                     void* stream) {
   const Tables t = {static_cast<const uint32_t*>(ptab),
                     (1u << pf_bits) - 1u,
                     static_cast<const uint32_t*>(t16), t16_bits,
-                    static_cast<const int*>(bsc), n_entries};
+                    static_cast<const int*>(bsc), n_entries,
+                    static_cast<const uint32_t*>(bloom), bloom_shift};
   expand_write_kernel<<<mp::n_blocks(n_units), mp::kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), static_cast<const uint32_t*>(words),

@@ -5,10 +5,14 @@
 // of the expected product end exp/hi/lo (:1070-1077), rank r -> offset d
 // = 0, -1, +1, -2, ... (_rank_d :344), the structural bounds (:1241-1248),
 // the rank mask (:1249-1257) and the primer-2 verify with the '-' strand's
-// first-X-bases protection (_p2_ok_of :1133-1158). Hits come out
-// anchor-major, rank-minor as rows (pos1, pos2, entry, pair_order, rank,
-// rec = 0). ops/host_scan.py:101-131 of the JAX package states the same
-// semantics in scalar form.
+// first-X-bases protection (_p2_ok_of :1133-1158; at -I 1 the IUPAC
+// expansion-set test of K11, :1139-1143). Every clamp and bound runs in the
+// coordinates of the anchor's record (K14, :1058-1077): its length and
+// index come from the record that owns the pair's scan position, while the
+// plane reads use the plane anchor. Hits come out anchor-major, rank-minor
+// as rows (pos1, pos2, entry, pair_order, rank, rec), pos1/pos2
+// record-local. ops/host_scan.py:101-131 of the JAX package states the
+// same semantics in scalar form.
 //
 // The JAX stage reads a window sized by the margin cap and clamps its row
 // gathers; here each (anchor, rank) reads exactly the nibbles of its own
@@ -22,6 +26,7 @@
 // in item order (compact.cuh), which is exactly (anchor, rank) order.
 
 #include "compact.cuh"
+#include "records.cuh"
 
 namespace {
 
@@ -33,9 +38,10 @@ struct Margin {
   const int* ppos;  // pair -> scan position in the tile
   const int* emeta;  // [E, 8]
   const uint8_t* p2_codes;  // [E, p2_max]
+  const uint32_t* p2_exp;  // [E, p2_max] IUPAC masks (-I 1); null: -I 0
   int p2_max;
-  long long tile_start;
-  long long record_len;
+  long long tile_start;  // plane position of the first scan position
+  mp::Records rec;
   int lead;
   int margin;  // runtime -M
   int nmm;
@@ -43,10 +49,11 @@ struct Margin {
 };
 
 struct Item {
-  int pair, e, rank;
-  long long ak, pos2;  // anchor (record position) and product end
+  int pair, e, rank, rec;
+  long long ak, pos2;  // anchor and product end (record-local)
   bool live;  // clamps, bounds and rank mask passed
-  long long p2;  // primer-2 site (record position)
+  long long p2;  // primer-2 site (record-local)
+  long long rstart;  // record start in plane coordinates
   int l2;
 };
 
@@ -60,8 +67,10 @@ __device__ __forceinline__ Item item_of(long long f, const Margin& m) {
   const int* em = m.emeta + 8LL * it.e;
   const long long hoff = em[0], l1 = em[1], l2 = em[2], exp0 = em[3];
   it.l2 = static_cast<int>(l2);
-  const long long ak = m.tile_start + m.ppos[it.pair] - hoff;
-  const long long arl = m.record_len;
+  const long long gpos = m.tile_start + m.ppos[it.pair];
+  const mp::RecordSpan r = mp::record_at(m.rec, gpos);
+  const long long ak = gpos - hoff - r.start;  // record-local anchor
+  const long long arl = r.len;
   const bool room = arl - (ak + l1) >= l2;  // engine.py:524-525
   const long long actual = arl - ak;
   const bool clamped = exp0 > actual;
@@ -74,6 +83,8 @@ __device__ __forceinline__ Item item_of(long long f, const Margin& m) {
   const long long p2 = ak + exp - l2 + d;
   // k + len_p1 <= p2 is checked for d <= 0 only (engine.py:546, 568)
   const bool fits = p2 + l2 <= arl && (d > 0 || p2 >= ak + l1);
+  it.rec = r.id;
+  it.rstart = r.start;
   it.ak = ak;
   it.p2 = p2;
   it.pos2 = p2 + l2 - 1;
@@ -82,11 +93,13 @@ __device__ __forceinline__ Item item_of(long long f, const Margin& m) {
 }
 
 __device__ __forceinline__ bool p2_ok(const Item& it, const Margin& m) {
-  const long long base = it.p2 - m.tile_start + m.lead;
-  const uint8_t* pc = m.p2_codes + static_cast<long long>(it.e) * m.p2_max;
+  const long long base = it.p2 + it.rstart - m.tile_start + m.lead;
+  const long long row = static_cast<long long>(it.e) * m.p2_max;
+  const uint8_t* pc = m.p2_codes + row;
+  const uint32_t* px = m.p2_exp ? m.p2_exp + row : nullptr;
   int mism = 0;
   for (int i = 0; i < it.l2; ++i) {
-    if (mp::nibble_at(m.plane, base + i, m.n_pos) != pc[i]) {
+    if (!mp::base_match(mp::nibble_at(m.plane, base + i, m.n_pos), i, pc, px)) {
       if (i < m.three_prime) return false;  // '-': first X bases
       ++mism;
     }
@@ -125,19 +138,23 @@ __global__ void margin_write_kernel(Margin m, long long n_items,
   row[2] = it.e;
   row[3] = it.pair;
   row[4] = it.rank;
-  row[5] = 0;  // single-record tiles: record 0
+  row[5] = it.rec;
 }
 
 Margin make_margin(const void* plane, long long n_pos, const void* a_idx,
                    const void* entry, const void* ppos, const void* emeta,
-                   const void* p2_codes, int p2_max, long long tile_start,
-                   long long record_len, int lead, int margin, int nmm,
-                   int three_prime) {
+                   const void* p2_codes, const void* p2_exp, int p2_max,
+                   long long tile_start, const void* rmeta,
+                   const void* recmap, long long n_map, int lead, int margin,
+                   int nmm, int three_prime) {
   return Margin{static_cast<const uint8_t*>(plane), n_pos,
                 static_cast<const int*>(a_idx), static_cast<const int*>(entry),
                 static_cast<const int*>(ppos), static_cast<const int*>(emeta),
-                static_cast<const uint8_t*>(p2_codes), p2_max, tile_start,
-                record_len, lead, margin, nmm, three_prime};
+                static_cast<const uint8_t*>(p2_codes),
+                static_cast<const uint32_t*>(p2_exp), p2_max, tile_start,
+                mp::Records{static_cast<const int*>(rmeta),
+                            static_cast<const int*>(recmap), n_map},
+                lead, margin, nmm, three_prime};
 }
 
 }  // namespace
@@ -146,18 +163,19 @@ extern "C" {
 
 // Count pass + block-sum scan over n_anch * (2 * margin + 1) items: hit
 // holds one byte per item, blk_cnt/blk_off n_blocks(items) ints, hit_total
-// one int.
+// one int. p2_exp null: -I 0. recmap null: the plane holds record 0 alone.
 int mp_margin_count(const void* plane, long long n_pos, const void* a_idx,
                     int n_anch, const void* entry, const void* ppos,
-                    const void* emeta, const void* p2_codes, int p2_max,
-                    long long tile_start, long long record_len, int lead,
-                    int margin, int nmm, int three_prime, void* hit,
+                    const void* emeta, const void* p2_codes,
+                    const void* p2_exp, int p2_max, long long tile_start,
+                    const void* rmeta, const void* recmap, long long n_map,
+                    int lead, int margin, int nmm, int three_prime, void* hit,
                     void* blk_cnt, void* blk_off, void* hit_total,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Margin m = make_margin(plane, n_pos, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_max, tile_start, record_len, lead,
-                               margin, nmm, three_prime);
+                               p2_codes, p2_exp, p2_max, tile_start, rmeta,
+                               recmap, n_map, lead, margin, nmm, three_prime);
   const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
   const int nb = mp::n_blocks(n_items);
   margin_count_kernel<<<nb, mp::kBlock, 0, s>>>(
@@ -172,13 +190,15 @@ int mp_margin_count(const void* plane, long long n_pos, const void* a_idx,
 // Write pass: rows holds hit_total x 6 ints.
 int mp_margin_write(const void* plane, long long n_pos, const void* a_idx,
                     int n_anch, const void* entry, const void* ppos,
-                    const void* emeta, const void* p2_codes, int p2_max,
-                    long long tile_start, long long record_len, int lead,
-                    int margin, int nmm, int three_prime, const void* hit,
+                    const void* emeta, const void* p2_codes,
+                    const void* p2_exp, int p2_max, long long tile_start,
+                    const void* rmeta, const void* recmap, long long n_map,
+                    int lead, int margin, int nmm, int three_prime,
+                    const void* hit,
                     const void* blk_off, void* rows, void* stream) {
   const Margin m = make_margin(plane, n_pos, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_max, tile_start, record_len, lead,
-                               margin, nmm, three_prime);
+                               p2_codes, p2_exp, p2_max, tile_start, rmeta,
+                               recmap, n_map, lead, margin, nmm, three_prime);
   const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
   margin_write_kernel<<<mp::n_blocks(n_items), mp::kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(

@@ -2,19 +2,23 @@
 //
 // Replaces merpcr_tpu/ops/scan.py::_scan_tile_impl stage K6, the primer-1
 // verify (scan.py:979-1045, _row_window :350-382): per pair, the entry's
-// emeta row, the anchor k = position - hash_offset, the record bounds
-// (:1010), then the genome's 4-bit codes against the primer codes over the
-// primer length with the mismatch budget and the '+' strand's last-X-bases
-// protection. The passing pairs, in pair order, are the anchors; an
-// anchor's pair index is its emission key pair_order.
+// emeta row, the anchor k = position - hash_offset, the record that owns
+// the scan position and the bounds in that record's coordinates (K14,
+// :985-1010), then the genome's 4-bit codes against the primer over the
+// primer length (code equality, or at -I 1 the IUPAC expansion-set test
+// of K11, :1020-1022) with the mismatch budget and the '+' strand's
+// last-X-bases protection. The passing pairs, in pair order, are the
+// anchors; an anchor's pair index is its emission key pair_order.
 //
 // Bound on the card: memory latency of small gathers. A pair reads one
 // 32-byte emeta row, at most 16 plane bytes and one primer row; pairs are
 // few (hundreds per 2^23-base tile), so the kernel is launch-bound. One
 // thread per pair, then the shared order-preserving compaction
-// (compact.cuh) over one flag byte per pair.
+// (compact.cuh) over one flag byte per pair. The record lookup adds two
+// dependent 4-byte gathers per pair (recmap, then rmeta).
 
 #include "compact.cuh"
+#include "records.cuh"
 
 namespace {
 
@@ -23,10 +27,11 @@ struct Verify1 {
   long long n_pos;  // positions in the tile plane
   const int* emeta;  // [E, 8]
   const uint8_t* p1_codes;  // [E, p1_max]
+  const uint32_t* p1_exp;  // [E, p1_max] IUPAC masks (-I 1); null: -I 0
   int p1_max;
-  long long tile_start;  // record position of the first scan position
-  long long record_len;
-  int lead;  // plane index of the first scan position
+  long long tile_start;  // plane position of the first scan position
+  mp::Records rec;
+  int lead;  // tile index of the first scan position
   int nmm;  // mismatch budget (-N)
   int three_prime;  // protected 3' bases (-X)
 };
@@ -34,13 +39,16 @@ struct Verify1 {
 __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
   const int* em = v.emeta + 8LL * e;
   const int hoff = em[0], l1 = em[1];
-  const long long kg = v.tile_start + pos - hoff;
-  if (kg < 0 || kg + l1 > v.record_len) return false;  // scan.py:1010
+  const mp::RecordSpan r = mp::record_at(v.rec, v.tile_start + pos);
+  const long long kg = v.tile_start + pos - hoff - r.start;  // record-local
+  if (kg < 0 || kg + l1 > r.len) return false;  // scan.py:1010
   const long long kl = static_cast<long long>(pos) - hoff + v.lead;
-  const uint8_t* pc = v.p1_codes + static_cast<long long>(e) * v.p1_max;
+  const long long row = static_cast<long long>(e) * v.p1_max;
+  const uint8_t* pc = v.p1_codes + row;
+  const uint32_t* px = v.p1_exp ? v.p1_exp + row : nullptr;
   int mism = 0;
   for (int i = 0; i < l1; ++i) {
-    if (mp::nibble_at(v.plane, kl + i, v.n_pos) != pc[i]) {
+    if (!mp::base_match(mp::nibble_at(v.plane, kl + i, v.n_pos), i, pc, px)) {
       if (i >= l1 - v.three_prime) return false;  // '+': last X bases
       ++mism;
     }
@@ -65,17 +73,22 @@ extern "C" {
 
 // Count pass + block-sum scan: ok holds n bytes, blk_cnt/blk_off hold
 // n_blocks(n) ints, anch_total one int.
+// p1_exp null: -I 0. recmap null: the plane holds record 0 alone.
 int mp_verify_p1_count(const void* plane, long long n_pos, const void* entry,
                        const void* ppos, int n, const void* emeta,
-                       const void* p1_codes, int p1_max,
-                       long long tile_start, long long record_len, int lead,
+                       const void* p1_codes, const void* p1_exp, int p1_max,
+                       long long tile_start, const void* rmeta,
+                       const void* recmap, long long n_map, int lead,
                        int nmm, int three_prime, void* ok, void* blk_cnt,
                        void* blk_off, void* anch_total, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Verify1 v = {static_cast<const uint8_t*>(plane), n_pos,
                      static_cast<const int*>(emeta),
-                     static_cast<const uint8_t*>(p1_codes), p1_max,
-                     tile_start, record_len, lead, nmm, three_prime};
+                     static_cast<const uint8_t*>(p1_codes),
+                     static_cast<const uint32_t*>(p1_exp), p1_max, tile_start,
+                     mp::Records{static_cast<const int*>(rmeta),
+                                 static_cast<const int*>(recmap), n_map},
+                     lead, nmm, three_prime};
   const int nb = mp::n_blocks(n);
   verify_p1_count_kernel<<<nb, mp::kBlock, 0, s>>>(
       static_cast<const int*>(entry), static_cast<const int*>(ppos), n, v,

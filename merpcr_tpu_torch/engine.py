@@ -9,12 +9,18 @@ on an NVIDIA GPU; its output is byte-identical to ``merpcr_tpu`` run on its
 device path (``MERPCR_TPU_HOST_MAX=0``), which is itself held to the
 reference CLI's T=1 output.
 
-What this engine scans so far is the default configuration: -N 0, -I 0,
-W <= 11, -M <= 128, records in the 16-letter FASTA alphabet and genomes
-whose ambiguity stays below the dirty-span filter's threshold. Anything
-else raises NotImplementedError naming the ROADMAP item that ports it;
-nothing falls back to another path. Multi-record FASTA is scanned record
-by record.
+What this engine scans so far: -N 0, -I 0 or 1, W <= 11, -M <= 128 and
+records in the 16-letter FASTA alphabet, at any ambiguity (the dirty-span
+phase filter arms itself as in the JAX package). Anything else raises
+NotImplementedError naming the ROADMAP item that ports it; nothing falls
+back to another path.
+
+Multi-record FASTA takes the stream path (``merpcr_tpu/engine.py``
+``_dispatch_stream``/``_collect_stream``): every run of two or more
+consecutive packable records is laid end to end in one plane, separated by
+0xFF gaps, and scanned as tiles of up to 2^21 positions, so the kernels
+launch once per tile, not once per record. A lone record takes the record
+path (one record per plane).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
-from .ops.scan import ScanConfig, default_config, margin_cap, scan_record
+from .ops.scan import ScanConfig, default_config, margin_cap, scan_stream
 from .ops.table import compile_table, table_from_numpy
 
 # Constants (reference engine.py:17-39)
@@ -55,12 +61,10 @@ MIN_PCR_SIZE = 1
 MAX_PCR_SIZE = 10000
 
 # Tile-length buckets (the JAX package's): the smallest bucket covering the
-# record is used, large genomes scan 2^23-position tiles.
+# record is used, large genomes scan 2^23-position tiles; a stream plane's
+# tiles stop at STREAM_MAX_TILE.
 TILE_LEN_BUCKETS = (1 << 15, 1 << 17, 1 << 19, 1 << 21, 1 << 23)
-
-# The JAX package arms its dirty-span phase filter (ROADMAP K10) when the
-# quantized dirty-in-16/clean-in-11 position rate reaches this.
-DIRTY_BLOOM_RATE = 1.0 / 256
+STREAM_MAX_TILE = 1 << 21
 
 logger = logging.getLogger(__name__)
 
@@ -109,6 +113,9 @@ class MerPCR:
         self.max_pcr_size = 0
         self.total_hits = 0
 
+        # (ScanConfig, tiles, records) of every plane the last search
+        # scanned, in order
+        self.last_scans: list = []
         self._table_host = None  # HostTable of NumPy arrays
         self._table_dev = None  # Table on self.device (see _table)
         self._meta = None  # TableMeta
@@ -152,8 +159,6 @@ class MerPCR:
             raise NotImplementedError(
                 "-N >= 2 runs the loose front end, ROADMAP queue B item K8"
             )
-        if self.iupac_mode:
-            raise NotImplementedError("-I 1 (IUPAC verify) is ROADMAP item K11")
         if self.wordsize >= 12:
             raise NotImplementedError("W >= 12 lookups are ROADMAP item K12")
         if 2 * margin_cap(self.margin) + 1 > 257:
@@ -248,8 +253,11 @@ class MerPCR:
         w11 = (cs[idx + 11] - cs[idx]) > 0
         return (w_unit, float((w16 & ~w11).mean()))
 
-    def _base_config(self, tile_len: int) -> ScanConfig:
-        """Tile geometry of the strict N=0 scan for the loaded table."""
+    def _base_config(self, tile_len: int, stream: bool = False,
+                     dirty_pos: float = 0.0) -> ScanConfig:
+        """Tile geometry and filters of the strict N=0 scan for the loaded
+        table; ``dirty_pos`` is the quantized dirty-position rate that
+        arms the dirty-span filter (K10)."""
         m = self._meta
         if not m.strict:
             raise NotImplementedError(
@@ -266,6 +274,10 @@ class MerPCR:
             tile_len=tile_len,
             stride=m.stride,
             t16_bits=m.t16_bits,
+            bloom_bits=m.bloom_bits,
+            iupac=bool(self.iupac_mode),
+            stream=stream,
+            dirty_pos_rate=dirty_pos,
         )
 
     @staticmethod
@@ -282,52 +294,174 @@ class MerPCR:
         return (self.margin, self.mismatches, self.three_prime_match)
 
     @staticmethod
-    def _pick_tile_len(total_scan: int) -> int:
-        for b in TILE_LEN_BUCKETS:
+    def _pick_tile_len(total_scan: int, max_tile: Optional[int] = None) -> int:
+        buckets = [b for b in TILE_LEN_BUCKETS if max_tile is None or b <= max_tile]
+        for b in buckets:
             if total_scan <= b:
                 return b
-        return TILE_LEN_BUCKETS[-1]
+        return buckets[-1]
+
+    def _scan_plane(self, cfg: ScanConfig, plane_np: np.ndarray,
+                    total_scan: int, stream_len: int, rmeta: np.ndarray,
+                    recmap) -> np.ndarray:
+        """Upload a plane and its record tables, run the four kernels over
+        its tiles, and download every tile's hits in one copy.
+
+        Returns an int64 array of shape (n_hits, 7) with columns
+        (pos1, pos2, entry, tile_idx, pair_order, rank, rec), pos1/pos2
+        0-based in the coordinates of record ``rec`` (an rmeta row)."""
+        n_tiles = -(-total_scan // cfg.tile_len)
+        self.last_scans.append((cfg, n_tiles, len(rmeta)))
+        dev = self.device
+        outs = scan_stream(
+            cfg, self._table, torch.from_numpy(plane_np).to(dev), total_scan,
+            stream_len, torch.from_numpy(rmeta).to(dev),
+            None if recmap is None else torch.from_numpy(recmap).to(dev),
+            self._runtime_params(), n_tiles,
+        )
+        parts = []
+        for t, o in enumerate(outs):
+            if o.hit_total:
+                tile = torch.full_like(o.rank, t)
+                parts.append(torch.stack(
+                    [o.pos1, o.pos2, o.entry, tile, o.pair_order, o.rank, o.rec],
+                    dim=1))
+        if not parts:
+            return np.zeros((0, 7), dtype=np.int64)
+        return torch.cat(parts).cpu().numpy().astype(np.int64)
 
     def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
-        """Run the four kernels over one record.
+        """Run the four kernels over one record (the record path: a plane
+        of [lead zeros][record][zeros]); the dirty-span filter is armed from
+        this record's own dirty rate (``merpcr_tpu/engine.py:497-504``).
 
         Returns an int64 array of shape (n_hits, 6) with columns
         (pos1, pos2, entry, tile_idx, pair_order, rank), 0-based."""
-        empty = np.zeros((0, 6), dtype=np.int64)
         n = len(seq)
         if n <= self.wordsize:  # reference engine.py:458-459 (note <=)
-            return empty
+            return np.zeros((0, 6), dtype=np.int64)
         if packed_rec is None:
             raise NotImplementedError(
                 "records with bytes outside the 16-letter FASTA alphabet "
                 "take the raw-byte path, ROADMAP queue B item K9"
             )
-        if self._quantize_dirty(self._dirty_of(seq, packed_rec)[1]) >= DIRTY_BLOOM_RATE:
-            raise NotImplementedError(
-                "genomes this ambiguous need the dirty-span phase filter, "
-                "ROADMAP queue B item K10"
-            )
         total_scan = n - self.wordsize + 1
         tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
-        cfg = self._base_config(tile_len)
+        dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
+        cfg = self._base_config(tile_len, dirty_pos=dirty_pos)
+        n_tiles = -(-total_scan // cfg.tile_len)
+        plane = self._plane(packed_rec, cfg.lead + n_tiles * cfg.tile_len + cfg.tail,
+                            cfg.lead)
+        rmeta = np.asarray([[0, n]], dtype=np.int32)
+        return self._scan_plane(cfg, plane, total_scan, n, rmeta, None)[:, :6]
+
+    # ---------------------------------------------------------- stream path
+    # Limits of one stream plane (the JAX package's): records per run and
+    # laid-out positions per run.
+    STREAM_MAX_RECORDS = 1 << 16
+    STREAM_MAX_POSITIONS = 1 << 28
+
+    @staticmethod
+    def _stream_layout(items):
+        """Records laid end to end (``merpcr_tpu/engine.py:887-902``): each
+        starts at a multiple of 8 positions (u32-unit and nibble-byte
+        aligned) with at least one gap position after its predecessor.
+        ``items``: (seq_bytes, packed) pairs. Returns (rmeta int32[R, 2] of
+        (start, length), stream_len)."""
+        rmeta = np.empty((len(items), 2), dtype=np.int32)
+        cur = 0
+        for i, (seq, _p) in enumerate(items):
+            start = -(-(cur + 1) // 8) * 8 if i else 0
+            rmeta[i] = (start, len(seq))
+            cur = start + len(seq)
+        return rmeta, cur
+
+    @staticmethod
+    def _recmap(rmeta: np.ndarray, stream_len: int) -> np.ndarray:
+        """Block -> record map (``merpcr_tpu/engine.py:942-948``): record
+        starts are 8-aligned, so the 8-position block b belongs to one
+        record (gap blocks to the record before them)."""
+        n_blocks = -(-stream_len // 8)
+        counts = np.diff(rmeta[:, 0].astype(np.int64) // 8, append=n_blocks)
+        return np.repeat(np.arange(len(rmeta), dtype=np.int32), counts)
+
+    def _plan(self, fasta_records) -> list:
+        """Dispatch plan in FASTA order (``merpcr_tpu/engine.py:1448-1491``):
+        ("stream", record indices, items) for every run of >= 2
+        consecutive packable records, ("single", index) otherwise. An empty
+        or unpackable record breaks a run; a run is cut at
+        STREAM_MAX_RECORDS records or STREAM_MAX_POSITIONS positions."""
+        plan, run, items = [], [], []
+        run_pos = 0
+
+        def flush():
+            nonlocal run_pos
+            if len(run) >= 2:
+                plan.append(("stream", run.copy(), items.copy()))
+            else:
+                plan.extend(("single", j) for j in run)
+            run.clear()
+            items.clear()
+            run_pos = 0
+
+        for i, rec in enumerate(fasta_records):
+            n = len(rec.sequence)
+            packed = record_packed(rec) if n > 0 else None
+            if packed is None:
+                flush()
+                plan.append(("single", i))
+                continue
+            if (run_pos + n + 8 > self.STREAM_MAX_POSITIONS
+                    or len(run) >= self.STREAM_MAX_RECORDS):
+                flush()
+            run.append(i)
+            items.append((record_seq_bytes(rec), packed))
+            run_pos += n + 8
+        flush()
+        return plan
+
+    def _stream_plane(self, items):
+        """Lay a run of records out as one stream plane
+        (``merpcr_tpu/engine.py:904-1001``). Returns (cfg, plane uint8,
+        total_scan, stream_len, rmeta, recmap), or None when no position
+        of the run can be scanned (every record shorter than a word)."""
+        rmeta, stream_len = self._stream_layout(items)
+        total_scan = stream_len - self.wordsize + 1
+        if total_scan <= 0:
+            return None
+        # length-weighted mean of the records' dirty rates (:953-962)
+        w_pos = total = 0.0
+        for seq, packed in items:
+            w_pos += self._dirty_of(seq, packed)[1] * len(seq)
+            total += len(seq)
+        tile_len = self._tile_len_override or self._pick_tile_len(
+            total_scan, max_tile=STREAM_MAX_TILE)
+        cfg = self._base_config(tile_len, stream=True,
+                                dirty_pos=self._quantize_dirty(w_pos / total))
         L = cfg.tile_len
         n_tiles = -(-total_scan // L)
-        plane = torch.from_numpy(
-            self._plane(packed_rec, cfg.lead + n_tiles * L + cfg.tail, cfg.lead)
-        ).to(self.device)
-        outs = scan_record(cfg, self._table, plane, 0, total_scan, n,
-                           self._runtime_params(), n_tiles)
-        chunks = []
-        for t, out in enumerate(outs):
-            if not out.hit_total:
-                continue
-            rows = np.empty((out.hit_total, 6), dtype=np.int64)
-            for col, v in ((0, out.pos1), (1, out.pos2), (2, out.entry),
-                           (4, out.pair_order), (5, out.rank)):
-                rows[:, col] = v.cpu().numpy()
-            rows[:, 3] = t
-            chunks.append(rows)
-        return np.concatenate(chunks) if chunks else empty
+        # gaps, lead and tail are 0xFF (dirty nibbles), so no scan window
+        # crosses a record boundary; record starts are byte-aligned
+        plane = np.full((cfg.lead + n_tiles * L + cfg.tail) // 2, 0xFF, np.uint8)
+        lead_b = cfg.lead // 2
+        for (_seq, packed), start in zip(items, rmeta[:, 0]):
+            b0 = lead_b + int(start) // 2
+            plane[b0 : b0 + len(packed)] = packed
+        return cfg, plane, total_scan, stream_len, rmeta, self._recmap(rmeta, stream_len)
+
+    def _scan_stream(self, items) -> List[np.ndarray]:
+        """Scan a run of records as one plane (``merpcr_tpu/engine.py``
+        ``_dispatch_stream``/``_collect_stream``, without capacities,
+        rescans or caches). Returns one (n_hits, 6) row array per item."""
+        laid = self._stream_plane(items)
+        if laid is None:
+            return [np.zeros((0, 6), dtype=np.int64)] * len(items)
+        rows = self._scan_plane(*laid)
+        # split by record with one stable argsort (:1163-1168); the
+        # emitter re-sorts each record's rows by their unique keys
+        rows = rows[np.argsort(rows[:, 6], kind="stable")]
+        bounds = np.searchsorted(rows[:, 6], np.arange(len(items) + 1))
+        return [rows[bounds[i] : bounds[i + 1], :6] for i in range(len(items))]
 
     def search(
         self, fasta_records: List[FASTARecord], output_file: Optional[str] = None
@@ -345,31 +479,43 @@ class MerPCR:
         search_t0 = time.time()
         total_bp = 0
         have_table = self._meta is not None and self._meta.n_entries > 0
+        self.last_scans = []
+        empty = np.zeros((0, 6), dtype=np.int64)
+        if have_table:
+            plan = self._plan(fasta_records)
+        else:
+            plan = [("single", i) for i in range(len(fasta_records))]
         try:
-            for record in fasta_records:
-                seq_label = record.label
-                seq_len = len(record.sequence)
-                logger.info("Processing sequence: %s (%d bp)", seq_label, seq_len)
-                if have_table:
-                    seq = record_seq_bytes(record)
-                    packed = record_packed(record) if seq_len > self.wordsize else None
-                    arr = self._scan_record(seq, packed)
+            for item in plan:
+                if item[0] == "stream":
+                    idxs, arrs = item[1], self._scan_stream(item[2])
                 else:
-                    arr = np.zeros((0, 6), dtype=np.int64)
-                if len(arr):
-                    # Reproduce T=1 ordering: stable sort by pos1 over hits
-                    # emitted scan-order (tile, pair, rank) — engine.py:434.
-                    key = np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))
-                    arr = arr[key]
-                    e2r = self._meta.entry_to_record
-                    for pos1, pos2, entry, _t, _o, _r in arr:
-                        sts = self.sts_records[int(e2r[int(entry)])]
-                        print(
-                            f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
-                            file=output,
-                        )
-                    total_hits += len(arr)
-                total_bp += seq_len
+                    rec = fasta_records[item[1]]
+                    arr = empty
+                    if have_table:
+                        packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
+                        arr = self._scan_record(record_seq_bytes(rec), packed)
+                    idxs, arrs = [item[1]], [arr]
+                for j, arr in zip(idxs, arrs):
+                    record = fasta_records[j]
+                    seq_label = record.label
+                    seq_len = len(record.sequence)
+                    logger.info("Processing sequence: %s (%d bp)", seq_label, seq_len)
+                    if len(arr):
+                        # Reproduce T=1 ordering: stable sort by pos1 over
+                        # hits emitted scan-order (tile, pair, rank) --
+                        # engine.py:434.
+                        key = np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))
+                        arr = arr[key]
+                        e2r = self._meta.entry_to_record
+                        for pos1, pos2, entry, _t, _o, _r in arr:
+                            sts = self.sts_records[int(e2r[int(entry)])]
+                            print(
+                                f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
+                                file=output,
+                            )
+                        total_hits += len(arr)
+                    total_bp += seq_len
         finally:
             if output is not sys.stdout:
                 output.close()

@@ -1,11 +1,18 @@
-"""K2-K5 ``expand``: flagged units -> candidate (entry, position) pairs.
+"""K2-K5 and K10 ``expand``: flagged units -> candidate (entry, position)
+pairs.
 
 Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl`` stages K2-K5: the
 flag-word compaction (``scan.py:680-719``, ``_rank_invert`` ``:317-341``,
 ``_blocked_scan`` ``:287-314``), the strict phase expansion through the
 exact phase table ``ptab`` (``:757-927``; ``ptab_bits`` ``:832-862``), the
 hashed 16-base position filter ``t16`` (``:929-949``) and the dense W <= 11
-CSR pair expansion (``exact_csr`` ``:728-730``, ``:953-964``).
+CSR pair expansion (``exact_csr`` ``:728-730``, ``:953-964``); and K10, the
+dirty-span phase filter (``dirty_bloom``, ``:803-822`` applied at
+``:859-861``): when ``bloom`` is given, a phase of a unit whose stride-4
+span is dirty survives only if its W-mer is a key of the table's
+occupancy bitmap ``bloom``. Ambiguity-heavy genomes (1 % scattered IUPAC
+letters flag ~12 % of units) would otherwise expand every clean phase of
+every such unit through the CSR.
 
 Pairs are in (unit, phase, bucket slot) order, so pair j is the JAX
 pipeline's pair j, whose index is the emission key ``pair_order``.
@@ -32,11 +39,28 @@ _GOLD = 0x9E3779B1  # t16 multiplicative hash
 _STRIDE = 4  # ptab span group (the table compiler's stride for W <= 11)
 
 
-def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
-                 n_entries: int, wordsize: int, lead: int, tile_len: int,
-                 n_scan: int):
-    """(entry int32[P], ppos int32[P], pos_total, pair_total) in plain
-    PyTorch."""
+def _bloom_phases(A, B, bloom, bloom_bits: int, W: int):
+    """Bit d set iff phase d's W-mer (bases d..d+W-1 of the unit window)
+    is a key of ``bloom`` (``scan.py:811-820``)."""
+    m2w = (1 << (2 * W)) - 1
+    shift = 2 * W - bloom_bits
+    bl = u32(bloom)
+    wbf = torch.zeros_like(A)
+    for d in range(8):
+        wm = (A >> (2 * d)) & m2w
+        if 2 * (d + W) > 32:
+            wm = wm | ((B << (32 - 2 * d)) & m2w)
+        bk = wm >> shift
+        wbf = wbf | (((bl[bk >> 5] >> (bk & 31)) & 1) << d)
+    return wbf
+
+
+def phase_nibbles(tile, words, ptab, pf_bits: int, wordsize: int, lead: int,
+                  n_scan: int, bloom=None, bloom_bits: int = 0):
+    """(cpos, (A, Aa, B, Ba), nb) of a tile's flagged units: their unit
+    indices, window registers and phase nibbles, bit d of ``nb`` set iff
+    phase d expands (the JAX stage's ``nb`` at ``stop="nb"``,
+    ``scan.py:876-878``)."""
     dev = tile.device
     W = wordsize
     m2w = (1 << (2 * W)) - 1
@@ -54,6 +78,7 @@ def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
     m2kb = (1 << (2 * (W + _STRIDE - 1))) - 1
     m2pf = (1 << pf_bits) - 1
     pt = u32(ptab)
+    wbf = None if bloom is None else _bloom_phases(A, B, bloom, bloom_bits, W)
     nb = torch.zeros_like(nbv)
     for p in range(2):  # the unit's two stride-4 groups
         sh = 2 * _STRIDE * p
@@ -63,8 +88,22 @@ def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
         nbt = (pt[kf >> 3] >> ((kf & 7) * 4)) & 0xF
         nbv_p = (nbv >> (4 * p)) & 0xF
         span_clean = (Aak & m2kb) == 0
-        nb = nb | (torch.where(span_clean, nbt & nbv_p, nbv_p) << (4 * p))
+        dirty_p = nbv_p if wbf is None else nbv_p & ((wbf >> (4 * p)) & 0xF)
+        nb = nb | (torch.where(span_clean, nbt & nbv_p, dirty_p) << (4 * p))
+    return cpos, (A, Aa, B, Ba), nb
 
+
+def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
+                 n_entries: int, wordsize: int, lead: int, tile_len: int,
+                 n_scan: int, bloom=None, bloom_bits: int = 0):
+    """(entry int32[P], ppos int32[P], pos_total, pair_total) in plain
+    PyTorch."""
+    dev = tile.device
+    W = wordsize
+    m2w = (1 << (2 * W)) - 1
+    cpos, (A, Aa, B, Ba), nb = phase_nibbles(tile, words, ptab, pf_bits, W, lead,
+                                              n_scan, bloom, bloom_bits)
+    d = torch.arange(8, device=dev)
     sel = ((nb[:, None] >> d) & 1) == 1
     pos_total = int(sel.sum())
     ui, ph = torch.nonzero(sel, as_tuple=True)  # (unit, phase) ascending
@@ -92,22 +131,30 @@ def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
 
 def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
            n_entries: int, wordsize: int, lead: int, tile_len: int,
-           n_scan: int):
+           n_scan: int, bloom=None, bloom_bits: int = 0):
     """Candidate pairs of one tile: the CUDA kernel for tensors on the
     card, ``expand_plain`` for CPU tensors.
 
     ``words``: the tile's flag words from ``front_end``; ``ptab``/``t16``:
     int32 words of the phase and 16-base tables; ``bsc``: int32[4^W, 2]
-    CSR rows over ``n_entries`` table entries. Returns (entry, ppos,
-    pos_total, pair_total)."""
-    if not kernel_route(tile, words, ptab, t16, bsc):
+    CSR rows over ``n_entries`` table entries; ``bloom``: int32 words of
+    the 2^bloom_bits-bit W-mer occupancy map, or None to leave the
+    dirty-span filter (K10) off. Returns (entry, ppos, pos_total,
+    pair_total)."""
+    tables = (ptab, t16, bsc) + (() if bloom is None else (bloom,))
+    if not kernel_route(tile, words, *tables):
         return expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, bsc,
-                            n_entries, wordsize, lead, tile_len, n_scan)
+                            n_entries, wordsize, lead, tile_len, n_scan,
+                            bloom, bloom_bits)
     for t, name in ((words, "words"), (ptab, "ptab"), (t16, "t16"), (bsc, "bsc")):
         require(t, torch.int32, name)
     require(tile, torch.uint8, "tile")
     if wordsize > 11:
         raise ValueError("the dense CSR exists for W <= 11 only")
+    if bloom is not None:
+        require(bloom, torch.int32, "bloom")
+        if not 0 < bloom_bits <= 2 * wordsize or bloom.numel() * 32 != 1 << bloom_bits:
+            raise ValueError(f"bloom of {bloom.numel()} words is not 2^{bloom_bits} bits")
     n_units = tile_len // 8
     if words.numel() * 32 != n_units or tile.numel() < lead // 2 + 4 * (n_units + 2):
         raise ValueError("words/tile do not match tile_len")
@@ -118,8 +165,9 @@ def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
     P, I = kernels.P, kernels.I
     args = (tile.data_ptr() + lead // 2, words.data_ptr(), ptab.data_ptr(),
             pf_bits, t16.data_ptr(), t16_bits, bsc.data_ptr(), n_entries,
-            wordsize, n_units, n_scan)
-    sig = [P, P, P, I, P, I, P, I, I, I, I]
+            None if bloom is None else bloom.data_ptr(),
+            2 * wordsize - bloom_bits, wordsize, n_units, n_scan)
+    sig = [P, P, P, I, P, I, P, I, P, I, I, I, I]
     count = kernels.function("expand", "mp_expand_count", sig + [P, P, P, P])
     write = kernels.function("expand", "mp_expand_write", sig + [P, P, P, P])
     s = kernels.stream(tile)

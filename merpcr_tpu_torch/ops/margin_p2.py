@@ -1,4 +1,4 @@
-"""K7 ``margin_p2``: margin-window primer-2 verify and hit emission.
+"""K7, K11, K14 ``margin_p2``: margin-window primer-2 verify and hit emission.
 
 Replaces ``merpcr_tpu/ops/scan.py::_margin_stage`` (``scan.py:1047-1318``)
 on its static-slice branch (R <= 257): per (anchor, rank) the reference
@@ -6,9 +6,13 @@ clamps of the expected product end exp/hi/lo (``:1070-1077``), rank r ->
 offset d = 0, -1, +1, -2, ... (``_rank_d`` ``:344``), the structural bounds
 (``:1241-1248``), the rank mask (``:1249-1257``) and the primer-2 verify
 with the '-' strand's first-X-bases protection (``_p2_ok_of``
-``:1133-1158``). Hits come out anchor-major, rank-minor as int32 rows
-(pos1, pos2, entry, pair_order, rank, rec = 0); ``hit_total`` is their
-count.
+``:1133-1158``; at -I 1 K11's expansion-set test against ``p2_exp``,
+``:1139-1143``). Every clamp and bound runs in the coordinates of the
+anchor's record (K14, ``:1058-1077``): the record that owns the pair's
+scan position gives the length ``arl`` and the index ``arec``; the plane
+reads use the plane anchor. Hits come out anchor-major, rank-minor as
+int32 rows (pos1, pos2, entry, pair_order, rank, rec), pos1/pos2
+record-local; ``hit_total`` is their count.
 
 The JAX stage reads a window sized by the margin cap and clamps its row
 gathers; here each (anchor, rank) reads exactly its own primer-2 site, and
@@ -28,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import kernel_route, nibbles_at, require
+from .units import (base_matches, check_codes, check_records, kernel_route,
+                    nibbles_at, record_args, records_at, require)
 
 MAX_RANKS = 257  # static-slice branch of the JAX margin stage (M <= 128)
 
@@ -42,8 +47,8 @@ def rank_offsets(margin: int, device=None) -> torch.Tensor:
     return torch.where(r % 2 == 1, -dmag, dmag)
 
 
-def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
-                    tile_start: int, record_len: int, lead: int, margin: int,
+def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
+                    tile_start: int, rmeta, recmap, lead: int, margin: int,
                     mismatches: int, three_prime: int):
     """Hit rows int32[hit_total, 6] in plain PyTorch."""
     dev = tile.device
@@ -51,8 +56,9 @@ def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
     e = entry.to(torch.int64)[j]
     em = emeta.to(torch.int64)[e]
     hoff, l1, l2, exp0 = em[:, 0], em[:, 1], em[:, 2], em[:, 3]
-    ak = tile_start + ppos.to(torch.int64)[j] - hoff
-    arl = record_len
+    gpos = tile_start + ppos.to(torch.int64)[j]
+    arec, rstart, arl = records_at(rmeta, recmap, gpos)
+    ak = gpos - hoff - rstart  # record-local anchor
     room = arl - (ak + l1) >= l2  # engine.py:524-525
     actual = arl - ak
     clamped = exp0 > actual
@@ -64,42 +70,46 @@ def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
     rmask = (d == 0) | torch.where(d < 0, dmag <= lo[:, None], dmag <= hi[:, None])
     p2 = (ak + exp - l2)[:, None] + d
     # k + len_p1 <= p2 is checked for d <= 0 only (engine.py:546, 568)
-    fits = (p2 + l2[:, None] <= arl) & ((d > 0) | (p2 >= (ak + l1)[:, None]))
+    fits = (p2 + l2[:, None] <= arl[:, None]) & ((d > 0) | (p2 >= (ak + l1)[:, None]))
     i = torch.arange(p2_codes.shape[1], device=dev)
-    nib = nibbles_at(tile, (p2 - tile_start + lead)[:, :, None] + i)
-    mm = (i < l2[:, None, None]) & (nib != p2_codes.to(torch.int64)[e][:, None, :])
+    nib = nibbles_at(tile, (p2 + (rstart - tile_start + lead)[:, None])[:, :, None] + i)
+    mm = (i < l2[:, None, None]) & ~base_matches(nib, e[:, None], p2_codes, p2_exp)
     prot = i < three_prime  # '-': first X bases
     p2_ok = ~(mm & prot).any(dim=2) & (mm.sum(dim=2) <= mismatches)
     hit = room[:, None] & rmask & fits & p2_ok
     ai, ri = torch.nonzero(hit, as_tuple=True)  # anchor-major, rank-minor
     rows = torch.stack(
-        [ak[ai], p2[ai, ri] + l2[ai] - 1, e[ai], j[ai], ri, torch.zeros_like(ri)],
+        [ak[ai], p2[ai, ri] + l2[ai] - 1, e[ai], j[ai], ri, arec[ai]],
         dim=1,
     )
     return rows.to(torch.int32).reshape(-1, 6)
 
 
-def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, tile_start: int,
-              record_len: int, lead: int, margin: int, mismatches: int,
-              three_prime: int):
+def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
+              tile_start: int, rmeta, recmap, lead: int, margin: int,
+              mismatches: int, three_prime: int):
     """Hit rows of one tile: the CUDA kernel for tensors on the card,
     ``margin_p2_plain`` for CPU tensors.
 
     ``a_idx``: int32 anchor pair indices from ``verify_p1``; ``entry``/
-    ``ppos``: the tile's pairs; ``p2_codes``: uint8[E, P2MAX]."""
+    ``ppos``: the tile's pairs; ``p2_codes``: uint8[E, P2MAX];
+    ``p2_exp``: int32[E, P2MAX] IUPAC masks for -I 1, or None;
+    ``rmeta``/``recmap``: the plane's records (``units.records_at``)."""
     if 2 * margin + 1 > MAX_RANKS:
         raise NotImplementedError(
             "margins above 128 (R > 257) are ROADMAP queue B item K13"
         )
-    if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_codes):
+    extra = tuple(t for t in (p2_exp, recmap) if t is not None)
+    if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_codes, rmeta, *extra):
         return margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
-                               tile_start, record_len, lead, margin,
-                               mismatches, three_prime)
+                               p2_exp, tile_start, rmeta, recmap, lead,
+                               margin, mismatches, three_prime)
     require(tile, torch.uint8, "tile")
     for t, name in ((a_idx, "a_idx"), (entry, "entry"), (ppos, "ppos"),
                     (emeta, "emeta")):
         require(t, torch.int32, name)
-    require(p2_codes, torch.uint8, "p2_codes")
+    check_codes(p2_codes, p2_exp, "p2")
+    check_records(rmeta, recmap)
     dev = tile.device
     n_anch = a_idx.numel()
     if n_anch == 0:  # nothing to launch over
@@ -112,12 +122,13 @@ def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, tile_start: int,
     blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
     total = torch.zeros(1, dtype=torch.int32, device=dev)
     P, I, LL = kernels.P, kernels.I, kernels.LL
-    common = [P, LL, P, I, P, P, P, P, I, LL, LL, I, I, I, I]
+    common = [P, LL, P, I, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
     count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
     write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
     args = (tile.data_ptr(), 2 * tile.numel(), a_idx.data_ptr(), n_anch,
             entry.data_ptr(), ppos.data_ptr(), emeta.data_ptr(),
-            p2_codes.data_ptr(), p2_codes.shape[1], tile_start, record_len,
+            p2_codes.data_ptr(), None if p2_exp is None else p2_exp.data_ptr(),
+            p2_codes.shape[1], tile_start, *record_args(rmeta, recmap),
             lead, margin, mismatches, three_prime)
     s = kernels.stream(tile)
     blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]

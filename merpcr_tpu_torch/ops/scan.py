@@ -1,9 +1,13 @@
 """The strict (N=0) tile scan: tile geometry and the drivers that run the
-four kernels over one tile and over the tiles of one record.
+four kernels over one tile and over the tiles of one plane.
 
-Counterpart of ``merpcr_tpu/ops/scan.py`` for the default configuration
+Counterpart of ``merpcr_tpu/ops/scan.py`` for the strict N=0 configuration
 (packed nibble planes, strict unit-projection front end, exact phase table,
-t16 filter, dense W <= 11 CSR, margin cap <= 128). The JAX program runs
+t16 filter, dense W <= 11 CSR, margin cap <= 128), with its dirty-span
+phase filter (K10, ``dirty_bloom``), its IUPAC verify (K11, ``iupac``) and
+its stream mode (K14): a plane holds one record or many records laid end
+to end, and ``rmeta``/``recmap`` tell each candidate its record. The JAX
+program runs
 fixed-capacity stages inside one compiled function per tile and reports
 overflow through its stage totals; here every stage sizes its output from
 its own count pass, so a tile never overflows and carries no capacities.
@@ -11,15 +15,19 @@ its own count pass, so a tile never overflows and carries no capacities.
 Per tile, in order (each stage replaces the JAX lines its module names):
 
   front_end  -> flag words, c_total              (K1)
-  expand     -> (entry, ppos) pairs, pos_total,  (K2-K5)
+  expand     -> (entry, ppos) pairs, pos_total,  (K2-K5, K10)
                 pair_total
-  verify_p1  -> anchor pair indices, anch_total  (K6)
-  margin_p2  -> hit rows, hit_total              (K7)
+  verify_p1  -> anchor pair indices, anch_total  (K6, K11, K14)
+  margin_p2  -> hit rows, hit_total              (K7, K11, K14)
 
 Scan positions are partitioned across tiles (each position belongs to one
-tile) and every coordinate is computed in record coordinates, so tiling is
-invisible in the output. The host sorts hits by (pos1, tile, pair_order,
-rank) to reproduce the reference's emission order.
+tile) and every bound and output coordinate is computed in the
+coordinates of the candidate's record, so tiling is invisible in the
+output. The host sorts hits by (pos1, tile, pair_order, rank) to
+reproduce the reference's emission order.
+
+The single-record scan is the stream scan of a plane that holds one
+record: ``rmeta = [(0, record_len)]`` and no ``recmap`` (``record_rmeta``).
 """
 
 from __future__ import annotations
@@ -52,6 +60,12 @@ class ScanConfig:
     exact_group: bool = True
     strict: bool = True
     t16_bits: int = 0
+    bloom_bits: int = 0  # log2 bits of the table's W-mer bloom
+    # K10: dirty-span phases are kept only if the bloom holds their W-mer
+    # (armed when the dirty-in-16/clean-in-11 position rate reaches 1/256)
+    dirty_bloom: bool = False
+    iupac: bool = False  # K11: -I 1 expansion-set verify
+    stream: bool = False  # K14: many records per plane (recmap given)
 
     @property
     def tile_buf(self) -> int:
@@ -80,7 +94,7 @@ class ScanOut(NamedTuple):
     entry: torch.Tensor  # table entry
     pair_order: torch.Tensor  # within-tile emission key (major)
     rank: torch.Tensor  # within-anchor emission key (minor)
-    rec: torch.Tensor  # record index (0: single-record scan)
+    rec: torch.Tensor  # rmeta row of the hit (0: single-record scan)
 
 
 def margin_cap(margin: int) -> int:
@@ -99,8 +113,13 @@ def default_config(
     tile_len: int,
     stride: int = 4,
     t16_bits: int = 0,
+    bloom_bits: int = 0,
+    iupac: bool = False,
+    stream: bool = False,
+    dirty_pos_rate: float = 0.0,
 ) -> ScanConfig:
-    """Halo geometry of the JAX package's ``default_config``.
+    """Halo geometry and filter choice of the JAX package's
+    ``default_config``.
 
     The left halo covers every primer read plus the margin window's low
     edge: the window starts mcap + len_p2 before an anchor, which itself
@@ -108,8 +127,14 @@ def default_config(
     The right halo covers the longest product plus the window past the
     last scan position. Both are rounded as the JAX package rounds them
     (lead to 32 positions, tail to 256), so tiles of both packages see the
-    same bytes."""
+    same bytes.
+
+    ``dirty_pos_rate`` is the quantized rate of positions dirty in their
+    16-base window but clean in their W-mer; at 1/256 and above the
+    dirty-span phase filter is armed, as in the JAX package
+    (``scan.py:1542-1543``)."""
     mcap = margin_cap(margin)
+    dirty_pos = min(max(dirty_pos_rate, 0.0), 1.0)
     return ScanConfig(
         wordsize=wordsize,
         margin=mcap,
@@ -120,21 +145,36 @@ def default_config(
         p2_max=p2_max,
         stride=stride,
         t16_bits=t16_bits,
+        bloom_bits=bloom_bits,
+        dirty_bloom=dirty_pos >= 1.0 / 256,
+        iupac=iupac,
+        stream=stream,
     )
 
 
-def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
-              tile_start: int, n_scan: int, record_len: int, rt) -> ScanOut:
-    """Scan one halo-padded tile (``get_scan_fn``'s contract).
+def record_rmeta(record_len: int, device) -> torch.Tensor:
+    """``rmeta`` of a plane that holds one record: [(0, record_len)]."""
+    return torch.tensor([[0, record_len]], dtype=torch.int32, device=device)
 
-    ``tile``: uint8[cfg.tile_buf_in] plane; ``tile_start``: record
-    position of local scan position 0; ``n_scan``: valid scan positions
-    (<= tile_len); ``rt``: runtime (-M, -N, -X)."""
+
+def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
+              tile_start: int, n_scan: int, rmeta: torch.Tensor, recmap,
+              rt) -> ScanOut:
+    """Scan one halo-padded tile (``get_scan_fn``'s contract, and with
+    ``cfg.stream`` the tile body of ``get_stream_scan_fn``).
+
+    ``tile``: uint8[cfg.tile_buf_in] plane; ``tile_start``: plane position
+    of local scan position 0; ``n_scan``: valid scan positions (<=
+    tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
+    records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
+    a stream plane, None for one record; ``rt``: runtime (-M, -N, -X)."""
     if not (cfg.strict and cfg.exact_group and cfg.stride == 4):
         raise NotImplementedError(
             "only the strict front end over the exact stride-4 phase table "
             "(W <= 11) is ported; see ROADMAP queue B"
         )
+    if cfg.dirty_bloom and cfg.bloom_bits != table.bloom_bits:
+        raise ValueError(f"config bloom_bits {cfg.bloom_bits} != table's {table.bloom_bits}")
     margin, nmm, x = (int(v) for v in rt)
     if margin > cfg.margin:
         raise ValueError(f"runtime margin {margin} exceeds the cap {cfg.margin}")
@@ -145,30 +185,35 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     entry, ppos, pos_total, pair_total = expand(
         tile, words, table.ptab, table.pf_bits, table.t16, table.t16_bits,
         table.bsc, table.emeta.shape[0], W, lead, cfg.tile_len, n_scan,
+        table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits,
     )
-    a_idx = verify_p1(tile, entry, ppos, table.emeta, table.p1_codes,
-                      tile_start, record_len, lead, nmm, x)
+    p1_exp, p2_exp = (table.p1_exp, table.p2_exp) if cfg.iupac else (None, None)
+    a_idx = verify_p1(tile, entry, ppos, table.emeta, table.p1_codes, p1_exp,
+                      tile_start, rmeta, recmap, lead, nmm, x)
     rows = margin_p2(tile, a_idx, entry, ppos, table.emeta, table.p2_codes,
-                     tile_start, record_len, lead, margin, nmm, x)
+                     p2_exp, tile_start, rmeta, recmap, lead, margin, nmm, x)
     cols = rows.unbind(dim=1)
     return ScanOut(int(c_total.item()), pos_total, pair_total,
                    a_idx.numel(), rows.shape[0], *cols)
 
 
-def scan_record(cfg: ScanConfig, table: Table, padded: torch.Tensor,
-                start0: int, total_scan: int, record_len: int, rt,
-                n_tiles: int) -> List[ScanOut]:
-    """Scan ``n_tiles`` tiles of one record plane (``get_record_scan_fn``'s
-    contract): tile t is the view padded[t*L/2 : t*L/2 + tile_buf_in] of
-    the plane laid out as [lead zeros][record][zeros], and owns scan
-    positions [start0 + t*L, start0 + (t+1)*L)."""
+def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
+                total_scan: int, stream_len: int, rmeta: torch.Tensor,
+                recmap, rt, n_tiles: int) -> List[ScanOut]:
+    """Scan ``n_tiles`` tiles of one plane (``get_stream_scan_fn``'s
+    contract, and ``get_record_scan_fn``'s for a one-record plane): tile t
+    is the view plane[t*L/2 : t*L/2 + tile_buf_in] of the plane laid out
+    as [lead][records][tail], and owns scan positions [t*L, (t+1)*L) of
+    the ``total_scan`` positions; ``stream_len`` is the laid-out length
+    (the last record's end)."""
     L = cfg.tile_len
-    if padded.numel() < (n_tiles - 1) * L // 2 + cfg.tile_buf_in:
-        raise ValueError("record plane shorter than its tiles")
+    if plane.numel() < (n_tiles - 1) * L // 2 + cfg.tile_buf_in:
+        raise ValueError("plane shorter than its tiles")
+    if recmap is not None and recmap.numel() != -(-stream_len // 8):
+        raise ValueError(f"recmap of {recmap.numel()} blocks for {stream_len} positions")
     outs = []
     for t in range(n_tiles):
-        gstart = start0 + t * L
-        tile = padded[t * L // 2 : t * L // 2 + cfg.tile_buf_in]
-        outs.append(scan_tile(cfg, table, tile, gstart,
-                              total_scan - gstart, record_len, rt))
+        tile = plane[t * L // 2 : t * L // 2 + cfg.tile_buf_in]
+        n_scan = min(max(total_scan - t * L, 0), L)
+        outs.append(scan_tile(cfg, table, tile, t * L, n_scan, rmeta, recmap, rt))
     return outs

@@ -877,11 +877,11 @@ def compile_table(
 class Table(NamedTuple):
     """The tensors the strict N=0 scan reads, on one torch device.
 
-    32-bit words (``qbloom_s``, ``ptab``, ``t16``) are held as int32 with
-    the uint32 bit pattern: the CUDA kernels read them as ``uint32_t``, and
-    the plain PyTorch versions widen them to int64 and mask. The key widths
-    come from the tables' own sizes, as in the JAX scan, so a table and its
-    key masks cannot disagree."""
+    32-bit words (``qbloom_s``, ``ptab``, ``t16``, ``bloom``, ``p*_exp``)
+    are held as int32 with the uint32 bit pattern: the CUDA kernels read
+    them as ``uint32_t``, and the plain PyTorch versions widen them to
+    int64 and mask. The key widths come from the tables' own sizes, as in
+    the JAX scan, so a table and its key masks cannot disagree."""
 
     qbloom_s: torch.Tensor  # int32[2^gq / 32]: strict unit-projection bits
     ptab: torch.Tensor  # int32[4^(W+2) * stride / 32]: folded phase bits
@@ -890,9 +890,13 @@ class Table(NamedTuple):
     emeta: torch.Tensor  # int32[E, 8]: hoff, p1_len, p2_len, pcr_size, ...
     p1_codes: torch.Tensor  # uint8[E, P1MAX]
     p2_codes: torch.Tensor  # uint8[E, P2MAX]
+    bloom: torch.Tensor  # int32[2^bloom_bits / 32]: W-mer key occupancy (K10)
+    p1_exp: torch.Tensor  # int32[E, P1MAX] IUPAC expansion masks | [1, 1]
+    p2_exp: torch.Tensor  # int32[E, P2MAX] IUPAC expansion masks | [1, 1]
     gq: int  # log2 bits of qbloom_s (<= 26 after truncation)
     pf_bits: int  # log2 folded span values of ptab
     t16_bits: int  # 0: no 16-base filter
+    bloom_bits: int  # log2 bits of bloom (min(2W, 24))
 
 
 def _bits_of(n: int) -> int:
@@ -905,7 +909,9 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
     ``host`` is any record with the HostTable field names holding NumPy
     arrays: this package's ``compile_table`` output or the JAX package's
     host-compiled ``DeviceTable``, so both packages can be fed the identical
-    table. Only the fields of the strict N=0 scan move."""
+    table. Only the fields of the strict N=0 scan move; ``p1_exp`` and
+    ``p2_exp`` are real only for a table compiled with ``iupac_mode`` and
+    stay the [1, 1] dummies otherwise, as in the JAX table."""
 
     def words(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
@@ -923,7 +929,11 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         emeta=ints(host.emeta, np.int32),
         p1_codes=ints(host.p1_codes, np.uint8),
         p2_codes=ints(host.p2_codes, np.uint8),
+        bloom=words(host.bloom),
+        p1_exp=words(host.p1_exp),
+        p2_exp=words(host.p2_exp),
         gq=_bits_of(int(np.asarray(host.qbloom_s).shape[0]) * 32),
         pf_bits=_bits_of(int(ptab.shape[0]) * 32 // meta.stride),
         t16_bits=int(meta.t16_bits),
+        bloom_bits=int(meta.bloom_bits),
     )

@@ -1,5 +1,6 @@
 """Helpers of the plain PyTorch kernel versions (the counterparts of
-``csrc/units.cuh`` and ``csrc/compact.cuh``).
+``csrc/units.cuh``, ``csrc/compact.cuh`` and ``csrc/records.cuh``) and of
+the wrappers' argument checks.
 
 PyTorch's CPU build has no shifts on ``torch.uint32`` and its ``int32``
 right shift sign-extends, so the plain versions hold every 32-bit word in
@@ -11,7 +12,11 @@ from __future__ import annotations
 
 import torch
 
+from .encoding import iupac_exp_masks
+
 M32 = 0xFFFFFFFF
+# IUPAC expansion masks of the 16 genome letters (csrc/records.cuh kExpNib)
+EXP_NIB = tuple(int(v) for v in iupac_exp_masks()[0])
 
 
 def u32(t: torch.Tensor) -> torch.Tensor:
@@ -68,6 +73,56 @@ def nibbles_at(plane: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     b = plane[p >> 1].to(torch.int64)
     nib = torch.where((p & 1) == 1, b >> 4, b & 15)
     return torch.where(inside, nib, torch.full_like(nib, 0xFF))
+
+
+def records_at(rmeta: torch.Tensor, recmap, gpos: torch.Tensor):
+    """(record id, start, length) of the record owning plane positions
+    ``gpos`` (``scan.py:993-1005``): ``recmap`` maps 8-position blocks to
+    records; None means the plane holds record 0 alone."""
+    if recmap is None:
+        rid = torch.zeros_like(gpos)
+    else:
+        rid = recmap.to(torch.int64)[(gpos >> 3).clamp(0, recmap.numel() - 1)]
+    row = rmeta.to(torch.int64)[rid]
+    return rid, row[..., 0], row[..., 1]
+
+
+def base_matches(nib: torch.Tensor, e: torch.Tensor, codes, exp):
+    """Genome codes ``nib`` [n, P] against primer row ``e`` [n] (or
+    [n, 1]): code equality (``exp`` None, -I 0), else the IUPAC
+    expansion-set test ``EXP_NIB[nib] & exp[e] != 0``. Codes outside the
+    plane (0xFF) match nothing."""
+    if exp is None:
+        return nib == codes.to(torch.int64)[e]
+    table = torch.tensor(EXP_NIB, dtype=torch.int64, device=nib.device)
+    m = torch.where(nib < 16, table[nib.clamp(max=15)], 0)
+    return (m & exp.to(torch.int64)[e]) != 0
+
+
+def record_args(rmeta: torch.Tensor, recmap) -> tuple:
+    """(rmeta, recmap, n_map) as the kernels' C arguments."""
+    if recmap is None:
+        return rmeta.data_ptr(), None, 0
+    return rmeta.data_ptr(), recmap.data_ptr(), recmap.numel()
+
+
+def check_records(rmeta: torch.Tensor, recmap) -> None:
+    require(rmeta, torch.int32, "rmeta")
+    if rmeta.dim() != 2 or rmeta.shape[1] != 2 or not rmeta.shape[0]:
+        raise ValueError(f"rmeta must be [R, 2], got {tuple(rmeta.shape)}")
+    if recmap is not None:
+        require(recmap, torch.int32, "recmap")
+        if recmap.dim() != 1 or not recmap.numel():
+            raise ValueError("recmap must be a non-empty vector")
+
+
+def check_codes(codes: torch.Tensor, exp, name: str) -> None:
+    require(codes, torch.uint8, f"{name}_codes")
+    if exp is not None:
+        require(exp, torch.int32, f"{name}_exp")
+        if exp.shape != codes.shape:
+            raise ValueError(f"{name}_exp {tuple(exp.shape)} does not match "
+                             f"{name}_codes {tuple(codes.shape)}")
 
 
 def kernel_route(*tensors: torch.Tensor) -> bool:

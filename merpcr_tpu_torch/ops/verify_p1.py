@@ -1,20 +1,23 @@
-"""K6 ``verify_p1``: primer-1 verify of the candidate pairs -> anchors.
+"""K6, K11, K14 ``verify_p1``: primer-1 verify of the candidate pairs -> anchors.
 
 Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl`` stage K6, the primer-1
-verify (``scan.py:979-1045``; ``_row_window`` ``:350-382``): per pair, the
-entry's ``emeta`` row, the anchor ``k = position - hash_offset``, the record
-bounds (``:1010``), then the genome's 4-bit codes against ``p1_codes`` over
-the primer length with the mismatch budget (-N) and the '+' strand's
-last-X-bases protection (-X). The passing pairs, in pair order, are the
-anchors; ``a_idx`` holds their pair indices, and ``anch_total`` is its
-length.
+verify (``scan.py:979-1045``; ``_row_window`` ``:350-382``), with K14's
+record lookup (``:985-1005``) and K11's IUPAC match (``:1020-1022``): per
+pair, the entry's ``emeta`` row, the anchor ``k = position - hash_offset``,
+the record that owns the scan position (``records_at``) and the bounds in
+its coordinates (``:1010``), then the genome's 4-bit codes against the
+primer over its length -- code equality against ``p1_codes``, or at -I 1
+the expansion-set test against ``p1_exp`` -- with the mismatch budget (-N)
+and the '+' strand's last-X-bases protection (-X). The passing pairs, in
+pair order, are the anchors; ``a_idx`` holds their pair indices, and
+``anch_total`` is its length.
 
 The JAX stage gathers whole 16-byte rows and clamps them into the plane;
 here each pair reads exactly its primer's nibbles, guarded at the plane's
 edges. Kernel: ``csrc/verify_p1.cu`` (one thread per pair, then the
 order-preserving compaction of ``csrc/compact.cuh``; one host read of
 ``anch_total`` sizes ``a_idx``). On the card it is launch-bound: pairs
-number in the hundreds per 2^23-base tile. ``verify_p1_plain`` is the same
+number in the hundreds per 2^23-base tile of a clean genome. ``verify_p1_plain`` is the same
 function in plain PyTorch; the wrapper uses it only for CPU tensors.
 """
 
@@ -23,43 +26,51 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import kernel_route, nibbles_at, require
+from .units import (base_matches, check_codes, check_records, kernel_route,
+                    nibbles_at, record_args, records_at, require)
 
 
-def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, tile_start: int,
-                    record_len: int, lead: int, mismatches: int,
-                    three_prime: int):
+def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
+                    tile_start: int, rmeta, recmap, lead: int,
+                    mismatches: int, three_prime: int):
     """a_idx int32[anch_total] (pair indices, ascending) in plain PyTorch."""
     dev = tile.device
     e = entry.to(torch.int64)
     em = emeta.to(torch.int64)[e]
     hoff, l1 = em[:, 0], em[:, 1]
     pos = ppos.to(torch.int64)
-    kg = tile_start + pos - hoff
-    inb = (kg >= 0) & (kg + l1 <= record_len)  # scan.py:1010
+    _, rstart, rlen = records_at(rmeta, recmap, tile_start + pos)
+    kg = tile_start + pos - hoff - rstart  # record-local anchor
+    inb = (kg >= 0) & (kg + l1 <= rlen)  # scan.py:1010
     i = torch.arange(p1_codes.shape[1], device=dev)
     nib = nibbles_at(tile, (pos - hoff + lead)[:, None] + i)
-    mm = (i < l1[:, None]) & (nib != p1_codes.to(torch.int64)[e])
+    mm = (i < l1[:, None]) & ~base_matches(nib, e, p1_codes, p1_exp)
     prot = i >= (l1[:, None] - three_prime)  # '+': last X bases
     ok = inb & ~(mm & prot).any(dim=1) & (mm.sum(dim=1) <= mismatches)
     return torch.nonzero(ok).flatten().to(torch.int32)
 
 
-def verify_p1(tile, entry, ppos, emeta, p1_codes, tile_start: int,
-              record_len: int, lead: int, mismatches: int, three_prime: int):
+def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,
+              rmeta, recmap, lead: int, mismatches: int, three_prime: int):
     """Anchors of one tile: the CUDA kernel for tensors on the card,
     ``verify_p1_plain`` for CPU tensors.
 
     ``entry``/``ppos``: int32 pairs from ``expand``; ``emeta``: int32[E, 8];
-    ``p1_codes``: uint8[E, P1MAX]; ``tile_start``: record position of the
-    tile's first scan position; ``lead``: its index in the tile plane."""
-    if not kernel_route(tile, entry, ppos, emeta, p1_codes):
-        return verify_p1_plain(tile, entry, ppos, emeta, p1_codes, tile_start,
-                               record_len, lead, mismatches, three_prime)
+    ``p1_codes``: uint8[E, P1MAX]; ``p1_exp``: int32[E, P1MAX] IUPAC masks
+    for -I 1, or None for -I 0; ``tile_start``: plane position of the
+    tile's first scan position; ``rmeta``/``recmap``: the plane's records
+    (``units.records_at``); ``lead``: the first scan position's index in
+    the tile."""
+    extra = tuple(t for t in (p1_exp, recmap) if t is not None)
+    if not kernel_route(tile, entry, ppos, emeta, p1_codes, rmeta, *extra):
+        return verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
+                               tile_start, rmeta, recmap, lead, mismatches,
+                               three_prime)
     require(tile, torch.uint8, "tile")
     for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
         require(t, torch.int32, name)
-    require(p1_codes, torch.uint8, "p1_codes")
+    check_codes(p1_codes, p1_exp, "p1")
+    check_records(rmeta, recmap)
     if entry.shape != ppos.shape:
         raise ValueError("entry and ppos differ in length")
     dev = tile.device
@@ -73,7 +84,7 @@ def verify_p1(tile, entry, ppos, emeta, p1_codes, tile_start: int,
     P, I, LL = kernels.P, kernels.I, kernels.LL
     count = kernels.function(
         "verify_p1", "mp_verify_p1_count",
-        [P, LL, P, P, I, P, P, I, LL, LL, I, I, I, P, P, P, P, P],
+        [P, LL, P, P, I, P, P, P, I, LL, P, P, LL, I, I, I, P, P, P, P, P],
     )
     write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
     s = kernels.stream(tile)
@@ -81,7 +92,8 @@ def verify_p1(tile, entry, ppos, emeta, p1_codes, tile_start: int,
     kernels.call(
         count, tile.data_ptr(), 2 * tile.numel(), entry.data_ptr(),
         ppos.data_ptr(), n, emeta.data_ptr(), p1_codes.data_ptr(),
-        p1_codes.shape[1], tile_start, record_len, lead, mismatches,
+        None if p1_exp is None else p1_exp.data_ptr(), p1_codes.shape[1],
+        tile_start, *record_args(rmeta, recmap), lead, mismatches,
         three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
         total.data_ptr(), s,
     )

@@ -46,6 +46,17 @@ def test_legacy_and_modern_flags_match_jax(flags):
         assert out == GOLDEN_LINE + "\n"
 
 
+@pytest.mark.parametrize("flags", [["-I", "1"], ["I=1", "M=100", "X=0"]])
+def test_iupac_flag_matches_jax(flags):
+    """-I 1 reaches the engine (the IUPAC verify, K11) through both flag
+    syntaxes."""
+    argv = [GOLDEN_STS, GOLDEN_FA, *flags]
+    rc, out = _run(cli.main, argv, device="cpu")
+    jrc, jout = _run(jax_cli.main, argv)
+    assert (rc, out) == (jrc, jout) == (0, out)
+    assert GOLDEN_LINE + "\n" in out
+
+
 def test_output_file(tmp_path):
     out = tmp_path / "hits.txt"
     rc, stdout = _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-O", str(out)], device="cpu")

@@ -122,8 +122,7 @@ def test_output_file_and_stdout_name(tmp_path):
 
 @pytest.mark.parametrize(
     "params",
-    [{"mismatches": 1}, {"mismatches": 3}, {"iupac_mode": 1}, {"wordsize": 12},
-     {"margin": 129}],
+    [{"mismatches": 1}, {"mismatches": 3}, {"wordsize": 12}, {"margin": 129}],
 )
 def test_unported_parameters_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -147,8 +146,18 @@ def test_unported_inputs_raise(tmp_path):
 
     with pytest.raises(NotImplementedError, match="K9"):
         eng.search([FASTARecord(defline=">x", sequence="ACGT" * 10 + "E" + "ACGT" * 10)])
-    # an N every 300 bases: ~1.7% of positions are dirty in their 16-base
-    # window but clean in their W-mer
+
+
+def test_dirty_genome_arms_k10(tmp_path):
+    """An N every 300 bases (~1.7 % of positions dirty in their 16-base
+    window but clean in their W-mer) arms the dirty-span filter on both
+    sides, and the outputs agree byte for byte."""
     dirty = "".join("N" if i % 300 == 0 else "ACGT"[i * 7 % 4] for i in range(4000))
-    with pytest.raises(NotImplementedError, match="K10"):
-        eng.search([FASTARecord(defline=">d", sequence=dirty)])
+    fa = tmp_path / "d.fa"
+    fa.write_text(">d\n" + dirty + "\n")
+    port, ref = _both(GOLDEN_STS, str(fa))
+    assert port == ref
+    eng = MerPCR(device="cpu")
+    assert eng.load_sts_file(GOLDEN_STS)
+    eng.search(eng.load_fasta_file(str(fa)))
+    assert [c.dirty_bloom for c, _, _ in eng.last_scans] == [True]

@@ -30,6 +30,7 @@ from merpcr_tpu_torch.ops import kernels
 from merpcr_tpu_torch.ops.expand import expand, expand_plain
 from merpcr_tpu_torch.ops.front_end import front_end, front_end_plain
 from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
+from merpcr_tpu_torch.ops.scan import record_rmeta
 from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +77,40 @@ def _corpus(tmp_path, n: int = 300_000, n_sts: int = 200, seed: int = 3):
     return str(sts), str(fa)
 
 
+def _assembly(tmp_path, n_rec: int = 400, seed: int = 5, dirty: float = 0.01):
+    """STS + FASTA files of a scaffold assembly: ``n_rec`` records of 200
+    to 3,000 random bases with ``dirty`` of them scattered ambiguity
+    letters, every third STS with R/Y/N letters in its primers, every
+    other STS planted (resolved) inside one record."""
+    rng = np.random.default_rng(seed)
+    recs = [rng.choice(ACGT, size=int(n)) for n in rng.integers(200, 3_001, size=n_rec)]
+    amb = np.frombuffer(b"NRYKMSWBDHV", dtype=np.uint8)
+    for seq in recs:
+        k = rng.random(len(seq)) < dirty
+        seq[k] = rng.choice(amb, size=int(k.sum()))
+    resolve = {ord("R"): b"AG", ord("Y"): b"CT", ord("N"): b"ACGT"}
+    lines = []
+    for i in range(120):
+        p1, p2 = (bytearray(rng.choice(ACGT, size=int(rng.integers(18, 26))).tobytes())
+                  for _ in range(2))
+        if i % 3 == 0:
+            for p in (p1, p2):
+                p[int(rng.integers(0, len(p)))] = int(rng.choice(list(b"RYN")))
+        size = int(rng.integers(100, 190))
+        lines.append(f"A{i}\t{p1.decode()}\t{p2.decode()}\t{size}\n")
+        if i % 2 == 0:
+            seq = recs[int(rng.integers(0, n_rec))]
+            pos = int(rng.integers(0, len(seq) - size))
+            for p, at in ((p1, pos), (p2, pos + size - len(p2))):
+                site = bytes(int(rng.choice(list(resolve[b]))) if b in resolve else b for b in p)
+                seq[at : at + len(p)] = np.frombuffer(site, dtype=np.uint8)
+    sts = tmp_path / "a.sts"
+    sts.write_text("".join(lines))
+    fa = tmp_path / "a.fa"
+    fa.write_text("".join(f">scaf{r}\n{seq.tobytes().decode()}\n" for r, seq in enumerate(recs)))
+    return str(sts), str(fa)
+
+
 def _search(engine, sts, fa) -> str:
     assert engine.load_sts_file(sts)
     recs = engine.load_fasta_file(fa)
@@ -119,11 +154,29 @@ def test_default_device_needs_a_card():
         cli.main([GOLDEN_STS, GOLDEN_FA])
 
 
+def test_cuda_iupac_table_equals_encoding():
+    """csrc/records.cuh's kExpNib is ops/encoding.py's genome-letter
+    expansion table, entry for entry."""
+    import re
+
+    from merpcr_tpu_torch.ops.units import EXP_NIB
+
+    with open(os.path.join(kernels.CSRC, "records.cuh")) as fh:
+        src = fh.read()
+    body = re.search(r"kExpNib\[16\] = \{([^}]*)\}", src).group(1)
+    assert tuple(int(v, 16) for v in re.findall(r"0x[0-9a-fA-F]+", body)) == EXP_NIB
+    assert len(EXP_NIB) == 16
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, pkgutil, importlib, merpcr_tpu_torch\n"
         "for m in pkgutil.walk_packages(merpcr_tpu_torch.__path__, 'merpcr_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "for m in ('engine', 'ops.scan', 'ops.units', 'ops.expand', 'ops.verify_p1',\n"
+        "          'ops.margin_p2', 'ops.table'):\n"
+        "    assert 'merpcr_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'merpcr_tpu')]\n"
         "print(len([m for m in sys.modules if m.startswith('merpcr_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -172,17 +225,80 @@ def test_kernels_equal_plain_versions(cuda, tmp_path):
         assert (pt, qt) == (ptp, qtp)
         assert torch.equal(e, ep) and torch.equal(p, pp)
         for nmm, x in ((0, 1), (0, 0), (0, 3)):
-            vargs = (tile, e, p, tb.emeta, tb.p1_codes, t0, n, lead, nmm, x)
+            rm = record_rmeta(n, cuda)
+            vargs = (tile, e, p, tb.emeta, tb.p1_codes, None, t0, rm, None, lead, nmm, x)
             a = verify_p1(*vargs)
             assert torch.equal(a, verify_p1_plain(*vargs))
             for margin in (0, 50, 64):
-                margs = (tile, a, e, p, tb.emeta, tb.p2_codes, t0, n, lead,
-                         margin, nmm, x)
+                margs = (tile, a, e, p, tb.emeta, tb.p2_codes, None, t0, rm, None,
+                         lead, margin, nmm, x)
                 h = margin_p2(*margs)
                 assert torch.equal(h, margin_p2_plain(*margs))
                 seen_hits += h.shape[0]
     torch.cuda.synchronize()
     assert seen_hits > 0
+
+
+@pytest.mark.gpu
+def test_stream_kernels_equal_plain_versions(cuda, tmp_path):
+    """Each kernel's stream, dirty-span (K10) and IUPAC (K11) variants
+    against its plain version on the tiles of a dirty scaffold plane."""
+    sts, fa = _assembly(tmp_path)
+    eng = MerPCR(device=cuda, iupac_mode=1)
+    eng._tile_len_override = 1 << 17
+    assert eng.load_sts_file(sts)
+    (kind, _, items), = eng._plan(eng.load_fasta_file(fa))
+    cfg, plane_np, total, _, rmeta_np, recmap_np = eng._stream_plane(items)
+    assert kind == "stream" and cfg.dirty_bloom and cfg.iupac
+    tb = eng._table
+    plane = torch.from_numpy(plane_np).to(cuda)
+    rmeta, recmap = torch.from_numpy(rmeta_np).to(cuda), torch.from_numpy(recmap_np).to(cuda)
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    hits, recs = 0, set()
+    for t in range(-(-total // L)):
+        tile = plane[t * L // 2 : t * L // 2 + cfg.tile_buf_in]
+        n_scan = min(L, total - t * L)
+        w, c = front_end(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
+        assert torch.equal(w, front_end_plain(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)[0])
+        for bloom in (tb.bloom, None):
+            args = (tile, w, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.bsc,
+                    tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
+            e, p, pt, qt = expand(*args)
+            ep, pp, ptp, qtp = expand_plain(*args)
+            assert (pt, qt) == (ptp, qtp) and torch.equal(e, ep) and torch.equal(p, pp)
+        for p1x, p2x in ((tb.p1_exp, tb.p2_exp), (None, None)):
+            for x in (0, 1, 3):
+                vargs = (tile, e, p, tb.emeta, tb.p1_codes, p1x, t * L, rmeta, recmap,
+                         lead, 0, x)
+                a = verify_p1(*vargs)
+                assert torch.equal(a, verify_p1_plain(*vargs))
+                for margin in (0, 50):
+                    margs = (tile, a, e, p, tb.emeta, tb.p2_codes, p2x, t * L, rmeta,
+                             recmap, lead, margin, 0, x)
+                    h = margin_p2(*margs)
+                    assert torch.equal(h, margin_p2_plain(*margs))
+                    hits += h.shape[0]
+                    recs |= set(h[:, 5].tolist())
+    torch.cuda.synchronize()
+    assert hits > 0 and len(recs) > 10
+
+
+@pytest.mark.gpu
+def test_card_stream_search_equals_cpu_search(cuda, tmp_path):
+    """A dirty scaffold assembly at -I 0 and -I 1: the card prints the CPU
+    bytes, and each kernel launches at most once per stream tile."""
+    sts, fa = _assembly(tmp_path)
+    wrappers = (front_end, expand, verify_p1, margin_p2)
+    for iupac in (0, 1):
+        eng = MerPCR(device=cuda, iupac_mode=iupac)
+        counts = [f.launches for f in wrappers]
+        on_card = _search(eng, sts, fa)
+        launched = [f.launches - c0 for f, c0 in zip(wrappers, counts)]
+        (cfg, n_tiles, n_rec), = eng.last_scans
+        assert cfg.stream and cfg.dirty_bloom and n_rec == 400
+        assert 0 < min(launched) and max(launched) <= n_tiles, launched
+        assert on_card == _search(MerPCR(device="cpu", iupac_mode=iupac), sts, fa)
+        assert on_card.count("\n") > 0
 
 
 @pytest.mark.gpu

@@ -191,7 +191,8 @@ def test_tile_totals_and_rows_match_jax(tmp_path_factory, kind, tile_len, margin
             j = jax.device_get(fn(c.jtable, tile, np.int32(t * tile_len),
                                   np.int32(c.n_scan(t)), np.int32(c.n), rt))
             o = tscan.scan_tile(c.tcfg, c.ttable, torch.from_numpy(tile),
-                                t * tile_len, c.n_scan(t), c.n, tuple(rt))
+                                t * tile_len, c.n_scan(t),
+                                tscan.record_rmeta(c.n, "cpu"), None, tuple(rt))
             jt = tuple(int(v) for v in (j.c_total, j.pos_total, j.pair_total,
                                         j.anch_total, j.hit_total))
             assert o[:5] == jt, (kind, tile_len, margin, x, t)
