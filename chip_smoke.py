@@ -9,49 +9,68 @@ Phases (each prints one JSON line; any failure exits non-zero, and the
 closing device line is printed only when every phase passed):
 
 1. device    card name, and name + power limit from nvidia-smi
-2. build     the four kernels compiled from csrc/ by nvcc for sm_90a, one
+2. build     the kernel sources compiled from csrc/ by nvcc for sm_90a, one
              process per source, all at once; ptxas register/smem lines
 3. workload  a random ACGT genome (one record) and random STS made from
              --seed, the first --planted STS planted as amplicons, plus
              one amplicon across every 2^23 tile boundary and one anchor
-             W-mer straddling each boundary; written as STS + FASTA files
+             W-mer straddling each boundary, plus 50 (+) amplicons with
+             one mismatch in each primer and 50 with two (past the W-mer,
+             off the -X 1 protected ends); written as STS + FASTA files
 4. kernels   on one real 2^23 tile of that genome, each kernel against
              its plain PyTorch version on the same card tensors: every
              output and total must be equal (integers, tolerance 0); times
              from CUDA events
 5. end2end   MerPCR().load_sts_file -> load_fasta_file -> search on the
              card, cold then warm (launch counts read around the warm
-             run); every planted amplicon's line present; output bytes
-             equal to the same search with device="cpu" (plain versions);
-             then a breakdown of one record's search: host-clock time per
-             step and device time per kernel from torch.profiler
-6. golden    tests/data through the API and through
-             ``python -m merpcr_tpu_torch``: exactly the golden line
-7. assembly  a draft assembly: 30 Mbp of random ACGT in 3,000 equal
+             run); every planted amplicon's line present and no mismatch
+             plant's; output bytes equal to the same search with
+             device="cpu" (plain versions); then a breakdown of one
+             record's search: host-clock time per step and device time per
+             kernel from torch.profiler
+6. mismatch  the same engine at -N 1 (strict1 tables, built on this first
+             -N 1 search) and at -N 2 (loose front end, K8), each cold then
+             warm (launch counts around the warm run): the path that ran,
+             the 1-mismatch lines present at both, the 2-mismatch lines at
+             -N 2 only, every exact plant present, bytes equal to
+             device="cpu"; a breakdown of the warm search; then the
+             path's kernels against their plain versions on one real 2^23
+             tile (phase mismatch_kernels)
+7. golden    tests/data through the API and through
+             ``python -m merpcr_tpu_torch``: exactly the golden line; the
+             CLI at -I 1 and at -N 2 equal to the API
+8. assembly  a draft assembly: 30 Mbp of random ACGT in 3,000 equal
              scaffolds x --nsts random STS, --planted amplicons planted
              wholly inside scaffolds; every fourth planted STS carries R/Y/N
-             letters in its primers and its sites resolve them. Three
+             letters in its primers and its sites resolve them. Four
              variants: (a) clean at -I 0, (b) the same scaffolds with 1 %
              scattered NRYKMSWBDHV (scattered before planting) at -I 0, (c)
-             variant (b) at -I 1. Each runs cold then warm on the card
-             through the stream path (launch counts read around the warm
-             run: every kernel launched, at most once per stream tile);
-             every planted ACGT-primer line present, the R/Y/N-primer lines
-             present in (c) only; bytes equal to device="cpu"; the
-             dirty-span filter (K10) armed in (b) and (c)
-8. stream_kernels  on one real 2^21 stream tile of variant (c), each
+             variant (b) at -I 1, (d) variant (b) at -I 1 -N 2 (loose, no
+             dirty-span filter: the loose path's heaviest expansion). Each
+             runs cold then warm on the card through the stream path
+             (launch counts read around the warm run: every kernel of the
+             path launched, at most once per stream tile); every planted
+             ACGT-primer line present, the R/Y/N-primer lines present in
+             (c) and (d) only; bytes equal to device="cpu"; the dirty-span
+             filter (K10) armed in (b) and (c)
+9. stream_kernels  on one real 2^21 stream tile of variant (c), each
              kernel's stream + dirty-span + IUPAC variant against its plain
              version on the same card tensors (tolerance 0); the tile must
              hold anchors and hits that only the IUPAC expansion-set match
              admits; times from CUDA events and torch.profiler, byte/op
-             bound
+             bound; then the same for variant (d)'s loose kernels on that
+             tile at -N 2 (with a breakdown of (d)'s warm search)
 
 The second-to-last JSON line lists every kernel with its launches on the
 main path, error against its plain version, times and bound: the record
-path's four kernels (phase 4 times, launches of the warm 47 Mbp search)
-and their stream variants (phase 8 times, launches of the warm variant (c)
-search); the line before the last is nvidia-smi's name and power limit;
-the last line is {"ok": true, "device": {...}}.
+path's four kernels (phase 4 times, launches of the warm 47 Mbp search),
+their stream variants (phase 9 times, launches of the warm variant (c)
+search), the -N 1 (strict1) and -N 2 (loose) paths' kernels (phase 6
+times, launches of the warm 47 Mbp search at that -N), and the loose
+stream kernels (phase 9 times, launches of the warm variant (d)
+search); the line before
+the last is nvidia-smi's name and power limit; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -134,8 +153,17 @@ def write_fasta(path: str, records, width: int = 80) -> str:
     return path
 
 
+MM_PLANTS = 50  # amplicons with 1 and with 2 mismatches per primer, each
+
+
 def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
-    """(sts path, fasta path, genome length, expected planted lines)."""
+    """(sts path, fasta path, genome length, expected planted lines, {k:
+    lines of the amplicons planted with k mismatches in each primer}).
+
+    The mismatch plants are (+) amplicons of STS that no other plant
+    uses, with k transitions in primer 1 past its W-mer (which the lookup
+    matches exactly) and off its 3'-end base, and k in primer 2 off its
+    first base (the -X 1 protected ends); only -N >= k finds them."""
     rng = np.random.default_rng(seed)
     n = int(n_mbp * 1e6)
     acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -145,15 +173,27 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
     label = "smoke_genome"
     expect, taken = [], []
 
-    def plant(pos, i, strand):
+    mism = {1: [], 2: []}
+    transition = bytes.maketrans(b"ACGT", b"GTAC")
+
+    def mutate(primer: bytes, lo: int, hi: int, k: int) -> bytes:
+        site = bytearray(primer)
+        for j in rng.choice(np.arange(lo, hi), size=k, replace=False):
+            site[j : j + 1] = bytes(site[j : j + 1]).translate(transition)
+        return bytes(site)
+
+    def plant(pos, i, strand, k=0):
         sid, p1, p2, size = rows[i]
         if pos < 0 or pos + size > n or any(a < pos + size and pos < b for a, b in taken):
             return
         left, right = (p1, p2) if strand == "+" else (p2, p1.translate(comp)[::-1])
+        if k:
+            left, right = mutate(left, 12, len(left) - 2, k), mutate(right, 2, len(right) - 2, k)
         genome[pos : pos + len(left)] = np.frombuffer(left, dtype=np.uint8)
         genome[pos + size - len(right) : pos + size] = np.frombuffer(right, dtype=np.uint8)
         taken.append((pos, pos + size))
-        expect.append(f"{label}\t{pos + 1}..{pos + size}\t{sid}\talias {sid}\t({strand})")
+        line = f"{label}\t{pos + 1}..{pos + size}\t{sid}\talias {sid}\t({strand})"
+        (mism[k] if k else expect).append(line)
 
     for i in range(planted):  # evenly spread, as bench.py plants them
         plant((n // (planted + 1)) * (i + 1), i, "+")
@@ -162,9 +202,12 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
         plant(b - 60, k % n_sts, "+")  # amplicon across the tile boundary
         plant(b - 7, (k + 1) % n_sts, "-")  # anchor W-mer straddles it
         k += 2
+    gap = n // (2 * MM_PLANTS + 1)
+    for j in range(2 * MM_PLANTS):  # between the exact plants, other STS
+        plant(gap * (j + 1) + gap // 3, (k + j) % n_sts, "+", 1 + j % 2)
     sts = write_sts(os.path.join(tmp, "smoke.sts"), rows)
     fa = write_fasta(os.path.join(tmp, "smoke.fa"), [(label, genome)])
-    return sts, fa, n, expect
+    return sts, fa, n, expect, mism
 
 
 def make_assembly(tmp: str, seed: int, n_sts: int, planted: int):
@@ -312,12 +355,16 @@ def stream_tile(eng, recs):
 
 
 def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
-    """Each kernel and its plain version on one real tile of ``laid``
-    (``record_tile``/``stream_tile``), with the config's filters."""
-    from merpcr_tpu_torch.ops.expand import expand, expand_plain
-    from merpcr_tpu_torch.ops.front_end import front_end, front_end_plain
+    """Each kernel of the config's path and its plain version on one real
+    tile of ``laid`` (``record_tile``/``stream_tile``), with the config's
+    front end (strict over the N=0 or N=1 tables, or loose), filters and
+    the engine's runtime -M/-N/-X. Returns {wrapper name: kernel entry}."""
+    from merpcr_tpu_torch.ops.expand import (expand, expand_loose, expand_loose_plain,
+                                             expand_plain)
+    from merpcr_tpu_torch.ops.front_end import (front_end, front_end_loose,
+                                                front_end_loose_plain, front_end_plain)
     from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
-    from merpcr_tpu_torch.ops.units import unit_regs, units_of
+    from merpcr_tpu_torch.ops.units import group_regs, unit_regs, units_of
     from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
 
     cfg, plane, t, total, rmeta, recmap = laid
@@ -343,7 +390,7 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
             "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
-            "source": f"merpcr_tpu_torch/csrc/{name}.cu",
+            "source": f"merpcr_tpu_torch/csrc/{name.replace('_loose', '')}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
             "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -353,30 +400,53 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
             raise RuntimeError(f"{name}[{variant}]: kernel differs from plain by {err}")
         return got
 
-    # K1: plane units of the scan span + the distinct qbloom_s words looked up
+    # K1 / K8: plane units of the scan span + the distinct table words
+    # looked up
     n_units = L // 8
     u = units_of(tile[: tile.numel() // 4 * 4])
-    A, _, B, _ = unit_regs(u, torch.arange(n_units, device=tile.device) + lead // 8)
-    bk = ((A >> 14) | ((B & 0xFF) << 18)) & ((1 << tb.gq) - 1)
+    if cfg.strict:
+        s1 = cfg.strict_n == 1
+        qb, gq = (tb.qbloom_s1, tb.gq1) if s1 else (tb.qbloom_s, tb.gq)
+        t16, t16_bits = (tb.t16_1, tb.t16_1_bits) if s1 else (tb.t16, tb.t16_bits)
+        A, _, B, _ = unit_regs(u, torch.arange(n_units, device=tile.device) + lead // 8)
+        bk = ((A >> 14) | ((B & 0xFF) << 18)) & ((1 << gq) - 1)
+        n_items, fe_name, fe, fe_plain = n_units, "front_end", front_end, front_end_plain
+        fe_line = "merpcr_tpu/ops/scan.py:504" if s1 else "merpcr_tpu/ops/scan.py:452"
+    else:
+        qb, gq = tb.qbloom, tb.q_bits
+        n_items = 2 * n_units  # stride-4 groups
+        A, _, _, _ = group_regs(u, torch.arange(n_items, device=tile.device), lead // 8)
+        bk = A & ((1 << (2 * (W + 3))) - 1) & ((1 << gq) - 1)
+        fe_name, fe, fe_plain = "front_end_loose", front_end_loose, front_end_loose_plain
+        fe_line = "merpcr_tpu/ops/scan.py:579"
     distinct_words = int(torch.unique(bk >> 5).numel())
-    del u, A, B, bk
-    fe_args = (tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
+    del u, A, bk
+    fe_args = (tile, qb, gq, W, lead, L, n_scan)
     words, c_total = run(
-        "front_end", front_end, front_end_plain, fe_args, 50,
-        4 * (n_units + 2) + 4 * distinct_words + n_units // 8 + 4,
-        70 * n_units, "merpcr_tpu/ops/scan.py:452", lambda o: o,
+        fe_name, fe, fe_plain, fe_args, 50,
+        4 * (n_units + 2) + 4 * distinct_words + n_items // 8 + 4,
+        (70 if cfg.strict else 50) * n_items, fe_line, lambda o: o,
     )
     c_total = int(c_total.item())
-    ex_args = (tile, words, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.bsc,
-               tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
-    first = expand(*ex_args)
+    if cfg.strict:
+        ex_name, ex, ex_plain = "expand", expand, expand_plain
+        ex_args = (tile, words, tb.ptab, tb.pf_bits, t16, t16_bits, tb.bsc,
+                   tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
+        ex_line = ("merpcr_tpu/ops/scan.py:803" if bloom is not None else
+                   "merpcr_tpu/ops/scan.py:944" if s1 else "merpcr_tpu/ops/scan.py:680")
+        item_b, item_ops = 12 + 8, 300 + (120 if bloom is not None else 0)
+    else:
+        ex_name, ex, ex_plain = "expand_loose", expand_loose, expand_loose_plain
+        ex_args = (tile, words, tb.ptab, tb.pf_bits, tb.bsc, tb.emeta.shape[0], W,
+                   lead, L, n_scan)
+        ex_line = "merpcr_tpu/ops/scan.py:775"
+        item_b, item_ops = 12 + 4, 150
+    first = ex(*ex_args)
     pos_total, pair_total = first[2], first[3]
     entry, ppos, _, _ = run(
-        "expand", expand, expand_plain, ex_args, 20,
-        n_units // 8 + c_total * (12 + 8) + pos_total * 12 + pair_total * 8,
-        4 * n_units + (300 + (120 if bloom is not None else 0)) * c_total,
-        "merpcr_tpu/ops/scan.py:803" if bloom is not None else "merpcr_tpu/ops/scan.py:680",
-        lambda o: o,
+        ex_name, ex, ex_plain, ex_args, 20,
+        n_items // 8 + c_total * item_b + pos_total * 12 + pair_total * 8,
+        4 * n_items + item_ops * c_total, ex_line, lambda o: o,
     )
     v_args = (tile, entry, ppos, tb.emeta, tb.p1_codes, p1x, t0, rmeta, recmap,
               lead, nmm, x)
@@ -384,7 +454,8 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         "verify_p1", verify_p1, verify_p1_plain, v_args, 20,
         pair_total * (8 + rec_b + 32 + 16 + code_b * tb.p1_codes.shape[1]),
         pair_total * 6 * tb.p1_codes.shape[1],
-        "merpcr_tpu/ops/scan.py:985" if cfg.stream else "merpcr_tpu/ops/scan.py:979",
+        "merpcr_tpu/ops/scan.py:985" if cfg.stream else
+        "merpcr_tpu/ops/scan.py:1039" if nmm else "merpcr_tpu/ops/scan.py:979",
         lambda o: (o,),
     )
     anch = a_idx.numel()
@@ -395,20 +466,24 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         anch * (4 + 8 + rec_b + 32 + code_b * tb.p2_codes.shape[1]
                 + (2 * margin + cfg.p2_max) // 2),
         anch * (2 * margin + 1) * 40,
-        "merpcr_tpu/ops/scan.py:1058" if cfg.stream else "merpcr_tpu/ops/scan.py:1047",
+        "merpcr_tpu/ops/scan.py:1058" if cfg.stream else
+        "merpcr_tpu/ops/scan.py:1157" if nmm else "merpcr_tpu/ops/scan.py:1047",
         lambda o: (o,),
     )
     iupac_only = {}
     if cfg.iupac:
         # anchors and hits that only the expansion-set match admits: without
         # them the comparison above could not tell the IUPAC kernels from
-        # code-equality ones
+        # code-equality ones (at -N 0; a mismatch budget may admit the
+        # same sites as mismatches)
         a_eq = verify_p1_plain(*v_args[:5], None, *v_args[6:])
         r_eq = margin_p2_plain(*m_args[:6], None, *m_args[7:])
         iupac_only = {"anch": anch - a_eq.numel(), "hit": int(rows.shape[0] - r_eq.shape[0])}
-        check(min(iupac_only.values()) > 0, f"{variant}: no IUPAC-only matches {iupac_only}")
+        check(nmm or min(iupac_only.values()) > 0,
+              f"{variant}: no IUPAC-only matches {iupac_only}")
     emit({"phase": phase, "variant": variant or "record", "tile": t, "tile_len": L,
-          "card": card, "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
+          "card": card, "strict": cfg.strict, "strict_n": cfg.strict_n, "mismatches": nmm,
+          "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
           "stream": cfg.stream, "iupac_only": iupac_only,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
@@ -428,11 +503,12 @@ def breakdown(eng, recs) -> dict:
     seq, packed = record_seq_bytes(rec), record_packed(rec)
     n = len(seq)
     total = n - eng.wordsize + 1
-    out = {}
-    t0 = time.perf_counter()
-    eng._dirty_of(seq, packed)
-    out["dirty_rate_s"] = time.perf_counter() - t0
     cfg = eng._base_config(eng._pick_tile_len(total))
+    out = {"mismatches": eng.mismatches, "strict": cfg.strict, "dirty_rate_s": None}
+    if cfg.strict:  # the loose path takes no dirty-rate sample
+        t0 = time.perf_counter()
+        eng._dirty_of(seq, packed)
+        out["dirty_rate_s"] = time.perf_counter() - t0
     n_tiles = -(-total // cfg.tile_len)
     t0 = time.perf_counter()
     plane_np = eng._plane(packed, cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead)
@@ -497,11 +573,13 @@ def stream_breakdown(eng, recs) -> dict:
 
 
 def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
-                   n_bp: int, card: str, variant: str, want_bloom: bool):
+                   n_bp: int, card: str, variant: str, want_bloom: bool,
+                   mismatches: int = 0):
     """One assembly variant end to end on the card (cold, then warm with
     the launch counts read around it) and against device="cpu": every line
-    of ``expect`` present, none of ``absent``."""
-    eng = MerPCR(iupac_mode=iupac)
+    of ``expect`` present, none of ``absent``. -N 0 scans strict, -N 2
+    loose."""
+    eng = MerPCR(iupac_mode=iupac, mismatches=mismatches)
     t0 = time.perf_counter()
     check(eng.load_sts_file(sts), "STS load failed")
     t_table = time.perf_counter() - t0
@@ -519,21 +597,24 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
     check(warm == cold and hits == hits_cold, f"{variant}: warm search differs from cold")
     (cfg, n_tiles, n_rec), = eng.last_scans
     check(cfg.stream and n_rec == ASM_RECORDS, f"{variant}: not one stream plane: {eng.last_scans}")
+    check(cfg.strict == (mismatches == 0), f"{variant}: strict {cfg.strict}")
     check(cfg.dirty_bloom == want_bloom, f"{variant}: dirty_bloom {cfg.dirty_bloom}")
     check(cfg.iupac == bool(iupac), f"{variant}: iupac {cfg.iupac}")
-    check(all(0 < v <= n_tiles for v in launches.values()),
+    used = path_wrappers(cfg)
+    check(all((0 < v <= n_tiles) == (k in used) for k, v in launches.items()),
           f"{variant}: launches {launches} for {n_tiles} stream tiles")
     lines = set(warm.splitlines())
     missing = [e for e in expect if e not in lines]
     check(not missing, f"{variant}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
     found = [e for e in absent if e in lines]
     check(not found, f"{variant}: R/Y/N-primer lines found at -I 0, e.g. {found[:3]}")
-    cpu = MerPCR(device="cpu", iupac_mode=iupac)
+    cpu = MerPCR(device="cpu", iupac_mode=iupac, mismatches=mismatches)
     check(cpu.load_sts_file(sts), "STS load failed (cpu)")
     cpu_out, _, t_cpu = search_bytes(cpu, recs)
     check(cpu_out == warm, f"{variant}: card output differs from the CPU (plain) output")
     emit({"phase": "assembly", "variant": variant, "card": card, "bases": n_bp,
-          "records": ASM_RECORDS, "iupac": iupac, "dirty_bloom": cfg.dirty_bloom,
+          "records": ASM_RECORDS, "iupac": iupac, "mismatches": mismatches,
+          "strict": cfg.strict, "dirty_bloom": cfg.dirty_bloom,
           "stream_tiles": n_tiles, "tile_len": cfg.tile_len, "hits": hits,
           "planted_found": len(expect), "planted_absent": len(absent),
           "cold_s": t_cold, "warm_s": t_warm,
@@ -541,6 +622,61 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
           "table_compile_s": t_table, "fasta_load_s": t_fasta,
           "peak_mem_bytes": peak, "launches": launches, "equal_to_cpu": True})
     return eng, recs, launches
+
+
+def path_wrappers(cfg) -> tuple:
+    """The wrappers a scan with ``cfg`` launches (one each per tile)."""
+    if cfg.strict:
+        return ("front_end", "expand", "verify_p1", "margin_p2")
+    return ("front_end_loose", "expand_loose", "verify_p1", "margin_p2")
+
+
+def phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n: int, card: str,
+                   sts: str) -> dict:
+    """The 47 Mbp record at -N 1 (strict1) and -N 2 (loose) in the
+    engine that ran -N 0: per budget, cold then warm on the card (launch
+    counts read around the warm run), which path ran, the planted k-
+    mismatch lines present exactly at -N >= k, every exact plant present,
+    bytes equal to device="cpu"; then the path's kernels against their
+    plain versions on one real 2^23 tile. Returns {N: (kernel entries,
+    warm launches)}."""
+    out = {}
+    for n_mm in (1, 2):
+        eng.mismatches = n_mm
+        cold, hits_cold, t_cold = search_bytes(eng, recs)
+        for w in wrappers.values():
+            w.launches = 0
+        warm, hits, t_warm = search_bytes(eng, recs)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(warm == cold and hits == hits_cold, f"-N {n_mm}: warm search differs from cold")
+        (cfg, n_tiles, _), = eng.last_scans
+        check((cfg.strict, cfg.strict_n) == ((True, 1) if n_mm == 1 else (False, 0)),
+              f"-N {n_mm}: ran strict={cfg.strict} strict_n={cfg.strict_n}")
+        used = path_wrappers(cfg)
+        check(all((0 < v <= n_tiles) == (k in used) for k, v in launches.items()),
+              f"-N {n_mm}: launches {launches} for {n_tiles} tiles")
+        lines = set(warm.splitlines())
+        for k, want in ((0, expect), *mism.items()):
+            got = sum(line in lines for line in want)
+            check(got == (len(want) if k <= n_mm else 0),
+                  f"-N {n_mm}: {got} of {len(want)} {k}-mismatch lines present")
+        cpu = MerPCR(device="cpu", mismatches=n_mm)
+        check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+        cpu_out, _, t_cpu = search_bytes(cpu, recs)
+        check(cpu_out == warm, f"-N {n_mm}: card output differs from the CPU (plain) output")
+        emit({"phase": "mismatch", "mismatches": n_mm, "card": card, "genome_bp": n,
+              "strict": cfg.strict, "strict_n": cfg.strict_n, "tiles": n_tiles,
+              "strict1_armed": bool(eng._meta.strict1), "hits": hits,
+              "planted_found": {k: sum(line in lines for line in want)
+                                for k, want in ((0, expect), *mism.items())},
+              "cold_s": t_cold, "warm_s": t_warm, "warm_mbp_per_s": n / 1e6 / t_warm,
+              "cpu_plain_s": t_cpu, "launches": launches, "equal_to_cpu": True})
+        emit({"phase": "breakdown", "card": card, **breakdown(eng, recs)})
+        kern = phase_kernels(eng, record_tile(eng, recs), card, "mismatch_kernels",
+                             "strict1" if cfg.strict else f"N{n_mm}")
+        out[n_mm] = (kern, launches)
+    eng.mismatches = 0
+    return out
 
 
 def main() -> int:
@@ -556,12 +692,13 @@ def main() -> int:
         return 2
     from merpcr_tpu_torch import MerPCR
     from merpcr_tpu_torch.ops import kernels
-    from merpcr_tpu_torch.ops.expand import expand
-    from merpcr_tpu_torch.ops.front_end import front_end
+    from merpcr_tpu_torch.ops.expand import expand, expand_loose
+    from merpcr_tpu_torch.ops.front_end import front_end, front_end_loose
     from merpcr_tpu_torch.ops.margin_p2 import margin_p2
     from merpcr_tpu_torch.ops.verify_p1 import verify_p1
 
-    wrappers = {"front_end": front_end, "expand": expand,
+    wrappers = {"front_end": front_end, "front_end_loose": front_end_loose,
+                "expand": expand, "expand_loose": expand_loose,
                 "verify_p1": verify_p1, "margin_p2": margin_p2}
     t_start = time.perf_counter()
 
@@ -582,10 +719,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # 3. workload
         t0 = time.perf_counter()
-        sts, fa, n, expect = make_workload(tmp, args.seed, args.mbp, args.nsts,
-                                           args.planted)
+        sts, fa, n, expect, mism = make_workload(tmp, args.seed, args.mbp, args.nsts,
+                                                 args.planted)
         emit({"phase": "workload", "seconds": time.perf_counter() - t0,
-              "genome_bp": n, "sts": args.nsts, "planted_lines": len(expect)})
+              "genome_bp": n, "sts": args.nsts, "planted_lines": len(expect),
+              "mismatch_lines": {k: len(v) for k, v in mism.items()}})
 
         eng = MerPCR()
         t0 = time.perf_counter()
@@ -611,7 +749,11 @@ def main() -> int:
         lines = set(warm.splitlines())
         missing = [e for e in expect if e not in lines]
         check(not missing, f"{len(missing)} planted lines missing, e.g. {missing[:3]}")
-        check(all(launches.values()), f"a kernel never launched: {launches}")
+        found = [e for k in mism for e in mism[k] if e in lines]
+        check(not found, f"-N 0 found {len(found)} mismatch lines, e.g. {found[:3]}")
+        used = path_wrappers(eng.last_scans[0][0])
+        check(all((v > 0) == (k in used) for k, v in launches.items()),
+              f"-N 0 launches {launches}")
         cpu = MerPCR(device="cpu")
         check(cpu.load_sts_file(sts), "STS load failed (cpu)")
         cpu_out, _, t_cpu = search_bytes(cpu, recs)
@@ -624,7 +766,10 @@ def main() -> int:
               "equal_to_cpu": True})
         emit({"phase": "breakdown", "card": card, **breakdown(eng, recs)})
 
-        # 6. golden
+        # 6. mismatch budget: -N 1 (strict1) and -N 2 (loose)
+        mm = phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n, card, sts)
+
+        # 7. golden
         data = os.path.join(ROOT, "tests", "data")
         g_sts, g_fa = os.path.join(data, "test.sts"), os.path.join(data, "test.fa")
         g = MerPCR()
@@ -648,10 +793,22 @@ def main() -> int:
         check(cli_i.returncode == 0 and cli_i.stdout == api_i and GOLDEN_LINE in api_i,
               f"golden -I 1: CLI rc={cli_i.returncode} out={cli_i.stdout!r} "
               f"api={api_i!r} err={cli_i.stderr[-2000:]}")
-        emit({"phase": "golden", "api": True, "cli": True, "cli_iupac": True})
-        del eng, g, gi
+        g2 = MerPCR(mismatches=2)
+        check(g2.load_sts_file(g_sts), "golden STS load failed (-N 2)")
+        api_2, _, _ = search_bytes(g2, g2.load_fasta_file(g_fa))
+        cli_2 = subprocess.run(
+            [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-N", "2"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        check(cli_2.returncode == 0 and cli_2.stdout == api_2 and GOLDEN_LINE in api_2
+              and not g2.last_scans[0][0].strict,
+              f"golden -N 2: CLI rc={cli_2.returncode} out={cli_2.stdout!r} "
+              f"api={api_2!r} err={cli_2.stderr[-2000:]}")
+        emit({"phase": "golden", "api": True, "cli": True, "cli_iupac": True,
+              "cli_n2": True, "n2_lines": api_2.count("\n")})
+        del eng, g, gi, g2
 
-        # 7. assembly
+        # 8. assembly
         t0 = time.perf_counter()
         a_sts, a_clean, a_dirty, a_bp, a_expect, a_expect_i = make_assembly(
             tmp, args.seed, args.nsts, args.planted)
@@ -659,27 +816,37 @@ def main() -> int:
               "bases": a_bp, "records": ASM_RECORDS, "sts": args.nsts,
               "planted_lines": len(a_expect), "planted_iupac_lines": len(a_expect_i)})
         stream_launches = {}
-        for variant, fa_v, iupac, bloom in (("a_clean_I0", a_clean, 0, False),
-                                            ("b_dirty_I0", a_dirty, 0, True),
-                                            ("c_dirty_I1", a_dirty, 1, True)):
+        for variant, fa_v, iupac, bloom, n_mm in (("a_clean_I0", a_clean, 0, False, 0),
+                                                  ("b_dirty_I0", a_dirty, 0, True, 0),
+                                                  ("c_dirty_I1", a_dirty, 1, True, 0),
+                                                  ("d_dirty_I1_N2", a_dirty, 1, False, 2)):
             expect, absent = (a_expect + a_expect_i, []) if iupac else (a_expect, a_expect_i)
-            a_eng, a_recs, stream_launches = phase_assembly(
+            a_eng, a_recs, launched = phase_assembly(
                 MerPCR, wrappers, a_sts, fa_v, iupac, expect, absent, a_bp,
-                card, variant, bloom)
+                card, variant, bloom, n_mm)
             if variant.startswith("c"):
+                stream_launches = launched
                 emit({"phase": "assembly_breakdown", "variant": variant, "card": card,
                       **stream_breakdown(a_eng, a_recs)})
-                # 8. stream kernels on one real stream tile of variant (c)
+                # 9. stream kernels on one real stream tile of variant (c)
                 s_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
                                       "stream_kernels", "stream+dirty_bloom+iupac")
+            if variant.startswith("d"):
+                d_launches = launched
+                emit({"phase": "assembly_breakdown", "variant": variant, "card": card,
+                      **stream_breakdown(a_eng, a_recs)})
+                # and the loose kernels on the same stream tile at -N 2
+                d_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
+                                      "stream_kernels", "stream+iupac+N2")
             del a_eng, a_recs
 
-    for k, r in res.items():
-        r["launches"] = launches[k]
-    for k, r in s_res.items():
-        r["launches"] = stream_launches[k]
-    emit({"kernels": [res[k] for k in wrappers] + [s_res[k] for k in wrappers],
-          "card": card, "seconds": time.perf_counter() - t_start})
+    rows = []
+    for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),
+                           (d_res, d_launches)):
+        for k, r in kern.items():
+            r["launches"] = launched[k]
+            rows.append(r)
+    emit({"kernels": rows, "card": card, "seconds": time.perf_counter() - t_start})
     print(smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

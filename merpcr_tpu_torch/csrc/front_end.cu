@@ -1,18 +1,21 @@
-// front_end: the strict (N=0) unit-projection front end of one tile.
+// front_end: the front ends of one tile, strict (K1) and loose (K8).
 //
-// Replaces merpcr_tpu/ops/scan.py::_scan_tile_impl, packed decode and the
-// strict branch (scan.py:452-502, :522-578, _bit_at :252): per u32 unit of
-// the scan span, one bit of the qbloom_s table keyed by window bases
-// 7..19, an exact-width OR-smear for "some phase's W-mer is clean", and
-// flag = in-bounds & clean-phase & (table hit | dirty key), packed
-// LSB-first into 32-unit words; c_total counts the flags.
+// K1 replaces merpcr_tpu/ops/scan.py::_scan_tile_impl, packed decode and
+// the strict branch (scan.py:452-502, :522-578, _bit_at :252): per u32
+// unit of the scan span, one bit of the strict table (qbloom_s at -N 0,
+// qbloom_s1 at -N 1) keyed by window bases 7..19, an exact-width OR-smear
+// for "some phase's W-mer is clean", and flag = in-bounds & clean-phase &
+// (table hit | dirty key), packed LSB-first into 32-unit words; c_total
+// counts the flags. K8 (front_end_loose_kernel below) is the loose branch.
 //
 // Bound on the card: memory. Each unit reads its 4 plane bytes (the two
 // neighbour units come from L1/L2) and makes one random 4-byte gather into
 // an 8 MB table that stays L2-resident; the arithmetic is ~60 integer ops
 // per unit. One thread per unit keeps neighbouring threads on neighbouring
 // plane words (coalesced), __ballot_sync builds each flag word in
-// registers, and c_total costs one atomicAdd per warp, not per flag.
+// registers, and c_total costs one atomicAdd per warp, not per flag. The
+// loose kernel makes twice the gathers (one per group) into an 8-32 MB
+// group table.
 
 #include "compact.cuh"
 #include "units.cuh"
@@ -50,6 +53,43 @@ __global__ void front_end_kernel(const uint32_t* __restrict__ units,
   }
 }
 
+// K8: the loose front end (scan.py:579-659). One thread per stride-4
+// group q = 2r + p (scan positions 4q .. 4q+3). The JAX stage builds one
+// flag word per parity and bit-interleaves them into group order
+// (_spread, :623-659), which suits the TPU's lanes; here consecutive
+// threads are consecutive groups, so __ballot_sync gives the group-ordered
+// word directly. Two threads share each unit's plane words (L1 hits).
+__global__ void front_end_loose_kernel(const uint32_t* __restrict__ units,
+                                       const uint32_t* __restrict__ qbloom,
+                                       uint32_t m2q, int W, int n_groups,
+                                       int n_scan, uint32_t* __restrict__ words,
+                                       int* __restrict__ c_total) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  bool flag = false;
+  if (q < n_groups) {
+    const mp::UnitRegs g = mp::load_group(units, q);
+    const uint32_t m2w = mp::mask2w(W);
+    const uint32_t m2kb = (1u << (2 * (W + 3))) - 1u;  // span = W + stride - 1
+    bool some_phase_clean = false;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      uint32_t va = (g.Aa >> (2 * d)) & m2w;
+      if (2 * (d + W) > 32) va |= (g.Ba << (32 - 2 * d)) & m2w;  // d >= 1 here
+      some_phase_clean |= va == 0 && 4ll * q + d < n_scan;
+    }
+    const uint32_t bk = g.A & m2kb & m2q;  // folded tables keep the low bits
+    const bool hit = (__ldg(qbloom + (bk >> 5)) >> (bk & 31)) & 1u;
+    const bool span_clean = (g.Aa & m2kb) == 0;
+    flag = some_phase_clean && (hit || !span_clean);
+  }
+  const unsigned word = __ballot_sync(0xffffffffu, flag);
+  // n_groups is a multiple of 32, so a warp is wholly inside or outside
+  if ((threadIdx.x & 31) == 0 && q < n_groups) {
+    words[q >> 5] = word;
+    if (word) atomicAdd(c_total, __popc(word));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -66,6 +106,21 @@ int mp_front_end(const void* units, const void* qbloom_s, int gq, int W,
       static_cast<const uint32_t*>(units),
       static_cast<const uint32_t*>(qbloom_s), m2q, W, n_units, n_scan,
       static_cast<uint32_t*>(words), static_cast<int*>(c_total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K8. units as above; q_bits: log2 bits of the group table qbloom;
+// n_groups = tile_len / 4 (a multiple of 32); words: n_groups / 32 outputs
+// in group order; c_total: one int, zeroed by the caller.
+int mp_front_end_loose(const void* units, const void* qbloom, int q_bits,
+                       int W, int n_groups, int n_scan, void* words,
+                       void* c_total, void* stream) {
+  const uint32_t m2q = q_bits >= 32 ? 0xFFFFFFFFu : ((1u << q_bits) - 1u);
+  front_end_loose_kernel<<<mp::n_blocks(n_groups), mp::kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(units), static_cast<const uint32_t*>(qbloom),
+      m2q, W, n_groups, n_scan, static_cast<uint32_t*>(words),
+      static_cast<int*>(c_total));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -42,6 +42,18 @@ __device__ __forceinline__ UnitRegs load_unit(const uint32_t* __restrict__ units
   return g;
 }
 
+// Registers of stride-4 group q = 2r + p, whose window starts at base 4p
+// of unit r (scan.py:783-795): parity 1 shifts the unit's registers right
+// by 4 bases. A shift by 32 is undefined in C++, so parity 0 takes its own
+// branch.
+__device__ __forceinline__ UnitRegs load_group(const uint32_t* __restrict__ units,
+                                               int q) {
+  const UnitRegs g = load_unit(units, q >> 1);
+  if (!(q & 1)) return g;
+  return {(g.A >> 8) | (g.B << 24), (g.Aa >> 8) | (g.Ba << 24), g.B >> 8,
+          g.Ba >> 8};
+}
+
 // W-bit-pair mask (W <= 16).
 __device__ __forceinline__ uint32_t mask2w(int W) {
   return W >= 16 ? 0xFFFFFFFFu : ((1u << (2 * W)) - 1u);

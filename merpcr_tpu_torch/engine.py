@@ -4,16 +4,21 @@ API parity with the reference ``src/merpcr/core/engine.py`` class
 ``MerPCR`` (engine.py:44-97), as in the JAX package ``merpcr_tpu``: the same
 constructor parameters, bounds validation, ``load_sts_file`` /
 ``load_fasta_file`` / ``search`` methods and output format. The search runs
-the strict N=0 tile scan (``ops.scan``) as four hand-written CUDA kernels
-on an NVIDIA GPU; its output is byte-identical to ``merpcr_tpu`` run on its
+the tile scan (``ops.scan``) as hand-written CUDA kernels on an NVIDIA
+GPU; its output is byte-identical to ``merpcr_tpu`` run on its
 device path (``MERPCR_TPU_HOST_MAX=0``), which is itself held to the
 reference CLI's T=1 output.
 
-What this engine scans so far: -N 0, -I 0 or 1, W <= 11, -M <= 128 and
-records in the 16-letter FASTA alphabet, at any ambiguity (the dirty-span
-phase filter arms itself as in the JAX package). Anything else raises
-NotImplementedError naming the ROADMAP item that ports it; nothing falls
-back to another path.
+What this engine scans so far: -N 0 to 10, -I 0 or 1, W <= 11, -M <= 128
+and records in the 16-letter FASTA alphabet, at any ambiguity. The front
+end follows the JAX package's choice (``merpcr_tpu/engine.py:346-368``):
+-N 0 scans strict over the N=0 tables; -N 1 builds the strict1 tables on
+its first search and scans strict over them when they arm; every other
+search (-N >= 2, -N 1 without strict1, an STS set that disarms strict)
+scans loose (K8). The dirty-span phase filter arms itself in strict mode
+as in the JAX package. Anything else raises NotImplementedError naming
+the ROADMAP item that ports it (W >= 12: K12; -M > 128: K13; records
+outside the alphabet: K9); nothing falls back to another path.
 
 Multi-record FASTA takes the stream path (``merpcr_tpu/engine.py``
 ``_dispatch_stream``/``_collect_stream``): every run of two or more
@@ -39,7 +44,7 @@ from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
 from .ops.scan import ScanConfig, default_config, margin_cap, scan_stream
-from .ops.table import compile_table, table_from_numpy
+from .ops.table import build_strict1, compile_table, table_from_numpy
 
 # Constants (reference engine.py:17-39)
 DEFAULT_MARGIN = 50
@@ -119,6 +124,7 @@ class MerPCR:
         self._table_host = None  # HostTable of NumPy arrays
         self._table_dev = None  # Table on self.device (see _table)
         self._meta = None  # TableMeta
+        self._strict1_tried = False  # build_strict1 ran for this table
         # Test hook: force a specific tile length (exercises multi-tile
         # paths on small inputs). None -> TILE_LEN_BUCKETS heuristic.
         self._tile_len_override: Optional[int] = None
@@ -151,14 +157,6 @@ class MerPCR:
         """Parameters outside what this engine scans raise, naming the
         ROADMAP item that ports them (read again at every search, since
         callers may change the attributes between searches)."""
-        if self.mismatches == 1:
-            raise NotImplementedError(
-                "-N 1 needs the strict1 tables (ROADMAP queue A, after K14)"
-            )
-        if self.mismatches >= 2:
-            raise NotImplementedError(
-                "-N >= 2 runs the loose front end, ROADMAP queue B item K8"
-            )
         if self.wordsize >= 12:
             raise NotImplementedError("W >= 12 lookups are ROADMAP item K12")
         if 2 * margin_cap(self.margin) + 1 > 257:
@@ -187,6 +185,7 @@ class MerPCR:
             res, self.wordsize, bool(self.iupac_mode)
         )
         self._table_dev = None
+        self._strict1_tried = False
         return True
 
     def load_fasta_file(self, filename: str) -> List[FASTARecord]:
@@ -253,17 +252,33 @@ class MerPCR:
         w11 = (cs[idx + 11] - cs[idx]) > 0
         return (w_unit, float((w16 & ~w11).mean()))
 
+    def _front_end(self) -> tuple:
+        """(strict, strict_n) of the next scan, as the JAX engine decides
+        (``merpcr_tpu/engine.py:346-368``). The strict tables bake in a
+        mismatch budget, so the choice follows the runtime -N, read at
+        every search: -N 0 scans strict over the N=0 tables; -N 1 builds
+        the strict1 tables on its first search (dropping the device copy,
+        so the table is uploaded again with them) and scans strict over
+        them if they armed; anything else scans loose."""
+        m = self._meta
+        if self.mismatches == 0 and m.strict:
+            return True, 0
+        if self.mismatches == 1 and m.strict:
+            if not self._strict1_tried:
+                self._table_host, self._meta = build_strict1(
+                    self._table_host, m, bool(self.iupac_mode))
+                self._table_dev = None
+                self._strict1_tried = True
+            return (True, 1) if self._meta.strict1 else (False, 0)
+        return False, 0
+
     def _base_config(self, tile_len: int, stream: bool = False,
                      dirty_pos: float = 0.0) -> ScanConfig:
-        """Tile geometry and filters of the strict N=0 scan for the loaded
+        """Tile geometry, front end and filters of the scan for the loaded
         table; ``dirty_pos`` is the quantized dirty-position rate that
-        arms the dirty-span filter (K10)."""
+        arms the dirty-span filter (K10, strict only)."""
+        strict, strict_n = self._front_end()
         m = self._meta
-        if not m.strict:
-            raise NotImplementedError(
-                "this STS set disables the strict front end; its loose front "
-                "end is ROADMAP queue B item K8"
-            )
         return default_config(
             wordsize=self.wordsize,
             margin=self.margin,
@@ -273,7 +288,9 @@ class MerPCR:
             p2_max=m.p2_max,
             tile_len=tile_len,
             stride=m.stride,
-            t16_bits=m.t16_bits,
+            strict=strict,
+            strict_n=strict_n,
+            t16_bits=m.t16_1_bits if strict_n == 1 else m.t16_bits,
             bloom_bits=m.bloom_bits,
             iupac=bool(self.iupac_mode),
             stream=stream,
@@ -304,8 +321,8 @@ class MerPCR:
     def _scan_plane(self, cfg: ScanConfig, plane_np: np.ndarray,
                     total_scan: int, stream_len: int, rmeta: np.ndarray,
                     recmap) -> np.ndarray:
-        """Upload a plane and its record tables, run the four kernels over
-        its tiles, and download every tile's hits in one copy.
+        """Upload a plane and its record tables, run the kernels over its
+        tiles, and download every tile's hits in one copy.
 
         Returns an int64 array of shape (n_hits, 7) with columns
         (pos1, pos2, entry, tile_idx, pair_order, rank, rec), pos1/pos2
@@ -331,9 +348,11 @@ class MerPCR:
         return torch.cat(parts).cpu().numpy().astype(np.int64)
 
     def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
-        """Run the four kernels over one record (the record path: a plane
-        of [lead zeros][record][zeros]); the dirty-span filter is armed from
-        this record's own dirty rate (``merpcr_tpu/engine.py:497-504``).
+        """Run the kernels over one record (the record path: a plane of
+        [lead zeros][record][zeros]); in strict mode the dirty-span filter
+        is armed from this record's own dirty rate
+        (``merpcr_tpu/engine.py:497-504``). The loose path never arms it, so
+        it skips the dirty-rate sample.
 
         Returns an int64 array of shape (n_hits, 6) with columns
         (pos1, pos2, entry, tile_idx, pair_order, rank), 0-based."""
@@ -347,7 +366,9 @@ class MerPCR:
             )
         total_scan = n - self.wordsize + 1
         tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
-        dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
+        dirty_pos = 0.0
+        if self._front_end()[0]:
+            dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
         cfg = self._base_config(tile_len, dirty_pos=dirty_pos)
         n_tiles = -(-total_scan // cfg.tile_len)
         plane = self._plane(packed_rec, cfg.lead + n_tiles * cfg.tile_len + cfg.tail,
@@ -429,15 +450,17 @@ class MerPCR:
         total_scan = stream_len - self.wordsize + 1
         if total_scan <= 0:
             return None
-        # length-weighted mean of the records' dirty rates (:953-962)
-        w_pos = total = 0.0
-        for seq, packed in items:
-            w_pos += self._dirty_of(seq, packed)[1] * len(seq)
-            total += len(seq)
+        # length-weighted mean of the records' dirty rates (:953-962), which
+        # only the strict path reads (K10)
+        w_pos = 0.0
+        if self._front_end()[0]:
+            for seq, packed in items:
+                w_pos += self._dirty_of(seq, packed)[1] * len(seq)
+            w_pos /= sum(len(seq) for seq, _p in items)
         tile_len = self._tile_len_override or self._pick_tile_len(
             total_scan, max_tile=STREAM_MAX_TILE)
         cfg = self._base_config(tile_len, stream=True,
-                                dirty_pos=self._quantize_dirty(w_pos / total))
+                                dirty_pos=self._quantize_dirty(w_pos))
         L = cfg.tile_len
         n_tiles = -(-total_scan // L)
         # gaps, lead and tail are 0xFF (dirty nibbles), so no scan window

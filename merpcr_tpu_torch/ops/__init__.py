@@ -1,1 +1,1 @@
-"""Strict N=0 tile scan: table upload, geometry, and the four kernels."""
+"""The tile scan: table compile and upload, geometry, and the kernels."""

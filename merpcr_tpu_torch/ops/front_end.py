@@ -1,18 +1,26 @@
-"""K1 ``front_end``: the strict (N=0) unit-projection front end of a tile.
+"""The two front ends of a tile: K1 ``front_end`` (strict) and K8
+``front_end_loose``.
 
-Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl``, packed decode and
+K1 replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl``, packed decode and
 strict branch (``scan.py:452-502``, ``:522-578``; ``_bit_at`` ``:252``).
 For every u32 unit (8 scan positions) of the tile's scan span: one bit of
-``qbloom_s`` keyed by window bases 7..19, an exact-width OR-smear telling
-whether some phase's W-mer window is clean, and ``flag = in bounds & some
-clean phase & (table hit | dirty key)``. Flags are packed LSB-first into
-32-unit words; ``c_total`` counts them.
+the strict table keyed by window bases 7..19, an exact-width OR-smear
+telling whether some phase's W-mer window is clean, and ``flag = in bounds
+& some clean phase & (table hit | dirty key)``. Flags are packed LSB-first
+into 32-unit words; ``c_total`` counts them. The table is ``qbloom_s`` at
+-N 0 and ``qbloom_s1`` (the strict1 variant) at -N 1.
 
-Kernel: ``csrc/front_end.cu`` (one thread per unit, ``__ballot_sync``
-words, one atomicAdd per warp). On the card it is bound by memory: the
-tile's plane bytes plus one 4-byte gather per unit into the 8 MB
-L2-resident table. ``front_end_plain`` is the same function in plain
-PyTorch; the wrapper uses it only for CPU tensors.
+K8 replaces the loose branch (``scan.py:579-659``), which -N >= 2, -N 1
+without strict1, and STS sets that disarm strict take: one bit of the
+exact group table ``qbloom`` per stride-4 group (4 scan positions, two
+groups per unit), keyed by the group's 14-base span, flags in group order.
+
+Kernels: ``csrc/front_end.cu`` (one thread per unit or per group,
+``__ballot_sync`` words, one atomicAdd per warp). On the card both are
+bound by memory: the tile's plane bytes plus one 4-byte gather per unit
+or group into an 8-32 MB table. ``front_end_plain`` and
+``front_end_loose_plain`` are the same functions in plain PyTorch; the
+wrappers use them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import M32, kernel_route, require, to_i32, u32, unit_regs, units_of
+from .units import (M32, group_regs, kernel_route, require, to_i32, u32,
+                    unit_regs, units_of, valid_phases)
 
 _PROJ_SHIFT = 14  # 2 * PROJ_UNIT_START: the key starts at window base 7
 _PROJ_HI = 0xFF  # bases 16..19 come from the B register
@@ -107,3 +116,65 @@ def front_end(tile, qbloom_s, gq: int, wordsize: int, lead: int,
 
 
 front_end.launches = 0
+
+
+def front_end_loose_plain(tile, qbloom, q_bits: int, wordsize: int, lead: int,
+                          tile_len: int, n_scan: int):
+    """K8 in plain PyTorch: (words int32[tile_len/128], c_total int32[1])
+    of the loose front end (``scan.py:579-659``).
+
+    Group q = 2r + p covers scan positions 4q .. 4q+3 (parity p of unit
+    r). Its flag is ``some in-bounds phase has a clean W-mer & (qbloom
+    holds the low q_bits bits of its 14-base span key | the span is
+    dirty)``; flags are packed LSB-first in group order, so bit q & 31 of
+    word q >> 5 (the JAX stage's parity interleave, ``_spread``)."""
+    _check(tile, lead, tile_len, n_scan)
+    W = wordsize
+    units = units_of(tile[: tile.numel() // 4 * 4])
+    q = torch.arange(tile_len // 4, device=tile.device)
+    A, Aa, _B, Ba = group_regs(units, q, lead // 8)
+    m2kb = (1 << (2 * (W + 3))) - 1  # span = W + stride - 1 bases
+    some_phase_clean = valid_phases(Aa, Ba, 4 * q, 4, W, n_scan) != 0
+    bk = A & m2kb & ((1 << q_bits) - 1)
+    hit = ((u32(qbloom)[bk >> 5] >> (bk & 31)) & 1) == 1
+    span_clean = (Aa & m2kb) == 0
+    flag = some_phase_clean & (hit | ~span_clean)
+    lanes = torch.arange(32, device=tile.device)
+    words = (flag.view(-1, 32).to(torch.int64) << lanes).sum(dim=1)
+    return to_i32(words), flag.sum().to(torch.int32).reshape(1)
+
+
+def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
+                    tile_len: int, n_scan: int):
+    """K8: flag words and c_total of one tile's loose front end, the CUDA
+    kernel for tensors on the card, ``front_end_loose_plain`` for CPU
+    tensors.
+
+    ``qbloom``: int32 words of the exact stride-4 group table (2^q_bits
+    bits). Returns (words int32[tile_len/128], c_total int32[1]), one bit
+    per stride-4 group in group order."""
+    if not kernel_route(tile, qbloom):
+        return front_end_loose_plain(tile, qbloom, q_bits, wordsize, lead,
+                                     tile_len, n_scan)
+    require(tile, torch.uint8, "tile")
+    require(qbloom, torch.int32, "qbloom")
+    n_units = _check(tile, lead, tile_len, n_scan)
+    if qbloom.numel() * 32 != 1 << q_bits or q_bits > 2 * (wordsize + 3):
+        raise ValueError(f"qbloom of {qbloom.numel()} words is not 2^{q_bits} span bits")
+    if (tile.data_ptr() + lead // 2) % 4:
+        raise ValueError("tile plane is not 4-byte aligned")
+    n_groups = 2 * n_units
+    words = torch.empty(n_groups // 32, dtype=torch.int32, device=tile.device)
+    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    P, I = kernels.P, kernels.I
+    fn = kernels.function("front_end", "mp_front_end_loose", [P, P, I, I, I, I, P, P, P])
+    kernels.call(
+        fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, wordsize,
+        n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
+        kernels.stream(tile),
+    )
+    front_end_loose.launches += 1
+    return words, c_total
+
+
+front_end_loose.launches = 0

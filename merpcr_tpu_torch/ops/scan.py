@@ -1,24 +1,34 @@
-"""The strict (N=0) tile scan: tile geometry and the drivers that run the
-four kernels over one tile and over the tiles of one plane.
+"""The tile scan: tile geometry and the drivers that run the kernels over
+one tile and over the tiles of one plane.
 
-Counterpart of ``merpcr_tpu/ops/scan.py`` for the strict N=0 configuration
-(packed nibble planes, strict unit-projection front end, exact phase table,
-t16 filter, dense W <= 11 CSR, margin cap <= 128), with its dirty-span
-phase filter (K10, ``dirty_bloom``), its IUPAC verify (K11, ``iupac``) and
-its stream mode (K14): a plane holds one record or many records laid end
-to end, and ``rmeta``/``recmap`` tell each candidate its record. The JAX
-program runs
-fixed-capacity stages inside one compiled function per tile and reports
-overflow through its stage totals; here every stage sizes its output from
-its own count pass, so a tile never overflows and carries no capacities.
+Counterpart of ``merpcr_tpu/ops/scan.py`` for packed nibble planes at
+W <= 11 (exact stride-4 phase table, dense CSR) and margin caps <= 128, in
+its three front-end modes:
+
+* strict, -N 0: the unit-projection front end over ``qbloom_s`` and the
+  t16 position filter (K1, K4);
+* strict, -N 1 (``strict_n=1``): the same kernels over the strict1 tables
+  ``qbloom_s1``/``t16_1``, when ``build_strict1`` armed them;
+* loose: the stride-4 group front end over the exact group table
+  ``qbloom`` (K8) and the group expansion, for -N >= 2, for -N 1 when
+  strict1 did not arm, and for STS sets that disarm strict;
+
+with the dirty-span phase filter (K10, ``dirty_bloom``, strict only), the
+IUPAC verify (K11, ``iupac``) and stream mode (K14): a plane holds one
+record or many records laid end to end, and ``rmeta``/``recmap`` tell each
+candidate its record. The JAX program runs fixed-capacity stages inside
+one compiled function per tile and reports overflow through its stage
+totals; here every stage sizes its output from its own count pass, so a
+tile never overflows and carries no capacities.
 
 Per tile, in order (each stage replaces the JAX lines its module names):
 
-  front_end  -> flag words, c_total              (K1)
-  expand     -> (entry, ppos) pairs, pos_total,  (K2-K5, K10)
-                pair_total
-  verify_p1  -> anchor pair indices, anch_total  (K6, K11, K14)
-  margin_p2  -> hit rows, hit_total              (K7, K11, K14)
+  front_end / front_end_loose  -> flag words, c_total        (K1 / K8)
+  expand / expand_loose        -> (entry, ppos) pairs,       (K2-K5, K10)
+                                  pos_total, pair_total
+  verify_p1                    -> anchor pair indices,       (K6, K11, K14)
+                                  anch_total
+  margin_p2                    -> hit rows, hit_total        (K7, K11, K14)
 
 Scan positions are partitioned across tiles (each position belongs to one
 tile) and every bound and output coordinate is computed in the
@@ -37,8 +47,8 @@ from typing import List, NamedTuple
 
 import torch
 
-from .expand import expand
-from .front_end import front_end
+from .expand import expand, expand_loose
+from .front_end import front_end, front_end_loose
 from .margin_p2 import margin_p2
 from .table import Table
 from .verify_p1 import verify_p1
@@ -46,8 +56,8 @@ from .verify_p1 import verify_p1
 
 @dataclass(frozen=True)
 class ScanConfig:
-    """Tile geometry of the strict N=0 scan (the shape-setting fields of
-    the JAX package's ScanConfig; the port has no capacities)."""
+    """Tile geometry and front-end mode of the scan (the shape-setting
+    fields of the JAX package's ScanConfig; the port has no capacities)."""
 
     wordsize: int
     margin: int  # margin CAP: sets the halos; the runtime -M is <= it
@@ -58,11 +68,14 @@ class ScanConfig:
     p2_max: int
     stride: int = 4
     exact_group: bool = True
-    strict: bool = True
-    t16_bits: int = 0
+    strict: bool = True  # strict unit front end (K1); False: loose (K8)
+    strict_n: int = 0  # mismatch budget of the strict tables: 0 qbloom_s/t16,
+    #                    1 qbloom_s1/t16_1 (strict1); 0 when loose
+    t16_bits: int = 0  # log2 bits of the 16-base filter; 0: none (loose)
     bloom_bits: int = 0  # log2 bits of the table's W-mer bloom
-    # K10: dirty-span phases are kept only if the bloom holds their W-mer
-    # (armed when the dirty-in-16/clean-in-11 position rate reaches 1/256)
+    # K10 (strict only): dirty-span phases are kept only if the bloom holds
+    # their W-mer (armed when the dirty-in-16/clean-in-11 position rate
+    # reaches 1/256)
     dirty_bloom: bool = False
     iupac: bool = False  # K11: -I 1 expansion-set verify
     stream: bool = False  # K14: many records per plane (recmap given)
@@ -84,8 +97,8 @@ class ScanOut(NamedTuple):
     Unlike the JAX ScanOut the row columns hold exactly ``hit_total``
     entries (int32 tensors on the scan's device)."""
 
-    c_total: int  # flagged units
-    pos_total: int  # (unit, phase) positions, before the t16 filter
+    c_total: int  # flagged units (strict) or stride-4 groups (loose)
+    pos_total: int  # (unit/group, phase) positions, before the t16 filter
     pair_total: int  # (position, bucket slot) pairs, after it
     anch_total: int  # primer-1-passing pairs
     hit_total: int  # hits
@@ -112,6 +125,8 @@ def default_config(
     p2_max: int,
     tile_len: int,
     stride: int = 4,
+    strict: bool = True,
+    strict_n: int = 0,
     t16_bits: int = 0,
     bloom_bits: int = 0,
     iupac: bool = False,
@@ -119,7 +134,7 @@ def default_config(
     dirty_pos_rate: float = 0.0,
 ) -> ScanConfig:
     """Halo geometry and filter choice of the JAX package's
-    ``default_config``.
+    ``default_config`` (``scan.py:1415-1634``).
 
     The left halo covers every primer read plus the margin window's low
     edge: the window starts mcap + len_p2 before an anchor, which itself
@@ -131,8 +146,10 @@ def default_config(
 
     ``dirty_pos_rate`` is the quantized rate of positions dirty in their
     16-base window but clean in their W-mer; at 1/256 and above the
-    dirty-span phase filter is armed, as in the JAX package
-    (``scan.py:1542-1543``)."""
+    dirty-span phase filter is armed in strict mode, as in the JAX package
+    (``scan.py:1542-1543``); the loose path never arms it. ``strict_n``
+    and ``t16_bits`` are the strict tables' (the caller passes
+    ``t16_1_bits`` at strict_n 1) and are 0 on the loose path."""
     mcap = margin_cap(margin)
     dirty_pos = min(max(dirty_pos_rate, 0.0), 1.0)
     return ScanConfig(
@@ -144,9 +161,11 @@ def default_config(
         p1_max=p1_max,
         p2_max=p2_max,
         stride=stride,
-        t16_bits=t16_bits,
+        strict=strict,
+        strict_n=strict_n if strict else 0,
+        t16_bits=t16_bits if strict else 0,
         bloom_bits=bloom_bits,
-        dirty_bloom=dirty_pos >= 1.0 / 256,
+        dirty_bloom=strict and dirty_pos >= 1.0 / 256,
         iupac=iupac,
         stream=stream,
     )
@@ -168,25 +187,40 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
     records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
     a stream plane, None for one record; ``rt``: runtime (-M, -N, -X)."""
-    if not (cfg.strict and cfg.exact_group and cfg.stride == 4):
+    if not (cfg.exact_group and cfg.stride == 4):
         raise NotImplementedError(
-            "only the strict front end over the exact stride-4 phase table "
-            "(W <= 11) is ported; see ROADMAP queue B"
+            "stride-2 and mult-hash group tables (W >= 12) are ROADMAP item K12"
         )
-    if cfg.dirty_bloom and cfg.bloom_bits != table.bloom_bits:
-        raise ValueError(f"config bloom_bits {cfg.bloom_bits} != table's {table.bloom_bits}")
+    if cfg.dirty_bloom and (cfg.bloom_bits != table.bloom_bits or not cfg.strict):
+        raise ValueError("the dirty-span filter needs the strict front end and "
+                         f"the table's bloom ({cfg.bloom_bits} != {table.bloom_bits} bits)")
     margin, nmm, x = (int(v) for v in rt)
     if margin > cfg.margin:
         raise ValueError(f"runtime margin {margin} exceeds the cap {cfg.margin}")
     n_scan = max(0, min(int(n_scan), cfg.tile_len))
-    W, lead = cfg.wordsize, cfg.lead
-    words, c_total = front_end(tile, table.qbloom_s, table.gq, W, lead,
-                               cfg.tile_len, n_scan)
-    entry, ppos, pos_total, pair_total = expand(
-        tile, words, table.ptab, table.pf_bits, table.t16, table.t16_bits,
-        table.bsc, table.emeta.shape[0], W, lead, cfg.tile_len, n_scan,
-        table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits,
-    )
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    n_entries = table.emeta.shape[0]
+    if not cfg.strict:
+        words, c_total = front_end_loose(tile, table.qbloom, table.q_bits, W,
+                                         lead, L, n_scan)
+        entry, ppos, pos_total, pair_total = expand_loose(
+            tile, words, table.ptab, table.pf_bits, table.bsc, n_entries, W,
+            lead, L, n_scan)
+    else:
+        if cfg.strict_n == 1:
+            if not table.strict1:
+                raise ValueError("strict_n 1 needs a table whose strict1 variant armed")
+            qb, gq, t16, t16_bits = table.qbloom_s1, table.gq1, table.t16_1, table.t16_1_bits
+        else:
+            qb, gq, t16, t16_bits = table.qbloom_s, table.gq, table.t16, table.t16_bits
+        if cfg.t16_bits != t16_bits:
+            raise ValueError(f"config t16_bits {cfg.t16_bits} != table's {t16_bits}")
+        words, c_total = front_end(tile, qb, gq, W, lead, L, n_scan)
+        entry, ppos, pos_total, pair_total = expand(
+            tile, words, table.ptab, table.pf_bits, t16, t16_bits, table.bsc,
+            n_entries, W, lead, L, n_scan,
+            table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits,
+        )
     p1_exp, p2_exp = (table.p1_exp, table.p2_exp) if cfg.iupac else (None, None)
     a_idx = verify_p1(tile, entry, ppos, table.emeta, table.p1_codes, p1_exp,
                       tile_start, rmeta, recmap, lead, nmm, x)

@@ -797,9 +797,9 @@ def compile_table(
         sq_bits = q_bits
         sq_density = sp_density = t16_real = t16_fp = 1.0
 
-    # The strict N=1 variant (extension positions Hamming-1-wildcarded)
-    # belongs to the -N 1 path, which this package does not scan yet:
-    # dummies keep the field set equal to the JAX package's table.
+    # The strict N=1 variant (extension positions Hamming-1-wildcarded) is
+    # built lazily by ``build_strict1`` on the first -N 1 search, so -N 0
+    # runs never pay for it; meta.strict1 stays False until then.
     strict1 = False
     qbloom_s1 = np.zeros(1, dtype=np.uint32)
     t16_1 = np.zeros(1, dtype=np.uint32)
@@ -874,10 +874,59 @@ def compile_table(
     return table, meta
 
 
-class Table(NamedTuple):
-    """The tensors the strict N=0 scan reads, on one torch device.
+def build_strict1(table: HostTable, meta: TableMeta, iupac_mode: bool):
+    """Build the N=1 strict variant on demand (first ``-N 1`` search):
+    ``merpcr_tpu/ops/table.py::build_strict1``.
 
-    32-bit words (``qbloom_s``, ``ptab``, ``t16``, ``bloom``, ``p*_exp``)
+    The same construction as the N=0 tables with every extension position
+    Hamming-1-wildcarded (``_build_strict(n_mm=1)``); the tighter insert
+    guard (2^22) keeps the build fast and gives up on sets whose wildcard
+    union would saturate the table, which then scan loose at -N 1. The
+    inputs come from the compiled table's own entry arrays. Mutates
+    ``meta`` in place (``meta.strict1`` says whether the variant armed)
+    and returns (table, meta), the table with ``qbloom_s1``/``t16_1``
+    replaced when it armed."""
+    E = meta.n_entries
+    if E == 0 or not meta.strict:
+        return table, meta
+    p1b = np.asarray(table.p1_bytes)[:E]
+    em = np.asarray(table.emeta)[:E]
+    hoff = em[:, 0].astype(np.int64)
+    codes = PRIMER_CODE_LUT[p1b].astype(np.uint64)
+    ehash = np.zeros(E, dtype=np.uint64)
+    rows = np.arange(E)
+    for j in range(meta.wordsize):  # W-mer bytes are clean ACGT (codes 0-3)
+        ehash |= codes[rows, hoff + j] << np.uint64(2 * j)
+    qbloom_s1, t16_1, t16_1_bits, t16_1_real = _build_strict(
+        ehash, em[:, 0], em[:, 1], p1b, meta.wordsize, iupac_mode,
+        n_mm=1, max_ins=1 << 22,
+    )
+    strict1 = qbloom_s1 is not None
+    if strict1:
+        qbloom_s1, _bits, sq1_density = _truncate_group_table(
+            qbloom_s1, 2 * PROJ_BASES
+        )
+        strict1 = sq1_density < 0.5
+    meta.strict1 = strict1
+    if not strict1:
+        return table, meta
+    meta.sq1_density = sq1_density
+    meta.t16_1_bits = t16_1_bits
+    meta.t16_1_real = t16_1_real
+    meta.t16_1_fp = (
+        _popcount(t16_1) / float(1 << t16_1_bits) if t16_1_bits else 1.0
+    )
+    return (
+        table._replace(qbloom_s1=np.ascontiguousarray(qbloom_s1),
+                       t16_1=np.ascontiguousarray(t16_1)),
+        meta,
+    )
+
+
+class Table(NamedTuple):
+    """The tensors the tile scan reads, on one torch device.
+
+    32-bit words (``qbloom*``, ``ptab``, ``t16*``, ``bloom``, ``p*_exp``)
     are held as int32 with the uint32 bit pattern: the CUDA kernels read
     them as ``uint32_t``, and the plain PyTorch versions widen them to
     int64 and mask. The key widths come from the tables' own sizes, as in
@@ -893,10 +942,20 @@ class Table(NamedTuple):
     bloom: torch.Tensor  # int32[2^bloom_bits / 32]: W-mer key occupancy (K10)
     p1_exp: torch.Tensor  # int32[E, P1MAX] IUPAC expansion masks | [1, 1]
     p2_exp: torch.Tensor  # int32[E, P2MAX] IUPAC expansion masks | [1, 1]
+    # loose front end (K8): exact stride-4 group table, span keys folded to
+    # their low q_bits bits
+    qbloom: torch.Tensor  # int32[2^q_bits / 32]
+    # strict N=1 variant (build_strict1); [1] dummies until it armed
+    qbloom_s1: torch.Tensor  # int32[2^gq1 / 32] | [1]
+    t16_1: torch.Tensor  # int32[2^t16_1_bits / 32] | [1]
     gq: int  # log2 bits of qbloom_s (<= 26 after truncation)
     pf_bits: int  # log2 folded span values of ptab
     t16_bits: int  # 0: no 16-base filter
     bloom_bits: int  # log2 bits of bloom (min(2W, 24))
+    q_bits: int  # log2 bits of qbloom (<= 2 * (W + 3))
+    strict1: bool  # the N=1 variant armed (qbloom_s1/t16_1 are real)
+    gq1: int  # log2 bits of qbloom_s1
+    t16_1_bits: int  # 0: no 16-base filter at N=1
 
 
 def _bits_of(n: int) -> int:
@@ -909,9 +968,10 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
     ``host`` is any record with the HostTable field names holding NumPy
     arrays: this package's ``compile_table`` output or the JAX package's
     host-compiled ``DeviceTable``, so both packages can be fed the identical
-    table. Only the fields of the strict N=0 scan move; ``p1_exp`` and
-    ``p2_exp`` are real only for a table compiled with ``iupac_mode`` and
-    stay the [1, 1] dummies otherwise, as in the JAX table."""
+    table. Only the fields the scan reads move; ``p1_exp`` and ``p2_exp``
+    are real only for a table compiled with ``iupac_mode``, and
+    ``qbloom_s1``/``t16_1`` only once ``build_strict1`` armed them; they
+    stay the dummies otherwise, as in the JAX table."""
 
     def words(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
@@ -919,6 +979,9 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
 
     def ints(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=dtype))).to(device)
+
+    def bits(a):
+        return _bits_of(int(np.asarray(a).shape[0]) * 32)
 
     ptab = np.asarray(host.ptab)
     return Table(
@@ -932,8 +995,15 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         bloom=words(host.bloom),
         p1_exp=words(host.p1_exp),
         p2_exp=words(host.p2_exp),
-        gq=_bits_of(int(np.asarray(host.qbloom_s).shape[0]) * 32),
+        qbloom=words(host.qbloom),
+        qbloom_s1=words(host.qbloom_s1),
+        t16_1=words(host.t16_1),
+        gq=bits(host.qbloom_s),
         pf_bits=_bits_of(int(ptab.shape[0]) * 32 // meta.stride),
         t16_bits=int(meta.t16_bits),
         bloom_bits=int(meta.bloom_bits),
+        q_bits=bits(host.qbloom),
+        strict1=bool(meta.strict1),
+        gq1=bits(host.qbloom_s1),
+        t16_1_bits=int(meta.t16_1_bits),
     )

@@ -57,6 +57,28 @@ def unit_regs(units: torch.Tensor, r: torch.Tensor):
     return A, Aa, codes_of(u2), dirty_of(u2)
 
 
+def group_regs(units: torch.Tensor, q: torch.Tensor, lead_units: int):
+    """(A, Aa, B, Ba) registers of stride-4 groups ``q`` (group q = 2r + p
+    starts at base 4p of unit r = q >> 1): the unit's registers, shifted
+    right by 4 bases for parity 1 (``scan.py:783-795``)."""
+    A, Aa, B, Ba = unit_regs(units, (q >> 1) + lead_units)
+    odd = (q & 1) == 1
+    return (torch.where(odd, ((A >> 8) | (B << 24)) & M32, A),
+            torch.where(odd, ((Aa >> 8) | (Ba << 24)) & M32, Aa),
+            torch.where(odd, B >> 8, B), torch.where(odd, Ba >> 8, Ba))
+
+
+def valid_phases(Aa, Ba, pos0, n_phases: int, W: int, n_scan: int):
+    """Bit d set iff bases d..d+W-1 of the window (dirty fields Aa, Ba)
+    are clean and scan position pos0 + d is in bounds (``nbv``,
+    ``scan.py:796-802``)."""
+    d = torch.arange(n_phases, device=Aa.device)
+    # bases d .. d+W-1 (the spill from B is masked off where it is unused)
+    pha = ((Aa[:, None] >> (2 * d)) | (Ba[:, None] << (32 - 2 * d))) & ((1 << (2 * W)) - 1)
+    ok = (pha == 0) & (pos0[:, None] + d < n_scan)
+    return (ok.to(torch.int64) << d).sum(dim=1)
+
+
 def mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     """(a * c) mod 2^32 for a, c in [0, 2^32), without int64 overflow."""
     lo = a * (c & 0xFFFF)

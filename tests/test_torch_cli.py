@@ -1,5 +1,5 @@
 """The port's CLI (``python -m merpcr_tpu_torch``) against the JAX
-package's: legacy ``M=50`` syntax, ``-O``, ``--version``."""
+package's: legacy ``M=50`` syntax, ``-O``, ``--version``, ``-N 2``."""
 
 from __future__ import annotations
 
@@ -15,9 +15,9 @@ import torch
 pytest.importorskip("jax")
 
 from merpcr_tpu import cli as jax_cli  # noqa: E402
-from merpcr_tpu_torch import __version__, cli  # noqa: E402
+from merpcr_tpu_torch import MerPCR, __version__, cli  # noqa: E402
 
-from .conftest import GOLDEN_FA, GOLDEN_LINE, GOLDEN_STS  # noqa: E402
+from .conftest import GOLDEN_FA, GOLDEN_LINE, GOLDEN_STS, run_search  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -80,7 +80,20 @@ def test_failures_exit_1(tmp_path):
     empty = tmp_path / "empty.fa"
     empty.write_text("")
     assert _run(cli.main, [GOLDEN_STS, str(empty)], device="cpu")[0] == 1
-    assert _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-N", "2"], device="cpu")[0] == 1
+    assert _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-W", "12"], device="cpu")[0] == 1
+
+
+@pytest.mark.parametrize("flags", [["-N", "2"], ["N=2", "M=100"]])
+def test_mismatch_flag_prints_the_api_bytes(flags):
+    """-N 2 runs (the loose front end): the CLI prints what the API prints,
+    and what the JAX package's CLI prints, through both flag syntaxes."""
+    argv = [GOLDEN_STS, GOLDEN_FA, *flags]
+    rc, out = _run(cli.main, argv, device="cpu")
+    assert (rc, out) == _run(jax_cli.main, argv)
+    eng = MerPCR(device="cpu", mismatches=2, margin=100 if "M=100" in flags else 50)
+    assert eng.load_sts_file(GOLDEN_STS)
+    assert rc == 0 and out == run_search(eng, eng.load_fasta_file(GOLDEN_FA))
+    assert GOLDEN_LINE + "\n" in out
 
 
 def test_module_entry_point_needs_a_card():

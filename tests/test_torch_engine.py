@@ -122,7 +122,7 @@ def test_output_file_and_stdout_name(tmp_path):
 
 @pytest.mark.parametrize(
     "params",
-    [{"mismatches": 1}, {"mismatches": 3}, {"wordsize": 12}, {"margin": 129}],
+    [{"wordsize": 16}, {"margin": 10000}, {"wordsize": 12}, {"margin": 129}],
 )
 def test_unported_parameters_raise(params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,5 +1,5 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, and
-the rules around them.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+rules around them.
 
 This file imports neither JAX nor ``merpcr_tpu``, so it runs on a machine
 with a CUDA card and no JAX:
@@ -27,8 +27,18 @@ import torch
 
 from merpcr_tpu_torch import MerPCR
 from merpcr_tpu_torch.ops import kernels
-from merpcr_tpu_torch.ops.expand import expand, expand_plain
-from merpcr_tpu_torch.ops.front_end import front_end, front_end_plain
+from merpcr_tpu_torch.ops.expand import (
+    expand,
+    expand_loose,
+    expand_loose_plain,
+    expand_plain,
+)
+from merpcr_tpu_torch.ops.front_end import (
+    front_end,
+    front_end_loose,
+    front_end_loose_plain,
+    front_end_plain,
+)
 from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
 from merpcr_tpu_torch.ops.scan import record_rmeta
 from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
@@ -121,11 +131,15 @@ def _search(engine, sts, fa) -> str:
 
 
 # ---------------------------------------------------------------- CPU rules
-def test_cpu_tensors_take_the_plain_versions(tmp_path):
-    counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
-    out = _search(MerPCR(device="cpu"), GOLDEN_STS, GOLDEN_FA)
-    assert out == GOLDEN_LINE + "\n"
-    assert [f.launches for f in (front_end, expand, verify_p1, margin_p2)] == counts
+WRAPPERS = (front_end, front_end_loose, expand, expand_loose, verify_p1, margin_p2)
+
+
+@pytest.mark.parametrize("mismatches", [0, 1, 2])
+def test_cpu_tensors_take_the_plain_versions(tmp_path, mismatches):
+    counts = [f.launches for f in WRAPPERS]
+    out = _search(MerPCR(device="cpu", mismatches=mismatches), GOLDEN_STS, GOLDEN_FA)
+    assert GOLDEN_LINE + "\n" in out
+    assert [f.launches for f in WRAPPERS] == counts
 
 
 def test_mixed_devices_raise():
@@ -188,10 +202,10 @@ def test_port_imports_no_jax():
 
 
 # ---------------------------------------------------------------- on the card
-def _tiles(tmp_path, device):
+def _tiles(tmp_path, device, **params):
     """(engine on ``device``, cfg, per-tile argument tuples) of the corpus."""
     sts, fa = _corpus(tmp_path)
-    eng = MerPCR(device=device)
+    eng = MerPCR(device=device, **params)
     assert eng.load_sts_file(sts)
     rec = eng.load_fasta_file(fa)[0]
     from merpcr_tpu_torch.io.fasta import record_packed
@@ -237,6 +251,69 @@ def test_kernels_equal_plain_versions(cuda, tmp_path):
                 seen_hits += h.shape[0]
     torch.cuda.synchronize()
     assert seen_hits > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mismatches", [1, 2])
+def test_mismatch_kernels_equal_plain_versions(cuda, tmp_path, mismatches):
+    """-N 1: front_end/expand over the strict1 tables; -N 2: the loose
+    front end (K8) and the loose expand; then verify_p1/margin_p2 at
+    mismatch budgets above 0."""
+    eng, cfg, tiles = _tiles(tmp_path, cuda, mismatches=mismatches)
+    assert (cfg.strict, cfg.strict_n) == ((True, 1) if mismatches == 1 else (False, 0))
+    tb = eng._table
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    seen_hits = 0
+    for tile, t0, n_scan, n in tiles:
+        if cfg.strict:
+            fe_args = (tile, tb.qbloom_s1, tb.gq1, W, lead, L, n_scan)
+            w, c = front_end(*fe_args)
+            wp, cp = front_end_plain(*fe_args)
+            args = (tile, w, tb.ptab, tb.pf_bits, tb.t16_1, tb.t16_1_bits, tb.bsc,
+                    tb.emeta.shape[0], W, lead, L, n_scan)
+            kernel, plain = expand, expand_plain
+        else:
+            fe_args = (tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan)
+            w, c = front_end_loose(*fe_args)
+            wp, cp = front_end_loose_plain(*fe_args)
+            args = (tile, w, tb.ptab, tb.pf_bits, tb.bsc, tb.emeta.shape[0], W, lead,
+                    L, n_scan)
+            kernel, plain = expand_loose, expand_loose_plain
+        assert torch.equal(w, wp) and torch.equal(c, cp)
+        e, p, pt, qt = kernel(*args)
+        ep, pp, ptp, qtp = plain(*args)
+        assert (pt, qt) == (ptp, qtp) and torch.equal(e, ep) and torch.equal(p, pp)
+        rm = record_rmeta(n, cuda)
+        for nmm, x in ((mismatches, 1), (3, 0), (2, 3)):
+            vargs = (tile, e, p, tb.emeta, tb.p1_codes, None, t0, rm, None, lead, nmm, x)
+            a = verify_p1(*vargs)
+            assert torch.equal(a, verify_p1_plain(*vargs))
+            margs = (tile, a, e, p, tb.emeta, tb.p2_codes, None, t0, rm, None,
+                     lead, 50, nmm, x)
+            h = margin_p2(*margs)
+            assert torch.equal(h, margin_p2_plain(*margs))
+            seen_hits += h.shape[0]
+    torch.cuda.synchronize()
+    assert seen_hits > 0
+
+
+@pytest.mark.gpu
+def test_card_mismatch_search_equals_cpu_search(cuda, tmp_path):
+    """-N 1 (strict1), -N 2 and -N 3 (loose) on the card print the CPU
+    bytes, through the kernels of their front end."""
+    sts, fa = _corpus(tmp_path)
+    for n_mm, used in ((1, (front_end, expand)), (2, (front_end_loose, expand_loose)),
+                       (3, (front_end_loose, expand_loose))):
+        counts = [f.launches for f in WRAPPERS]
+        eng = MerPCR(device=cuda, mismatches=n_mm)
+        on_card = _search(eng, sts, fa)
+        launched = dict(zip(WRAPPERS, (f.launches - c0 for f, c0 in zip(WRAPPERS, counts))))
+        assert all((launched[f] > 0) == (f in used + (verify_p1, margin_p2))
+                   for f in WRAPPERS), (n_mm, launched)
+        assert [(c.strict, c.strict_n) for c, _, _ in eng.last_scans] == \
+            [(n_mm == 1, int(n_mm == 1))]
+        assert on_card == _search(MerPCR(device="cpu", mismatches=n_mm), sts, fa)
+        assert on_card.count("\n") > 0
 
 
 @pytest.mark.gpu

@@ -102,12 +102,15 @@ def scaffold_lengths(seed: int, n: int):
     return np.random.default_rng(seed).integers(20, 5_001, size=n).tolist()
 
 
-def _both(sts, fa, tile_len=None, **params):
-    """(port output, JAX output, port engine) of one search, fresh engines."""
+def _both(sts, fa, tile_len=None, setup=None, **params):
+    """(port output, JAX output, port engine) of one search, fresh engines;
+    ``setup(engine)`` runs after the STS load."""
     outs = []
     for eng in (MerPCR(device="cpu", **params), JaxMerPCR(**params)):
         eng._tile_len_override = tile_len
         assert eng.load_sts_file(sts)
+        if setup:
+            setup(eng)
         outs.append(run_search(eng, eng.load_fasta_file(fa)))
         if isinstance(eng, MerPCR):
             port = eng

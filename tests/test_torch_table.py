@@ -1,5 +1,6 @@
-"""The PyTorch port's table compiler equals the JAX package's, field by
-field, and ``table_from_numpy`` carries the scanned fields unchanged."""
+"""The PyTorch port's table compiler and its lazy strict1 build equal the
+JAX package's, field by field, and ``table_from_numpy`` carries the
+scanned fields unchanged."""
 
 from __future__ import annotations
 
@@ -12,9 +13,14 @@ import torch
 pytest.importorskip("jax")
 
 from merpcr_tpu.io.sts import STSLoader as JaxSTSLoader  # noqa: E402
+from merpcr_tpu.ops.table import build_strict1 as jax_build_strict1  # noqa: E402
 from merpcr_tpu.ops.table import compile_table as jax_compile_table  # noqa: E402
 from merpcr_tpu_torch.io.sts import STSLoader  # noqa: E402
-from merpcr_tpu_torch.ops.table import compile_table, table_from_numpy  # noqa: E402
+from merpcr_tpu_torch.ops.table import (  # noqa: E402
+    build_strict1,
+    compile_table,
+    table_from_numpy,
+)
 
 from .conftest import GOLDEN_STS  # noqa: E402
 
@@ -42,14 +48,22 @@ def _cases(tmp_path):
     }
 
 
-@pytest.mark.parametrize("wordsize,iupac", [(11, False), (8, False), (11, True)])
-@pytest.mark.parametrize("case", ["golden", "random", "ambiguous"])
-def test_compile_table_matches_jax(tmp_path, case, wordsize, iupac):
-    path = _cases(tmp_path)[case]
-    res = STSLoader.load_file(path, wordsize, 240)
-    jres = JaxSTSLoader.load_file(path, wordsize, 240)
-    host, meta = compile_table(res, wordsize, iupac)
-    jhost, jmeta = jax_compile_table(jres, wordsize, iupac, device=False)
+def _n_rich_sts(path) -> str:
+    """60 STS whose primer-1 extensions hold six N letters: at -I 1 the
+    N=0 strict tables arm, and the N=1 wildcard union passes the 2^22
+    insert guard of build_strict1."""
+    rng = np.random.default_rng(62)
+    lines = []
+    for i in range(60):
+        p1 = bytearray(rng.choice(ACGT, size=24).tobytes())
+        p1[12:18] = b"NNNNNN"
+        p2 = rng.choice(ACGT, size=22).tobytes().decode()
+        lines.append(f"B{i}\t{p1.decode()}\t{p2}\t{int(rng.integers(100, 250))}\n")
+    path.write_text("".join(lines))
+    return str(path)
+
+
+def _assert_same(host, meta, jhost, jmeta):
     assert host._fields == jhost._fields
     for name in host._fields:
         a, b = getattr(host, name), getattr(jhost, name)
@@ -61,6 +75,47 @@ def test_compile_table_matches_jax(tmp_path, case, wordsize, iupac):
             np.testing.assert_array_equal(a, b, err_msg=f.name)
         else:
             assert a == b, f.name
+
+
+@pytest.mark.parametrize("case,iupac,armed", [
+    ("golden", False, True), ("random", False, True), ("ambiguous", True, True),
+    ("n_rich", True, False),
+])
+def test_build_strict1_matches_jax(tmp_path, case, iupac, armed):
+    """The strict1 tables and meta equal the JAX package's, for sets that
+    arm them and for one whose insert guard bails (strict stays armed at
+    N=0, strict1 does not)."""
+    cases = _cases(tmp_path)
+    path = cases[case] if case in cases else _n_rich_sts(tmp_path / "n.sts")
+    res = STSLoader.load_file(path, 11, 240)
+    host, meta = compile_table(res, 11, iupac)
+    jhost, jmeta = jax_compile_table(JaxSTSLoader.load_file(path, 11, 240), 11,
+                                     iupac, device=False)
+    assert meta.strict and not meta.strict1
+    host, meta = build_strict1(host, meta, iupac)
+    jhost, jmeta = jax_build_strict1(jhost, jmeta, iupac)
+    _assert_same(host, meta, jhost, jmeta)
+    assert meta.strict1 == armed and meta.strict
+    t = table_from_numpy(host, meta, "cpu")
+    assert t.strict1 == armed
+    if armed:
+        assert host.qbloom_s1.size > 1 and (1 << t.gq1) == host.qbloom_s1.size * 32
+        np.testing.assert_array_equal(t.qbloom_s1.numpy().view(np.uint32), host.qbloom_s1)
+        np.testing.assert_array_equal(t.t16_1.numpy().view(np.uint32), host.t16_1)
+        assert t.t16_1_bits == meta.t16_1_bits
+    else:
+        assert host.qbloom_s1.size == host.t16_1.size == 1
+
+
+@pytest.mark.parametrize("wordsize,iupac", [(11, False), (8, False), (11, True)])
+@pytest.mark.parametrize("case", ["golden", "random", "ambiguous"])
+def test_compile_table_matches_jax(tmp_path, case, wordsize, iupac):
+    path = _cases(tmp_path)[case]
+    res = STSLoader.load_file(path, wordsize, 240)
+    jres = JaxSTSLoader.load_file(path, wordsize, 240)
+    host, meta = compile_table(res, wordsize, iupac)
+    jhost, jmeta = jax_compile_table(jres, wordsize, iupac, device=False)
+    _assert_same(host, meta, jhost, jmeta)
     assert [r.__dict__ for r in res.records] == [r.__dict__ for r in jres.records]
 
 
@@ -68,7 +123,7 @@ def test_table_from_numpy_keeps_bits(tmp_path):
     res = STSLoader.load_file(_cases(tmp_path)["random"], 11, 240)
     host, meta = compile_table(res, 11, False)
     t = table_from_numpy(host, meta, "cpu")
-    for name in ("qbloom_s", "ptab", "t16"):
+    for name in ("qbloom_s", "ptab", "t16", "qbloom", "qbloom_s1", "t16_1"):
         got = getattr(t, name).numpy().view(np.uint32)
         np.testing.assert_array_equal(got, getattr(host, name), err_msg=name)
     np.testing.assert_array_equal(t.bsc.numpy(), host.bsc)
@@ -78,3 +133,5 @@ def test_table_from_numpy_keeps_bits(tmp_path):
     assert t.qbloom_s.dtype == torch.int32
     assert (1 << t.gq) == host.qbloom_s.size * 32
     assert t.pf_bits == 2 * (11 + 2) and t.t16_bits == meta.t16_bits > 0
+    assert (1 << t.q_bits) == host.qbloom.size * 32 and t.q_bits <= 2 * (11 + 3)
+    assert not t.strict1 and t.gq1 == 5 and t.t16_1_bits == 0  # [1] dummies
