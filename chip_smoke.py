@@ -15,8 +15,12 @@ closing device line is printed only when every phase passed):
              --seed, the first --planted STS planted as amplicons, plus
              one amplicon across every 2^23 tile boundary and one anchor
              W-mer straddling each boundary, plus 50 (+) amplicons with
-             one mismatch in each primer and 50 with two (past the W-mer,
-             off the -X 1 protected ends); written as STS + FASTA files
+             one mismatch in each primer and 50 with two (past the W = 11
+             W-mer, off the -X 1 protected ends), plus amplicons whose real
+             size is off the stated size by +100, -100, +700, +5,000 and
+             +9,900 (three each, and one +100 that ends 40 bases before the
+             record's end), which only a margin of at least that finds;
+             written as STS + FASTA files
 4. kernels   on one real 2^23 tile of that genome, each kernel against
              its plain PyTorch version on the same card tensors: every
              output and total must be equal (integers, tolerance 0); times
@@ -36,10 +40,29 @@ closing device line is printed only when every phase passed):
              device="cpu"; a breakdown of the warm search; then the
              path's kernels against their plain versions on one real 2^23
              tile (phase mismatch_kernels)
-7. golden    tests/data through the API and through
+7. wordsize  the same record in a fresh engine at W = 12, 13, 14 and 16
+             (stride-2 exact tables with bstart or a binary search; above
+             13 a mult-hash group bloom, no phase table): -N 0 (strict)
+             cold then warm and -N 2 (loose) cold then warm, launch counts
+             around the warm runs; the tier that ran; every exact plant
+             present; bytes equal to device="cpu" (which also holds the
+             mismatch plants' lines: they were placed clear of the W = 11
+             word only); then that W's kernels against their plain
+             versions on one real 2^23 tile, strict and loose (phase
+             wordsize_kernels)
+8. margin    the record at W = 11, -N 0, at -M 1000 and -M 10000, cold
+             then warm: each off-size plant's line present exactly when
+             the margin admits it (none at -M 50, phase 5); bytes equal to
+             device="cpu"; the path's kernels against their plain versions
+             on one real tile at that -M (phase margin_kernels), and at
+             -M 10000 margin_p2 once more with the tile's anchors repeated
+             until the launch must be cut into chunks (margin_p2 counts
+             one launch per chunk: one per tile on the searches, the
+             expected number of chunks here)
+9. golden    tests/data through the API and through
              ``python -m merpcr_tpu_torch``: exactly the golden line; the
-             CLI at -I 1 and at -N 2 equal to the API
-8. assembly  a draft assembly: 30 Mbp of random ACGT in 3,000 equal
+             CLI at -I 1, at -N 2 and at -W 13 -M 300 equal to the API
+10. assembly a draft assembly: 30 Mbp of random ACGT in 3,000 equal
              scaffolds x --nsts random STS, --planted amplicons planted
              wholly inside scaffolds; every fourth planted STS carries R/Y/N
              letters in its primers and its sites resolve them. Four
@@ -52,23 +75,33 @@ closing device line is printed only when every phase passed):
              path launched, at most once per stream tile); every planted
              ACGT-primer line present, the R/Y/N-primer lines present in
              (c) and (d) only; bytes equal to device="cpu"; the dirty-span
-             filter (K10) armed in (b) and (c)
-9. stream_kernels  on one real 2^21 stream tile of variant (c), each
+             filter (K10) armed in (b) and (c); then variant (c) at W = 13
+             and W = 14 (stream + K10 + K11 on the prefix-filter and
+             every-valid-phase branches), ACGT-primer lines present
+11. stream_kernels  on one real 2^21 stream tile of variant (c), each
              kernel's stream + dirty-span + IUPAC variant against its plain
              version on the same card tensors (tolerance 0); the tile must
              hold anchors and hits that only the IUPAC expansion-set match
              admits; times from CUDA events and torch.profiler, byte/op
              bound; then the same for variant (d)'s loose kernels on that
-             tile at -N 2 (with a breakdown of (d)'s warm search)
+             tile at -N 2 (with a breakdown of (d)'s warm search), and for
+             variant (c) at W = 13 and W = 14 on that tile. Wherever the
+             dirty-span filter is armed the tile must hold positions that
+             only the filter removes (the filter changes totals, not lines)
 
 The second-to-last JSON line lists every kernel with its launches on the
 main path, error against its plain version, times and bound: the record
 path's four kernels (phase 4 times, launches of the warm 47 Mbp search),
-their stream variants (phase 9 times, launches of the warm variant (c)
+their stream variants (phase 11 times, launches of the warm variant (c)
 search), the -N 1 (strict1) and -N 2 (loose) paths' kernels (phase 6
 times, launches of the warm 47 Mbp search at that -N), and the loose
-stream kernels (phase 9 times, launches of the warm variant (d)
-search); the line before
+stream kernels (phase 11 times, launches of the warm variant (d)
+search), the W = 12, 13, 14, 16 kernels strict and loose (phase 7) and the
+-M 1000 and -M 10000 kernels (phase 8), and the stream kernels of variant
+(c) at W = 13 and 14 (phase 11), each with the launches of its own warm
+search. ``device_ms`` pools several profiler traces, since the profiler
+loses events (``profiled_ms``): ``device_events_lost`` is their share,
+and a ``device_ms`` of null a reading with too few left. The line before
 the last is nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -154,11 +187,14 @@ def write_fasta(path: str, records, width: int = 80) -> str:
 
 
 MM_PLANTS = 50  # amplicons with 1 and with 2 mismatches per primer, each
+SIZE_DELTAS = (100, -100, 700, 5000, 9900)  # real minus stated product size
+SIZE_PLANTS = 3  # amplicons per delta
 
 
 def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
     """(sts path, fasta path, genome length, expected planted lines, {k:
-    lines of the amplicons planted with k mismatches in each primer}).
+    lines of the amplicons planted with k mismatches in each primer},
+    {delta: lines of the amplicons planted delta off their stated size}).
 
     The mismatch plants are (+) amplicons of STS that no other plant
     uses, with k transitions in primer 1 past its W-mer (which the lookup
@@ -182,10 +218,13 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
             site[j : j + 1] = bytes(site[j : j + 1]).translate(transition)
         return bytes(site)
 
-    def plant(pos, i, strand, k=0):
+    off_size = {d: [] for d in SIZE_DELTAS}
+
+    def plant(pos, i, strand, k=0, delta=0):
         sid, p1, p2, size = rows[i]
+        size += delta  # the amplicon's real size; the STS states rows[i][3]
         if pos < 0 or pos + size > n or any(a < pos + size and pos < b for a, b in taken):
-            return
+            return False
         left, right = (p1, p2) if strand == "+" else (p2, p1.translate(comp)[::-1])
         if k:
             left, right = mutate(left, 12, len(left) - 2, k), mutate(right, 2, len(right) - 2, k)
@@ -193,7 +232,8 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
         genome[pos + size - len(right) : pos + size] = np.frombuffer(right, dtype=np.uint8)
         taken.append((pos, pos + size))
         line = f"{label}\t{pos + 1}..{pos + size}\t{sid}\talias {sid}\t({strand})"
-        (mism[k] if k else expect).append(line)
+        (off_size[delta] if delta else mism[k] if k else expect).append(line)
+        return True
 
     for i in range(planted):  # evenly spread, as bench.py plants them
         plant((n // (planted + 1)) * (i + 1), i, "+")
@@ -205,9 +245,26 @@ def make_workload(tmp: str, seed: int, n_mbp: float, n_sts: int, planted: int):
     gap = n // (2 * MM_PLANTS + 1)
     for j in range(2 * MM_PLANTS):  # between the exact plants, other STS
         plant(gap * (j + 1) + gap // 3, (k + j) % n_sts, "+", 1 + j % 2)
+    # off-size amplicons, after every other plant so that those keep their
+    # places: STS no other plant uses, stated sizes that leave room for the
+    # negative deltas (lo = exp - l1 - l2), free places found by stepping
+    free = (i for i in range(k + 2 * MM_PLANTS, n_sts) if rows[i][3] >= 250)
+    pos = n // 7
+    for delta in SIZE_DELTAS:
+        for j in range(SIZE_PLANTS):
+            i = next(free)
+            for _ in range(1000):
+                if plant(pos % n, i, "+-"[j % 2], delta=delta):
+                    break
+                pos += 20_011
+            else:
+                raise RuntimeError(f"no free place for a {delta:+d} amplicon")
+            pos += n // 19
+    i = next(free)  # ends 40 bases before the record's end: hi = 140 there
+    check(plant(n - 40 - (rows[i][3] + 100), i, "+", delta=100), "end plant overlaps")
     sts = write_sts(os.path.join(tmp, "smoke.sts"), rows)
     fa = write_fasta(os.path.join(tmp, "smoke.fa"), [(label, genome)])
-    return sts, fa, n, expect, mism
+    return sts, fa, n, expect, mism, off_size
 
 
 def make_assembly(tmp: str, seed: int, n_sts: int, planted: int):
@@ -293,6 +350,34 @@ def device_time(fn) -> dict:
     }
 
 
+def profiled_ms(fn, reps: int) -> tuple:
+    """(device ms per call of ``fn``, share of events lost) from
+    torch.profiler. The profiler drops events: often the first few of a
+    trace, now and then a long stretch or every event of one name. So
+    two or three traces of ``reps`` + 1 calls are pooled: an event name
+    comes m times per call, m the most any trace shows, and costs m
+    times its mean over the pooled events, which a loss does not move. The
+    reading is void, (None, share), while a name has fewer than ``reps``
+    pooled events."""
+    n, traces = reps + 1, []
+    while len(traces) < 3:
+        dev = device_time(lambda: [fn() for _ in range(n)])
+        traces.append(dev)
+        per_call = [{k: -(-c // n) for k, (_, c) in d.items()} for d in traces[-2:]]
+        if dev and len(traces) > 1 and per_call[0] == per_call[1]:
+            break
+    pooled = {}
+    for d in traces:
+        for k, (t, c) in d.items():
+            t0, c0, m0 = pooled.get(k, (0.0, 0, 0))
+            pooled[k] = (t0 + t, c0 + c, max(m0, -(-c // n)))
+    want = len(traces) * n * sum(m for _, _, m in pooled.values())
+    lost = 1 - sum(c for _, c, _ in pooled.values()) / want if want else 1.0
+    if not pooled or any(c < reps for _, c, _ in pooled.values()):
+        return None, lost
+    return sum(t / c * m for t, c, m in pooled.values()) * 1e3, lost
+
+
 def max_abs_err(got, want) -> int:
     """Largest absolute difference over matching outputs (ints and
     tensors); a shape mismatch is a failure."""
@@ -354,17 +439,22 @@ def stream_tile(eng, recs):
             torch.from_numpy(rmeta).to(dev), torch.from_numpy(recmap).to(dev))
 
 
-def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
+def phase_kernels(eng, laid, card: str, phase: str, variant: str,
+                  chunk_check: bool = False) -> dict:
     """Each kernel of the config's path and its plain version on one real
     tile of ``laid`` (``record_tile``/``stream_tile``), with the config's
-    front end (strict over the N=0 or N=1 tables, or loose), filters and
-    the engine's runtime -M/-N/-X. Returns {wrapper name: kernel entry}."""
+    front end (strict over the N=0 or N=1 tables, or loose), word-size
+    tier, filters and the engine's runtime -M/-N/-X. With ``chunk_check``
+    margin_p2 runs once more on the tile's anchors repeated until their
+    (anchor, rank) items pass the launch bound, so that the wrapper must cut
+    the launch into chunks. Returns {wrapper name: kernel entry}."""
     from merpcr_tpu_torch.ops.expand import (expand, expand_loose, expand_loose_plain,
                                              expand_plain)
-    from merpcr_tpu_torch.ops.front_end import (front_end, front_end_loose,
+    from merpcr_tpu_torch.ops.front_end import (GOLD, front_end, front_end_loose,
                                                 front_end_loose_plain, front_end_plain)
     from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
-    from merpcr_tpu_torch.ops.units import group_regs, unit_regs, units_of
+    from merpcr_tpu_torch.ops.units import (group_regs, mask_bases, mul32, unit_regs,
+                                            units_of)
     from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
 
     cfg, plane, t, total, rmeta, recmap = laid
@@ -385,14 +475,14 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         err = max_abs_err(out_of(got), out_of(want))
         ms = cuda_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), max(2, reps // 5))
-        dev = device_time(lambda: [kernel(*args) for _ in range(reps)])
-        device_ms = sum(v[0] for v in dev.values()) * 1e3 / reps
+        device_ms, lost = profiled_ms(lambda: kernel(*args), reps)  # None: void
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
             "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
             "source": f"merpcr_tpu_torch/csrc/{name.replace('_loose', '')}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
+            "device_events_lost": lost,
             "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         }
@@ -412,41 +502,66 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         bk = ((A >> 14) | ((B & 0xFF) << 18)) & ((1 << gq) - 1)
         n_items, fe_name, fe, fe_plain = n_units, "front_end", front_end, front_end_plain
         fe_line = "merpcr_tpu/ops/scan.py:504" if s1 else "merpcr_tpu/ops/scan.py:452"
+        fe_args = (tile, qb, gq, W, lead, L, n_scan)
     else:
         qb, gq = tb.qbloom, tb.q_bits
-        n_items = 2 * n_units  # stride-4 groups
-        A, _, _, _ = group_regs(u, torch.arange(n_items, device=tile.device), lead // 8)
-        bk = A & ((1 << (2 * (W + 3))) - 1) & ((1 << gq) - 1)
+        n_items = n_units * (8 // cfg.stride)  # stride groups
+        A, _, _, _ = group_regs(u, torch.arange(n_items, device=tile.device), lead // 8,
+                                cfg.stride)
+        bk = A & mask_bases(W + cfg.stride - 1)
+        bk = (mul32(bk, GOLD) >> (32 - cfg.qbloom_bits)) if cfg.qbloom_bits else bk & ((1 << gq) - 1)
         fe_name, fe, fe_plain = "front_end_loose", front_end_loose, front_end_loose_plain
-        fe_line = "merpcr_tpu/ops/scan.py:579"
+        fe_line = ("merpcr_tpu/ops/scan.py:579" if cfg.stride == 4 else
+                   "merpcr_tpu/ops/scan.py:605" if cfg.exact_group else
+                   "merpcr_tpu/ops/scan.py:609")
+        fe_args = (tile, qb, gq, W, lead, L, n_scan, cfg.stride, cfg.qbloom_bits)
     distinct_words = int(torch.unique(bk >> 5).numel())
     del u, A, bk
-    fe_args = (tile, qb, gq, W, lead, L, n_scan)
     words, c_total = run(
         fe_name, fe, fe_plain, fe_args, 50,
         4 * (n_units + 2) + 4 * distinct_words + n_items // 8 + 4,
         (70 if cfg.strict else 50) * n_items, fe_line, lambda o: o,
     )
     c_total = int(c_total.item())
+    # bucket lookup per expanded position: one 8-byte row, two starts, or
+    # a binary search of ceil(log2 U) keys and two starts
+    steps = max(1, int(tb.uhash.numel()).bit_length()) if W >= 13 else 0
+    pos_b, pos_ops = 4 + 8 + 4 * steps, 6 * steps
+    tier = cfg.stride == 2
     if cfg.strict:
         ex_name, ex, ex_plain = "expand", expand, expand_plain
-        ex_args = (tile, words, tb.ptab, tb.pf_bits, t16, t16_bits, tb.bsc,
-                   tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
+        ex_args = (tile, words, tb.ptab, tb.pf_bits, t16, t16_bits, tb.csr,
+                   tb.emeta.shape[0], W, lead, L, n_scan, cfg.stride,
+                   cfg.exact_group, bloom, tb.bloom_bits)
         ex_line = ("merpcr_tpu/ops/scan.py:803" if bloom is not None else
-                   "merpcr_tpu/ops/scan.py:944" if s1 else "merpcr_tpu/ops/scan.py:680")
-        item_b, item_ops = 12 + 8, 300 + (120 if bloom is not None else 0)
+                   "merpcr_tpu/ops/scan.py:944" if s1 else
+                   "merpcr_tpu/ops/scan.py:680" if not tier else
+                   "merpcr_tpu/ops/scan.py:841" if cfg.exact_group else
+                   "merpcr_tpu/ops/scan.py:872")
+        item_b = 12 + (4 * (8 // cfg.stride) if cfg.exact_group else 0)
+        item_ops = 300 + (120 if bloom is not None else 0)
     else:
         ex_name, ex, ex_plain = "expand_loose", expand_loose, expand_loose_plain
-        ex_args = (tile, words, tb.ptab, tb.pf_bits, tb.bsc, tb.emeta.shape[0], W,
-                   lead, L, n_scan)
-        ex_line = "merpcr_tpu/ops/scan.py:775"
-        item_b, item_ops = 12 + 4, 150
+        ex_args = (tile, words, tb.ptab, tb.pf_bits, tb.csr, tb.emeta.shape[0], W,
+                   lead, L, n_scan, cfg.stride, cfg.exact_group)
+        ex_line = ("merpcr_tpu/ops/scan.py:775" if not tier else
+                   "merpcr_tpu/ops/scan.py:863" if cfg.exact_group else
+                   "merpcr_tpu/ops/scan.py:731")
+        item_b, item_ops = 12 + (4 if cfg.exact_group else 0), 150
     first = ex(*ex_args)
     pos_total, pair_total = first[2], first[3]
+    unpruned = None
+    if bloom is not None:
+        # K10 changes totals, not lines: the tile must hold phases that only
+        # the bloom removes, else the comparison below could not tell an
+        # expand that skips it from one that applies it
+        unpruned = ex(*ex_args[:14], None, ex_args[15])[2]
+        check(pos_total < unpruned,
+              f"{variant}: bloom removed no position ({pos_total} of {unpruned})")
     entry, ppos, _, _ = run(
         ex_name, ex, ex_plain, ex_args, 20,
-        n_items // 8 + c_total * item_b + pos_total * 12 + pair_total * 8,
-        4 * n_items + item_ops * c_total, ex_line, lambda o: o,
+        n_items // 8 + c_total * item_b + pos_total * pos_b + pair_total * 8,
+        4 * n_items + item_ops * c_total + pos_ops * pos_total, ex_line, lambda o: o,
     )
     v_args = (tile, entry, ppos, tb.emeta, tb.p1_codes, p1x, t0, rmeta, recmap,
               lead, nmm, x)
@@ -467,9 +582,35 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
                 + (2 * margin + cfg.p2_max) // 2),
         anch * (2 * margin + 1) * 40,
         "merpcr_tpu/ops/scan.py:1058" if cfg.stream else
-        "merpcr_tpu/ops/scan.py:1157" if nmm else "merpcr_tpu/ops/scan.py:1047",
+        "merpcr_tpu/ops/scan.py:1157" if nmm else
+        "merpcr_tpu/ops/scan.py:1201" if margin > 128 else "merpcr_tpu/ops/scan.py:1047",
         lambda o: (o,),
     )
+    chunked = None
+    if chunk_check:
+        from merpcr_tpu_torch.ops.margin_p2 import MAX_ITEMS
+
+        n_ranks = 2 * margin + 1
+        reps = MAX_ITEMS // (n_ranks * anch) + 2
+        many = (tile, a_idx.repeat(reps), *m_args[2:])
+        check(many[1].numel() * n_ranks > MAX_ITEMS, "the repeated anchors fit one launch")
+        torch.cuda.synchronize()
+        c_0 = margin_p2.launches
+        t_0 = time.perf_counter()
+        got = margin_p2(*many)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t_0
+        n_chunks = margin_p2.launches - c_0  # the wrapper counts one per chunk
+        per_chunk = max(1, MAX_ITEMS // n_ranks)
+        check(n_chunks == -(-many[1].numel() // per_chunk) and n_chunks > 1,
+              f"{variant}: {n_chunks} chunk launches for {many[1].numel()} anchors")
+        want = margin_p2_plain(*many)
+        check(got.shape[0] == reps * rows.shape[0] and torch.equal(got, want),
+              f"{variant}: chunked margin_p2 differs from plain")
+        chunked = {"anchors": many[1].numel(), "items": many[1].numel() * n_ranks,
+                   "launch_bound_items": MAX_ITEMS, "chunks": n_chunks,
+                   "rows": int(got.shape[0]),
+                   "wrapper_s": t_k, "equal": True}
     iupac_only = {}
     if cfg.iupac:
         # anchors and hits that only the expansion-set match admits: without
@@ -479,16 +620,20 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str) -> dict:
         a_eq = verify_p1_plain(*v_args[:5], None, *v_args[6:])
         r_eq = margin_p2_plain(*m_args[:6], None, *m_args[7:])
         iupac_only = {"anch": anch - a_eq.numel(), "hit": int(rows.shape[0] - r_eq.shape[0])}
-        check(nmm or min(iupac_only.values()) > 0,
+        # (held at W = 11, where the R/Y/N letters are clear of the W-mer)
+        check(nmm or W > 11 or min(iupac_only.values()) > 0,
               f"{variant}: no IUPAC-only matches {iupac_only}")
     emit({"phase": phase, "variant": variant or "record", "tile": t, "tile_len": L,
           "card": card, "strict": cfg.strict, "strict_n": cfg.strict_n, "mismatches": nmm,
           "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
           "stream": cfg.stream, "iupac_only": iupac_only,
+          "wordsize": W, "stride": cfg.stride, "exact_group": cfg.exact_group,
+          "margin": margin, "chunked_margin": chunked, "pos_without_bloom": unpruned,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
           "kernels": [{k: r[k] for k in ("name", "equal", "kernel_ms", "device_ms",
-                                         "plain_ms", "max_abs_err", "bound_ms")}
+                                         "device_events_lost", "plain_ms",
+                                         "max_abs_err", "bound_ms")}
                       for r in res.values()]})
     return res
 
@@ -504,7 +649,8 @@ def breakdown(eng, recs) -> dict:
     n = len(seq)
     total = n - eng.wordsize + 1
     cfg = eng._base_config(eng._pick_tile_len(total))
-    out = {"mismatches": eng.mismatches, "strict": cfg.strict, "dirty_rate_s": None}
+    out = {"wordsize": eng.wordsize, "margin": eng.margin, "mismatches": eng.mismatches,
+           "strict": cfg.strict, "dirty_rate_s": None}
     if cfg.strict:  # the loose path takes no dirty-rate sample
         t0 = time.perf_counter()
         eng._dirty_of(seq, packed)
@@ -574,12 +720,12 @@ def stream_breakdown(eng, recs) -> dict:
 
 def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
                    n_bp: int, card: str, variant: str, want_bloom: bool,
-                   mismatches: int = 0):
+                   mismatches: int = 0, wordsize: int = 11):
     """One assembly variant end to end on the card (cold, then warm with
     the launch counts read around it) and against device="cpu": every line
     of ``expect`` present, none of ``absent``. -N 0 scans strict, -N 2
     loose."""
-    eng = MerPCR(iupac_mode=iupac, mismatches=mismatches)
+    eng = MerPCR(wordsize=wordsize, iupac_mode=iupac, mismatches=mismatches)
     t0 = time.perf_counter()
     check(eng.load_sts_file(sts), "STS load failed")
     t_table = time.perf_counter() - t0
@@ -600,6 +746,7 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
     check(cfg.strict == (mismatches == 0), f"{variant}: strict {cfg.strict}")
     check(cfg.dirty_bloom == want_bloom, f"{variant}: dirty_bloom {cfg.dirty_bloom}")
     check(cfg.iupac == bool(iupac), f"{variant}: iupac {cfg.iupac}")
+    check((cfg.stride, cfg.exact_group) == tier_of(wordsize), f"{variant}: tier of {cfg}")
     used = path_wrappers(cfg)
     check(all((0 < v <= n_tiles) == (k in used) for k, v in launches.items()),
           f"{variant}: launches {launches} for {n_tiles} stream tiles")
@@ -608,11 +755,12 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
     check(not missing, f"{variant}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
     found = [e for e in absent if e in lines]
     check(not found, f"{variant}: R/Y/N-primer lines found at -I 0, e.g. {found[:3]}")
-    cpu = MerPCR(device="cpu", iupac_mode=iupac, mismatches=mismatches)
+    cpu = MerPCR(device="cpu", wordsize=wordsize, iupac_mode=iupac, mismatches=mismatches)
     check(cpu.load_sts_file(sts), "STS load failed (cpu)")
     cpu_out, _, t_cpu = search_bytes(cpu, recs)
     check(cpu_out == warm, f"{variant}: card output differs from the CPU (plain) output")
     emit({"phase": "assembly", "variant": variant, "card": card, "bases": n_bp,
+          "wordsize": wordsize,
           "records": ASM_RECORDS, "iupac": iupac, "mismatches": mismatches,
           "strict": cfg.strict, "dirty_bloom": cfg.dirty_bloom,
           "stream_tiles": n_tiles, "tile_len": cfg.tile_len, "hits": hits,
@@ -624,11 +772,35 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
     return eng, recs, launches
 
 
+def tier_of(wordsize: int) -> tuple:
+    """(stride, exact_group) of the tables the compiler builds at a word
+    size (``ops/table.py``: stride 4 while 4^(W+3) group bits fit 2^28)."""
+    return (4 if wordsize <= 11 else 2, wordsize <= 13)
+
+
 def path_wrappers(cfg) -> tuple:
     """The wrappers a scan with ``cfg`` launches (one each per tile)."""
     if cfg.strict:
         return ("front_end", "expand", "verify_p1", "margin_p2")
     return ("front_end_loose", "expand_loose", "verify_p1", "margin_p2")
+
+
+def timed_search(eng, recs, wrappers, what: str) -> tuple:
+    """Cold then warm search on the card with the launch counts read
+    around the warm run, which must launch the path's wrappers once per
+    tile and no others. Returns (output, hits, cold s, warm s, launches,
+    cfg, tiles)."""
+    cold, hits_cold, t_cold = search_bytes(eng, recs)
+    for w in wrappers.values():
+        w.launches = 0
+    warm, hits, t_warm = search_bytes(eng, recs)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(warm == cold and hits == hits_cold, f"{what}: warm search differs from cold")
+    (cfg, n_tiles, _), = eng.last_scans
+    used = path_wrappers(cfg)
+    check(all(v == (n_tiles if k in used else 0) for k, v in launches.items()),
+          f"{what}: launches {launches} for {n_tiles} tiles")
+    return warm, hits, t_cold, t_warm, launches, cfg, n_tiles
 
 
 def phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n: int, card: str,
@@ -643,18 +815,10 @@ def phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n: int, card: str,
     out = {}
     for n_mm in (1, 2):
         eng.mismatches = n_mm
-        cold, hits_cold, t_cold = search_bytes(eng, recs)
-        for w in wrappers.values():
-            w.launches = 0
-        warm, hits, t_warm = search_bytes(eng, recs)
-        launches = {k: w.launches for k, w in wrappers.items()}
-        check(warm == cold and hits == hits_cold, f"-N {n_mm}: warm search differs from cold")
-        (cfg, n_tiles, _), = eng.last_scans
+        warm, hits, t_cold, t_warm, launches, cfg, n_tiles = timed_search(
+            eng, recs, wrappers, f"-N {n_mm}")
         check((cfg.strict, cfg.strict_n) == ((True, 1) if n_mm == 1 else (False, 0)),
               f"-N {n_mm}: ran strict={cfg.strict} strict_n={cfg.strict_n}")
-        used = path_wrappers(cfg)
-        check(all((0 < v <= n_tiles) == (k in used) for k, v in launches.items()),
-              f"-N {n_mm}: launches {launches} for {n_tiles} tiles")
         lines = set(warm.splitlines())
         for k, want in ((0, expect), *mism.items()):
             got = sum(line in lines for line in want)
@@ -676,6 +840,86 @@ def phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n: int, card: str,
                              "strict1" if cfg.strict else f"N{n_mm}")
         out[n_mm] = (kern, launches)
     eng.mismatches = 0
+    return out
+
+
+def phase_wordsize(MerPCR, recs, wrappers, expect, n: int, card: str, sts: str) -> list:
+    """The 47 Mbp record at W = 12, 13, 14, 16, a fresh engine each: -N 0
+    (strict) and -N 2 (loose), cold then warm; the tier the word size
+    selects; all exact plants present; bytes equal to device="cpu"; then
+    the kernels of both paths against their plain versions on one real
+    tile. Returns [(kernel entries, warm launches)]."""
+    out = []
+    for W in (12, 13, 14, 16):
+        eng = MerPCR(wordsize=W)
+        t0 = time.perf_counter()
+        check(eng.load_sts_file(sts), f"STS load failed at W={W}")
+        t_table = time.perf_counter() - t0
+        cpu = MerPCR(device="cpu", wordsize=W)
+        check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+        for n_mm in (0, 2):
+            eng.mismatches = cpu.mismatches = n_mm
+            what = f"W={W} -N {n_mm}"
+            torch.cuda.reset_peak_memory_stats()
+            warm, hits, t_cold, t_warm, launches, cfg, n_tiles = timed_search(
+                eng, recs, wrappers, what)
+            check(cfg.strict == (n_mm == 0) and (cfg.stride, cfg.exact_group) == tier_of(W),
+                  f"{what}: ran {cfg}")
+            lines = set(warm.splitlines())
+            missing = [e for e in expect if e not in lines]
+            check(not missing, f"{what}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
+            cpu_out, _, t_cpu = search_bytes(cpu, recs)
+            check(cpu_out == warm, f"{what}: card output differs from the CPU (plain) output")
+            emit({"phase": "wordsize", "wordsize": W, "mismatches": n_mm, "card": card,
+                  "genome_bp": n, "strict": cfg.strict, "stride": cfg.stride,
+                  "exact_group": cfg.exact_group, "qbloom_bits": cfg.qbloom_bits,
+                  "tiles": n_tiles, "hits": hits, "planted_found": len(expect),
+                  "cold_s": t_cold, "warm_s": t_warm, "warm_mbp_per_s": n / 1e6 / t_warm,
+                  "cpu_plain_s": t_cpu, "table_compile_s": t_table,
+                  "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                  "launches": launches, "equal_to_cpu": True})
+            emit({"phase": "breakdown", "card": card, **breakdown(eng, recs)})
+            kern = phase_kernels(eng, record_tile(eng, recs), card, "wordsize_kernels",
+                                 f"W{W}" if cfg.strict else f"W{W}+N{n_mm}")
+            out.append((kern, launches))
+        del eng, cpu
+    return out
+
+
+def phase_margin(MerPCR, recs, wrappers, expect, off_size, n: int, card: str,
+                 sts: str) -> list:
+    """The 47 Mbp record at W = 11, -N 0, at -M 1000 and -M 10000, cold
+    then warm: each off-size plant present exactly when |delta| <= M; bytes
+    equal to device="cpu"; the path's kernels against their plain versions
+    on one real tile, at -M 10000 also with a launch that must be chunked.
+    Returns [(kernel entries, warm launches)]."""
+    out = []
+    for margin in (1000, 10000):
+        eng = MerPCR(margin=margin)
+        check(eng.load_sts_file(sts), "STS load failed")
+        what = f"-M {margin}"
+        warm, hits, t_cold, t_warm, launches, cfg, n_tiles = timed_search(
+            eng, recs, wrappers, what)
+        lines = set(warm.splitlines())
+        missing = [e for e in expect if e not in lines]
+        check(not missing, f"{what}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
+        found = {d: sum(line in lines for line in want) for d, want in off_size.items()}
+        check(all(found[d] == (len(want) if abs(d) <= margin else 0)
+                  for d, want in off_size.items()), f"{what}: off-size lines {found}")
+        cpu = MerPCR(device="cpu", margin=margin)
+        check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+        cpu_out, _, t_cpu = search_bytes(cpu, recs)
+        check(cpu_out == warm, f"{what}: card output differs from the CPU (plain) output")
+        emit({"phase": "margin", "margin": margin, "margin_cap": cfg.margin, "card": card,
+              "genome_bp": n, "lead": cfg.lead, "tail": cfg.tail, "tiles": n_tiles,
+              "hits": hits, "planted_found": len(expect), "off_size_found": found,
+              "cold_s": t_cold, "warm_s": t_warm, "warm_mbp_per_s": n / 1e6 / t_warm,
+              "cpu_plain_s": t_cpu, "launches": launches, "equal_to_cpu": True})
+        emit({"phase": "breakdown", "card": card, **breakdown(eng, recs)})
+        kern = phase_kernels(eng, record_tile(eng, recs), card, "margin_kernels",
+                             f"M{margin}", chunk_check=margin == 10000)
+        out.append((kern, launches))
+        del eng, cpu
     return out
 
 
@@ -719,11 +963,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # 3. workload
         t0 = time.perf_counter()
-        sts, fa, n, expect, mism = make_workload(tmp, args.seed, args.mbp, args.nsts,
-                                                 args.planted)
+        sts, fa, n, expect, mism, off_size = make_workload(
+            tmp, args.seed, args.mbp, args.nsts, args.planted)
         emit({"phase": "workload", "seconds": time.perf_counter() - t0,
               "genome_bp": n, "sts": args.nsts, "planted_lines": len(expect),
-              "mismatch_lines": {k: len(v) for k, v in mism.items()}})
+              "mismatch_lines": {k: len(v) for k, v in mism.items()},
+              "off_size_lines": {d: len(v) for d, v in off_size.items()}})
 
         eng = MerPCR()
         t0 = time.perf_counter()
@@ -751,6 +996,8 @@ def main() -> int:
         check(not missing, f"{len(missing)} planted lines missing, e.g. {missing[:3]}")
         found = [e for k in mism for e in mism[k] if e in lines]
         check(not found, f"-N 0 found {len(found)} mismatch lines, e.g. {found[:3]}")
+        found = [e for d in off_size for e in off_size[d] if e in lines]
+        check(not found, f"-M 50 found {len(found)} off-size lines, e.g. {found[:3]}")
         used = path_wrappers(eng.last_scans[0][0])
         check(all((v > 0) == (k in used) for k, v in launches.items()),
               f"-N 0 launches {launches}")
@@ -769,7 +1016,13 @@ def main() -> int:
         # 6. mismatch budget: -N 1 (strict1) and -N 2 (loose)
         mm = phase_mismatch(MerPCR, eng, recs, wrappers, expect, mism, n, card, sts)
 
-        # 7. golden
+        # 7. every -W: the stride-2, bstart, binary-search and mult-hash tiers
+        ws = phase_wordsize(MerPCR, recs, wrappers, expect, n, card, sts)
+
+        # 8. every -M: margins above 128
+        mg = phase_margin(MerPCR, recs, wrappers, expect, off_size, n, card, sts)
+
+        # 9. golden
         data = os.path.join(ROOT, "tests", "data")
         g_sts, g_fa = os.path.join(data, "test.sts"), os.path.join(data, "test.fa")
         g = MerPCR()
@@ -804,11 +1057,22 @@ def main() -> int:
               and not g2.last_scans[0][0].strict,
               f"golden -N 2: CLI rc={cli_2.returncode} out={cli_2.stdout!r} "
               f"api={api_2!r} err={cli_2.stderr[-2000:]}")
+        gw = MerPCR(wordsize=13, margin=300)
+        check(gw.load_sts_file(g_sts), "golden STS load failed (-W 13 -M 300)")
+        api_w, _, _ = search_bytes(gw, gw.load_fasta_file(g_fa))
+        cli_w = subprocess.run(
+            [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-W", "13", "-M", "300"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+        )
+        check(cli_w.returncode == 0 and cli_w.stdout == api_w and GOLDEN_LINE in api_w
+              and gw.last_scans[0][0].stride == 2,
+              f"golden -W 13 -M 300: CLI rc={cli_w.returncode} out={cli_w.stdout!r} "
+              f"api={api_w!r} err={cli_w.stderr[-2000:]}")
         emit({"phase": "golden", "api": True, "cli": True, "cli_iupac": True,
-              "cli_n2": True, "n2_lines": api_2.count("\n")})
-        del eng, g, gi, g2
+              "cli_n2": True, "n2_lines": api_2.count("\n"), "cli_w13_m300": True})
+        del eng, g, gi, g2, gw
 
-        # 8. assembly
+        # 10. assembly
         t0 = time.perf_counter()
         a_sts, a_clean, a_dirty, a_bp, a_expect, a_expect_i = make_assembly(
             tmp, args.seed, args.nsts, args.planted)
@@ -828,7 +1092,7 @@ def main() -> int:
                 stream_launches = launched
                 emit({"phase": "assembly_breakdown", "variant": variant, "card": card,
                       **stream_breakdown(a_eng, a_recs)})
-                # 9. stream kernels on one real stream tile of variant (c)
+                # 11. stream kernels on one real stream tile of variant (c)
                 s_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
                                       "stream_kernels", "stream+dirty_bloom+iupac")
             if variant.startswith("d"):
@@ -839,10 +1103,24 @@ def main() -> int:
                 d_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
                                       "stream_kernels", "stream+iupac+N2")
             del a_eng, a_recs
+        # variant (c) at W = 13 (stride-2 ptab, bloom as a prefix filter)
+        # and W = 14 (no ptab: every valid phase, pruned by the bloom); the
+        # R/Y/N letters may fall into the wider W-mer, so only the
+        # ACGT-primer lines are held
+        sw = []
+        for W in (13, 14):
+            a_eng, a_recs, launched = phase_assembly(
+                MerPCR, wrappers, a_sts, a_dirty, 1, a_expect, [], a_bp, card,
+                f"c_dirty_I1_W{W}", True, 0, W)
+            # and that path's kernels on one real stream tile
+            sw.append((phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
+                                     "stream_kernels", f"stream+dirty_bloom+iupac+W{W}"),
+                       launched))
+            del a_eng, a_recs
 
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),
-                           (d_res, d_launches)):
+                           (d_res, d_launches), *ws, *mg, *sw):
         for k, r in kern.items():
             r["launches"] = launched[k]
             rows.append(r)

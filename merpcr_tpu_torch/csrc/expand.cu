@@ -1,22 +1,31 @@
-// expand: flagged units -> (entry, position) candidate pairs of one tile.
+// expand: flagged units or stride groups -> (entry, position) candidate
+// pairs of one tile.
 //
 // Replaces merpcr_tpu/ops/scan.py::_scan_tile_impl stages K2-K5: the
 // flag-word compaction (scan.py:680-719, _rank_invert :317-341,
-// _blocked_scan :287-314), the strict phase expansion through the exact
-// phase table ptab (:757-927, ptab_bits :832-862), the hashed 16-base
-// position filter t16 (:929-949) and the dense W <= 11 CSR pair expansion
-// (exact_csr :728-730, :953-964); and K10, the dirty-span phase filter
-// (dirty_bloom, :803-822, applied at :859-861): with a bloom table, a
-// phase of a unit whose stride-4 span is dirty survives only if its W-mer
-// is a key of the table's occupancy bitmap. At -N 1 the strict1 variant
-// runs this code with t16_1 in place of t16.
+// _blocked_scan :287-314), the phase expansion (:757-927), the hashed
+// 16-base position filter t16 (:929-949) and the CSR pair expansion
+// (exact_csr :721-741, :953-964); and K10, the dirty-span phase filter
+// (dirty_bloom, :803-822): with a bloom table, a phase of a unit whose
+// group span is dirty survives only if its W-mer is a key of the table's
+// occupancy bitmap (its top 24 bits at W >= 13). At -N 1 the strict1
+// variant runs this code with t16_1 in place of t16.
+//
+// The word size picks the tables (K12; table.py:567-574). Phase bits
+// (ptab_bits, :832-871): with an exact group table a clean span trusts the
+// folded phase table ptab, `stride` bits per span value, 4 at W <= 11 and
+// 2 at W = 12, 13 (four groups per unit); at W >= 14 there is no ptab and
+// every valid phase expands (:872-875), pruned by the bloom when K10 is
+// armed. Bucket lookup (Csr below): one (start, count) row of bsc at
+// W <= 11, the pair bstart[h], bstart[h+1] at W = 12, a binary search of
+// the sorted unique keys uhash and then ustart at W >= 13.
 //
 // The loose mode (loose != 0) is the loose branch of the same stages
-// (scan.py:775-795, :863-871), behind the K8 front end: one thread per
-// stride-4 group q = 2r + p, whose registers are unit r's shifted right
-// by 4 bases for p = 1; 4 phases at scan positions 4q + d; a clean span
-// keeps ptab's phase bits within the valid ones, a dirty span all valid
-// phases; no t16 and no bloom.
+// (scan.py:775-795, :863-875), behind the K8 front end: one thread per
+// stride group q = P*r + p, whose registers are unit r's shifted right by
+// stride*p bases; `stride` phases at scan positions stride*q + d; a clean
+// span keeps ptab's phase bits within the valid ones, a dirty span (or any
+// span without a ptab) all valid phases; no t16 and no bloom.
 //
 // Pairs come out in (item, phase, bucket slot) order, so pair j here is
 // the JAX pipeline's pair j: the order is the emission key pair_order.
@@ -25,9 +34,10 @@
 //
 // Bound on the card: memory, and little of it. One thread per item reads
 // its flag word; only flagged units (a few per 10^4) read their three plane
-// words and make 2 ptab gathers (32 MB table), one t16 gather and one bsc
-// row gather (32 MB) per phase; with the dirty-span filter armed, one
-// 4-byte gather into the 512 KB bloom per clean phase of a dirty span
+// words and make one ptab gather per group, one t16 gather and one bucket
+// lookup per phase (a row gather, two gathers, or ~log2(U) dependent
+// gathers of the search); with the dirty-span filter armed, one
+// 4-byte gather into the bloom per clean phase of a dirty span
 // (L2-resident; only the phases the filter decides are looked up, not all
 // eight as in the JAX stage). Reduce-then-scan with recompute: the
 // count pass keeps nothing per unit, the write pass recomputes the unit's
@@ -41,77 +51,117 @@ namespace {
 
 constexpr uint32_t kGold = 0x9E3779B1u;  // t16 multiplicative hash
 
+// Bucket lookup of a W-mer h (exact_csr, scan.py:721-741).
+enum CsrKind { kCsrRows = 0, kCsrStarts = 1, kCsrSearch = 2 };
+
+struct Csr {
+  int kind;
+  const int* a;  // rows: bsc [4^W, 2]; starts: bstart [4^W + 1]; search:
+                 // uhash [n_keys], uint32 keys ascending as unsigned
+  const int* b;  // search: ustart [n_keys + 1]
+  int n_keys;
+};
+
+__device__ __forceinline__ int2 bucket_of(const Csr& c, uint32_t h) {
+  if (c.kind == kCsrRows) return __ldg(reinterpret_cast<const int2*>(c.a) + h);
+  if (c.kind == kCsrStarts) {
+    const int start = __ldg(c.a + h);
+    return make_int2(start, __ldg(c.a + h + 1) - start);
+  }
+  // first key >= h; keys compare as uint32 (at W = 16 they use all 32 bits)
+  const uint32_t* keys = reinterpret_cast<const uint32_t*>(c.a);
+  int lo = 0, hi = c.n_keys;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(keys + mid) < h) lo = mid + 1; else hi = mid;
+  }
+  const int uc = min(lo, c.n_keys - 1);
+  const int start = __ldg(c.b + uc);
+  const bool found = lo < c.n_keys && __ldg(keys + uc) == h;
+  return make_int2(start, found ? __ldg(c.b + uc + 1) - start : 0);
+}
+
 struct Tables {
-  const uint32_t* ptab;
+  const uint32_t* ptab;  // folded phase bits; null: no exact group table
   uint32_t m2pf;  // folded span-value mask of ptab
+  int stride;  // scan positions per ptab group (4 or 2)
   const uint32_t* t16;
   int t16_bits;  // 0: no position filter
-  const int* bsc;  // [4^W, 2] (start, count)
+  Csr csr;
   int n_entries;
   const uint32_t* bloom;  // W-mer occupancy bits (K10); null: filter off
   int bloom_shift;  // 2W - bloom_bits
 };
 
-// K10: is phase d's W-mer (bases d..d+W-1 of the window) a table key?
+// K10: is phase d's W-mer (bases d..d+W-1 of the window) a table key (at
+// bloom_shift > 0: does it share a key's top bits)?
 __device__ __forceinline__ bool bloom_hit(const mp::UnitRegs& g, int d, int W,
                                           const Tables& t) {
-  const uint32_t m2w = mp::mask2w(W);
-  uint32_t wm = (g.A >> (2 * d)) & m2w;
-  if (2 * (d + W) > 32) wm |= (g.B << (32 - 2 * d)) & m2w;  // d >= 1 here
-  const uint32_t bk = wm >> t.bloom_shift;
+  const uint32_t bk = mp::window_bases(g.A, g.B, d, W) >> t.bloom_shift;
   return (__ldg(t.bloom + (bk >> 5)) >> (bk & 31u)) & 1u;
 }
 
-// Phase nibble of one stride-4 group from its 14-base span (ptab_bits,
-// scan.py:832-871): a clean span trusts ptab's phase bits within the valid
-// phases nbv_g; a dirty span keeps dirty_g (its valid phases, or those the
-// K10 bloom kept).
+// Phase bits of one stride group from its W+stride-1-base span (ptab_bits,
+// scan.py:832-871): a clean span trusts ptab's phase bits (32/stride span
+// values per word) within the valid phases nbv_g; a dirty span keeps
+// dirty_g (its valid phases, or those the K10 bloom kept).
 __device__ __forceinline__ uint32_t span_phases(uint32_t Ak, uint32_t Aak,
                                                 uint32_t nbv_g, uint32_t dirty_g,
                                                 int W, const Tables& t) {
-  const uint32_t m2kb = (1u << (2 * (W + 3))) - 1u;  // span = W + stride - 1
+  const uint32_t m2kb = mp::mask2w(W + t.stride - 1);
+  if ((Aak & m2kb) != 0) return dirty_g;
   const uint32_t kf = Ak & m2kb & t.m2pf;
-  const uint32_t nbt = (__ldg(t.ptab + (kf >> 3)) >> ((kf & 7u) * 4u)) & 0xFu;
-  return (Aak & m2kb) == 0 ? (nbt & nbv_g) : dirty_g;
+  const uint32_t per_word = 32u / t.stride;
+  const uint32_t nbt = (__ldg(t.ptab + kf / per_word) >> ((kf % per_word) * t.stride)) &
+                       ((1u << t.stride) - 1u);
+  return nbt & nbv_g;
 }
 
 // Bit d set iff bases d..d+W-1 of the window are clean and scan position
 // pos0 + d is in bounds (nbv, scan.py:796-802).
-template <int kPhases>
 __device__ __forceinline__ uint32_t valid_phases(const mp::UnitRegs& g,
-                                                 long long pos0, int W,
-                                                 int n_scan) {
-  const uint32_t m2w = mp::mask2w(W);
+                                                 int n_phases, long long pos0,
+                                                 int W, int n_scan) {
   uint32_t nbv = 0;
 #pragma unroll
-  for (int d = 0; d < kPhases; ++d) {
-    uint32_t pha = (g.Aa >> (2 * d)) & m2w;
-    if (2 * (d + W) > 32) pha |= (g.Ba << (32 - 2 * d)) & m2w;  // d >= 1 here
+  for (int d = 0; d < 8; ++d) {
+    if (d >= n_phases) break;
+    const uint32_t pha = mp::window_bases(g.Aa, g.Ba, d, W);
     nbv |= static_cast<uint32_t>(pha == 0 && pos0 + d < n_scan) << d;
   }
   return nbv;
 }
 
-// Phase nibble of a strict-flagged unit (scan.py:796-876 for stride 4):
-// its two stride-4 groups, each through span_phases; a dirty span's
-// phases are pruned by the bloom when it is armed (K10).
+// The phases of nbv whose W-mer the bloom holds.
+__device__ __forceinline__ uint32_t bloom_phases(const mp::UnitRegs& g,
+                                                 uint32_t nbv, int first,
+                                                 int n, int W, const Tables& t) {
+  for (int k = first; k < first + n; ++k)
+    if (((nbv >> k) & 1u) && !bloom_hit(g, k, W, t)) nbv &= ~(1u << k);
+  return nbv;
+}
+
+// Phase nibble of a strict-flagged unit (scan.py:796-876): with a ptab,
+// its 8/stride groups each through span_phases, a dirty span's phases
+// pruned by the bloom when it is armed (K10); without one, every valid
+// phase, all of them pruned by the bloom when it is armed (:872-875).
 __device__ __forceinline__ uint32_t unit_phases(const mp::UnitRegs& g, int r,
                                                 int W, int n_scan,
                                                 const Tables& t) {
-  const uint32_t nbv = valid_phases<8>(g, 8ll * r, W, n_scan);
+  const uint32_t nbv = valid_phases(g, 8, 8ll * r, W, n_scan);
+  if (!t.ptab) return t.bloom ? bloom_phases(g, nbv, 0, 8, W, t) : nbv;
+  const int S = t.stride;
+  const uint32_t m2kb = mp::mask2w(W + S - 1);
   uint32_t nb = 0;
-#pragma unroll
-  for (int p = 0; p < 2; ++p) {  // two stride-4 groups per unit
-    const uint32_t Ak = p == 0 ? g.A : (g.A >> 8) | (g.B << 24);
-    const uint32_t Aak = p == 0 ? g.Aa : (g.Aa >> 8) | (g.Ba << 24);
-    const uint32_t nbv_p = (nbv >> (4 * p)) & 0xFu;
+  for (int p = 0; p < 8 / S; ++p) {  // the unit's stride groups
+    const int sh = 2 * S * p;
+    const uint32_t Ak = p == 0 ? g.A : (g.A >> sh) | (g.B << (32 - sh));
+    const uint32_t Aak = p == 0 ? g.Aa : (g.Aa >> sh) | (g.Ba << (32 - sh));
+    const uint32_t nbv_p = (nbv >> (S * p)) & ((1u << S) - 1u);
     uint32_t dirty_p = nbv_p;
-    if (t.bloom && (Aak & ((1u << (2 * (W + 3))) - 1u)) != 0) {
-      for (int k = 0; k < 4; ++k)
-        if (((dirty_p >> k) & 1u) && !bloom_hit(g, 4 * p + k, W, t))
-          dirty_p &= ~(1u << k);
-    }
-    nb |= span_phases(Ak, Aak, nbv_p, dirty_p, W, t) << (4 * p);
+    if (t.bloom && (Aak & m2kb) != 0)
+      dirty_p = (bloom_phases(g, nbv, S * p, S, W, t) >> (S * p)) & ((1u << S) - 1u);
+    nb |= span_phases(Ak, Aak, nbv_p, dirty_p, W, t) << (S * p);
   }
   return nb;
 }
@@ -119,37 +169,37 @@ __device__ __forceinline__ uint32_t unit_phases(const mp::UnitRegs& g, int r,
 // Bucket (start, count) of phase d's W-mer after the t16 filter.
 __device__ __forceinline__ int2 phase_bucket(const mp::UnitRegs& g, int d,
                                              int W, const Tables& t) {
-  const uint32_t m2w = mp::mask2w(W);
-  uint32_t phh = (g.A >> (2 * d)) & m2w;
-  if (2 * (d + W) > 32) phh |= (g.B << (32 - 2 * d)) & m2w;
-  bool keep = true;
   if (t.t16_bits) {
     const uint32_t v16 = mp::window16(g.A, g.B, d);
     const uint32_t va16 = mp::window16(g.Aa, g.Ba, d);
     const uint32_t bk = (v16 * kGold) >> (32 - t.t16_bits);
-    keep = ((__ldg(t.t16 + (bk >> 5)) >> (bk & 31)) & 1u) || va16 != 0;
+    if (!((__ldg(t.t16 + (bk >> 5)) >> (bk & 31)) & 1u) && va16 == 0)
+      return make_int2(0, 0);
   }
-  const int2 sc = __ldg(reinterpret_cast<const int2*>(t.bsc) + phh);
-  return make_int2(sc.x, keep ? sc.y : 0);
+  return bucket_of(t.csr, mp::window_bases(g.A, g.B, d, W));
 }
 
 // An item is a strict-flagged u32 unit (8 phases) or, in the loose mode, a
-// loose-flagged stride-4 group (4 phases, scan.py:775-795, :863-871; no
-// t16, no K10). Its registers hold the window that starts at its first
+// loose-flagged stride group (`stride` phases, scan.py:775-795, :863-875;
+// no t16, no K10). Its registers hold the window that starts at its first
 // scan position, and its phase nibble says which phases expand.
 template <bool kLoose>
 struct Item {
-  static constexpr int kPhases = kLoose ? 4 : 8;
   mp::UnitRegs g;
   uint32_t nb;
+
+  static __device__ __forceinline__ int n_phases(const Tables& t) {
+    return kLoose ? t.stride : 8;
+  }
 
   __device__ __forceinline__ void load(const uint32_t* __restrict__ units,
                                        int i, int W, int n_scan,
                                        const Tables& t) {
     if (kLoose) {
-      g = mp::load_group(units, i);
-      const uint32_t nbv = valid_phases<4>(g, 4ll * i, W, n_scan);
-      nb = span_phases(g.A, g.Aa, nbv, nbv, W, t);
+      g = mp::load_group(units, i, t.stride);
+      const uint32_t nbv =
+          valid_phases(g, t.stride, static_cast<long long>(t.stride) * i, W, n_scan);
+      nb = t.ptab ? span_phases(g.A, g.Aa, nbv, nbv, W, t) : nbv;
     } else {
       g = mp::load_unit(units, i);
       nb = unit_phases(g, i, W, n_scan, t);
@@ -158,8 +208,7 @@ struct Item {
 
   __device__ __forceinline__ int n_pairs(int W, const Tables& t) const {
     int n = 0;
-#pragma unroll
-    for (int d = 0; d < kPhases; ++d)
+    for (int d = 0; d < 8; ++d)
       if ((nb >> d) & 1u) n += phase_bucket(g, d, W, t).y;
     return n;
   }
@@ -213,14 +262,31 @@ __global__ void expand_write_kernel(const uint32_t* __restrict__ units,
   int out = mp::block_exclusive_scan(n_pairs, warp_sums, &unused);
   if (!n_pairs) return;
   out += blk_off[blockIdx.x];
-  for (int d = 0; d < Item<kLoose>::kPhases; ++d) {
+  const int n_phases = Item<kLoose>::n_phases(t);
+  for (int d = 0; d < n_phases; ++d) {
     if (!((it.nb >> d) & 1u)) continue;
     const int2 sc = phase_bucket(it.g, d, W, t);
     for (int s = 0; s < sc.y; ++s, ++out) {
       entry[out] = min(max(sc.x + s, 0), t.n_entries - 1);
-      ppos[out] = i * Item<kLoose>::kPhases + d;
+      ppos[out] = i * n_phases + d;
     }
   }
+}
+
+Tables make_tables(const void* ptab, int pf_bits, const void* t16,
+                   int t16_bits, int csr_kind, const void* csr_a,
+                   const void* csr_b, int n_keys, int n_entries,
+                   const void* bloom, int bloom_shift, int stride) {
+  return Tables{static_cast<const uint32_t*>(ptab),
+                pf_bits >= 32 ? 0xFFFFFFFFu : ((1u << pf_bits) - 1u),
+                stride,
+                static_cast<const uint32_t*>(t16),
+                t16_bits,
+                Csr{csr_kind, static_cast<const int*>(csr_a),
+                    static_cast<const int*>(csr_b), n_keys},
+                n_entries,
+                static_cast<const uint32_t*>(bloom),
+                bloom_shift};
 }
 
 }  // namespace
@@ -228,22 +294,23 @@ __global__ void expand_write_kernel(const uint32_t* __restrict__ units,
 extern "C" {
 
 // Count pass + block-sum scan. n_items: tile_len / 8 units, or with loose
-// != 0 tile_len / 4 stride-4 groups; blk_pairs/blk_off hold
-// n_blocks(n_items) ints; totals is int[2] = (pos_total, pair_total),
-// zeroed by the caller. t16 may be null when t16_bits is 0, bloom null to
-// leave K10 off (the loose mode never reads either).
+// != 0 tile_len / stride groups; blk_pairs/blk_off hold n_blocks(n_items)
+// ints; totals is int[2] = (pos_total, pair_total), zeroed by the caller.
+// ptab null: no exact group table (W >= 14). t16 may be null when t16_bits
+// is 0, bloom null to leave K10 off (the loose mode never reads either).
+// csr_kind 0: csr_a = bsc rows; 1: csr_a = bstart; 2: csr_a = uhash
+// (n_keys of them), csr_b = ustart.
 int mp_expand_count(const void* units, const void* words, const void* ptab,
-                    int pf_bits, const void* t16, int t16_bits,
-                    const void* bsc, int n_entries, const void* bloom,
-                    int bloom_shift, int W, int n_items, int n_scan, int loose,
+                    int pf_bits, const void* t16, int t16_bits, int csr_kind,
+                    const void* csr_a, const void* csr_b, int n_keys,
+                    int n_entries, const void* bloom, int bloom_shift, int W,
+                    int stride, int n_items, int n_scan, int loose,
                     void* blk_pairs, void* blk_off, void* totals,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Tables t = {static_cast<const uint32_t*>(ptab),
-                    (1u << pf_bits) - 1u,
-                    static_cast<const uint32_t*>(t16), t16_bits,
-                    static_cast<const int*>(bsc), n_entries,
-                    static_cast<const uint32_t*>(bloom), bloom_shift};
+  const Tables t = make_tables(ptab, pf_bits, t16, t16_bits, csr_kind, csr_a,
+                               csr_b, n_keys, n_entries, bloom, bloom_shift,
+                               stride);
   const int nb = mp::n_blocks(n_items);
   int* tot = static_cast<int*>(totals);
   const uint32_t* u = static_cast<const uint32_t*>(units);
@@ -263,17 +330,16 @@ int mp_expand_count(const void* units, const void* words, const void* ptab,
 
 // Write pass: entry/ppos hold pair_total ints each.
 int mp_expand_write(const void* units, const void* words, const void* ptab,
-                    int pf_bits, const void* t16, int t16_bits,
-                    const void* bsc, int n_entries, const void* bloom,
-                    int bloom_shift, int W, int n_items, int n_scan, int loose,
+                    int pf_bits, const void* t16, int t16_bits, int csr_kind,
+                    const void* csr_a, const void* csr_b, int n_keys,
+                    int n_entries, const void* bloom, int bloom_shift, int W,
+                    int stride, int n_items, int n_scan, int loose,
                     const void* blk_off, void* entry, void* ppos,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Tables t = {static_cast<const uint32_t*>(ptab),
-                    (1u << pf_bits) - 1u,
-                    static_cast<const uint32_t*>(t16), t16_bits,
-                    static_cast<const int*>(bsc), n_entries,
-                    static_cast<const uint32_t*>(bloom), bloom_shift};
+  const Tables t = make_tables(ptab, pf_bits, t16, t16_bits, csr_kind, csr_a,
+                               csr_b, n_keys, n_entries, bloom, bloom_shift,
+                               stride);
   const int nb = mp::n_blocks(n_items);
   const uint32_t* u = static_cast<const uint32_t*>(units);
   const uint32_t* w = static_cast<const uint32_t*>(words);

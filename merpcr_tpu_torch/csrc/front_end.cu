@@ -14,8 +14,8 @@
 // per unit. One thread per unit keeps neighbouring threads on neighbouring
 // plane words (coalesced), __ballot_sync builds each flag word in
 // registers, and c_total costs one atomicAdd per warp, not per flag. The
-// loose kernel makes twice the gathers (one per group) into an 8-32 MB
-// group table.
+// loose kernel makes one gather per group (two or four per unit) into an
+// 8-32 MB group table.
 
 #include "compact.cuh"
 #include "units.cuh"
@@ -24,6 +24,7 @@ namespace {
 
 constexpr int kProjShift = 14;  // 2 * PROJ_UNIT_START: key starts at base 7
 constexpr uint32_t kProjHi = 0xFFu;  // bases 16..19 taken from the B register
+constexpr uint32_t kGold = 0x9E3779B1u;  // multiplier of the mult-hash bloom
 
 __global__ void front_end_kernel(const uint32_t* __restrict__ units,
                                  const uint32_t* __restrict__ qbloom_s,
@@ -53,31 +54,36 @@ __global__ void front_end_kernel(const uint32_t* __restrict__ units,
   }
 }
 
-// K8: the loose front end (scan.py:579-659). One thread per stride-4
-// group q = 2r + p (scan positions 4q .. 4q+3). The JAX stage builds one
-// flag word per parity and bit-interleaves them into group order
-// (_spread, :623-659), which suits the TPU's lanes; here consecutive
-// threads are consecutive groups, so __ballot_sync gives the group-ordered
-// word directly. Two threads share each unit's plane words (L1 hits).
+// K8: the loose front end (scan.py:579-659). One thread per stride group
+// q = P*r + p (scan positions stride*q .. stride*q + stride-1; stride 4 at
+// W <= 11, 2 above). The JAX stage builds one flag word per parity and
+// bit-interleaves them into group order (_spread, :623-659), which suits
+// the TPU's lanes; here consecutive threads are consecutive groups, so
+// __ballot_sync gives the group-ordered word directly. The P threads of a
+// unit share its plane words (L1 hits). The key of an exact group table is
+// the group's span value, folded to the table's size (m2q); with hash_bits
+// != 0 the table is the mult-hash bloom of the wide words (:605-611), keyed
+// by the first m2kb bases of the span.
 __global__ void front_end_loose_kernel(const uint32_t* __restrict__ units,
                                        const uint32_t* __restrict__ qbloom,
-                                       uint32_t m2q, int W, int n_groups,
-                                       int n_scan, uint32_t* __restrict__ words,
+                                       uint32_t m2q, uint32_t m2kb,
+                                       int hash_bits, int W, int stride,
+                                       int n_groups, int n_scan,
+                                       uint32_t* __restrict__ words,
                                        int* __restrict__ c_total) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   bool flag = false;
   if (q < n_groups) {
-    const mp::UnitRegs g = mp::load_group(units, q);
-    const uint32_t m2w = mp::mask2w(W);
-    const uint32_t m2kb = (1u << (2 * (W + 3))) - 1u;  // span = W + stride - 1
+    const mp::UnitRegs g = mp::load_group(units, q, stride);
     bool some_phase_clean = false;
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      uint32_t va = (g.Aa >> (2 * d)) & m2w;
-      if (2 * (d + W) > 32) va |= (g.Ba << (32 - 2 * d)) & m2w;  // d >= 1 here
-      some_phase_clean |= va == 0 && 4ll * q + d < n_scan;
+      if (d >= stride) break;
+      const uint32_t va = mp::window_bases(g.Aa, g.Ba, d, W);
+      some_phase_clean |= va == 0 && static_cast<long long>(stride) * q + d < n_scan;
     }
-    const uint32_t bk = g.A & m2kb & m2q;  // folded tables keep the low bits
+    const uint32_t key = g.A & m2kb;
+    const uint32_t bk = hash_bits ? (key * kGold) >> (32 - hash_bits) : key & m2q;
     const bool hit = (__ldg(qbloom + (bk >> 5)) >> (bk & 31)) & 1u;
     const bool span_clean = (g.Aa & m2kb) == 0;
     flag = some_phase_clean && (hit || !span_clean);
@@ -110,17 +116,21 @@ int mp_front_end(const void* units, const void* qbloom_s, int gq, int W,
 }
 
 // K8. units as above; q_bits: log2 bits of the group table qbloom;
-// n_groups = tile_len / 4 (a multiple of 32); words: n_groups / 32 outputs
-// in group order; c_total: one int, zeroed by the caller.
+// hash_bits: 0 for an exact span table, else q_bits of the mult-hash bloom;
+// stride: 4 or 2 scan positions per group; n_groups = tile_len / stride (a
+// multiple of 32); words: n_groups / 32 outputs in group order; c_total:
+// one int, zeroed by the caller.
 int mp_front_end_loose(const void* units, const void* qbloom, int q_bits,
-                       int W, int n_groups, int n_scan, void* words,
-                       void* c_total, void* stream) {
+                       int hash_bits, int W, int stride, int n_groups,
+                       int n_scan, void* words, void* c_total, void* stream) {
   const uint32_t m2q = q_bits >= 32 ? 0xFFFFFFFFu : ((1u << q_bits) - 1u);
+  // key bases: the whole span of an exact table, at most 16 of a hashed one
+  const uint32_t m2kb = mp::mask2w(W + stride - 1);
   front_end_loose_kernel<<<mp::n_blocks(n_groups), mp::kBlock, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), static_cast<const uint32_t*>(qbloom),
-      m2q, W, n_groups, n_scan, static_cast<uint32_t*>(words),
-      static_cast<int*>(c_total));
+      m2q, m2kb, hash_bits, W, stride, n_groups, n_scan,
+      static_cast<uint32_t*>(words), static_cast<int*>(c_total));
   return static_cast<int>(cudaGetLastError());
 }
 

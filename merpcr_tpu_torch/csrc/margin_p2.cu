@@ -1,7 +1,8 @@
 // margin_p2: margin-window primer-2 verify and hit emission of one tile.
 //
-// Replaces merpcr_tpu/ops/scan.py::_margin_stage (scan.py:1047-1318) on the
-// static-slice branch (R <= 257): per (anchor, rank) the reference clamps
+// Replaces merpcr_tpu/ops/scan.py::_margin_stage (scan.py:1047-1318) at
+// every margin, the static-slice branch (R <= 257) and the rank-chunked one
+// (K13, :1103-1127, :1201-1235): per (anchor, rank) the reference clamps
 // of the expected product end exp/hi/lo (:1070-1077), rank r -> offset d
 // = 0, -1, +1, -2, ... (_rank_d :344), the structural bounds (:1241-1248),
 // the rank mask (:1249-1257) and the primer-2 verify with the '-' strand's
@@ -18,7 +19,10 @@
 // gathers; here each (anchor, rank) reads exactly the nibbles of its own
 // primer-2 site, and only once the clamps, bounds and rank mask have let
 // it through, so no read can leave the record. Ranks past 2*M+1 (runtime
-// -M) can never emit and are not launched.
+// -M) can never emit and are not launched. Nothing here has a static rank
+// count: at -M 10000 an anchor is 20,001 threads, and the wrapper bounds a
+// launch by passing the anchors through in chunks (a_idx offset), whose
+// rows it concatenates in chunk order, which is (anchor, rank) order.
 //
 // Bound on the card: launch latency. Anchors are real primer matches (tens
 // per 2^23-base tile); each of the anchors x (2M+1) threads reads at most

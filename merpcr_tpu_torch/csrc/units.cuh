@@ -42,21 +42,33 @@ __device__ __forceinline__ UnitRegs load_unit(const uint32_t* __restrict__ units
   return g;
 }
 
-// Registers of stride-4 group q = 2r + p, whose window starts at base 4p
-// of unit r (scan.py:783-795): parity 1 shifts the unit's registers right
-// by 4 bases. A shift by 32 is undefined in C++, so parity 0 takes its own
-// branch.
+// Registers of stride group q = P*r + p (P = 8 / stride groups per unit),
+// whose window starts at base stride*p of unit r (scan.py:581-588,
+// :783-795): the unit's registers shifted right by that many bases. A shift
+// by 32 is undefined in C++, so p = 0 takes its own branch.
 __device__ __forceinline__ UnitRegs load_group(const uint32_t* __restrict__ units,
-                                               int q) {
-  const UnitRegs g = load_unit(units, q >> 1);
-  if (!(q & 1)) return g;
-  return {(g.A >> 8) | (g.B << 24), (g.Aa >> 8) | (g.Ba << 24), g.B >> 8,
-          g.Ba >> 8};
+                                               int q, int stride) {
+  const int per_unit = 8 / stride;
+  const UnitRegs g = load_unit(units, q / per_unit);
+  const int sh = 2 * stride * (q % per_unit);
+  if (sh == 0) return g;
+  return {(g.A >> sh) | (g.B << (32 - sh)), (g.Aa >> sh) | (g.Ba << (32 - sh)),
+          g.B >> sh, g.Ba >> sh};
 }
 
-// W-bit-pair mask (W <= 16).
-__device__ __forceinline__ uint32_t mask2w(int W) {
-  return W >= 16 ? 0xFFFFFFFFu : ((1u << (2 * W)) - 1u);
+// Mask of the low n bases (2 bits each) of a register; 16 bases fill it,
+// and 1u << 32 is undefined in C++.
+__device__ __host__ __forceinline__ uint32_t mask2w(int n) {
+  return n >= 16 ? 0xFFFFFFFFu : ((1u << (2 * n)) - 1u);
+}
+
+// Bases d .. d+n-1 (n <= 16) of the window whose bases 0..15 are lo and
+// 16..23 are hi (d in 0..7): a phase's W-mer, or its dirty field.
+__device__ __forceinline__ uint32_t window_bases(uint32_t lo, uint32_t hi,
+                                                 int d, int n) {
+  uint32_t v = lo >> (2 * d);
+  if (d > 0 && 2 * (d + n) > 32) v |= hi << (32 - 2 * d);
+  return v & mask2w(n);
 }
 
 // Bases d .. d+15 of the window (d in 0..7). A shift by 32 is undefined in

@@ -9,16 +9,21 @@ GPU; its output is byte-identical to ``merpcr_tpu`` run on its
 device path (``MERPCR_TPU_HOST_MAX=0``), which is itself held to the
 reference CLI's T=1 output.
 
-What this engine scans so far: -N 0 to 10, -I 0 or 1, W <= 11, -M <= 128
-and records in the 16-letter FASTA alphabet, at any ambiguity. The front
+What this engine scans: every -W (3 to 16), -M (0 to 10000), -N (0 to 10)
+and -I (0 or 1) the reference accepts, on records in the 16-letter FASTA
+alphabet at any ambiguity. The word size picks the lookup tables as the
+table compiler built them (stride-4 exact tables and dense CSR rows at
+W <= 11; stride 2 above, with bucket starts at W = 12, a binary search at
+W >= 13 and a mult-hash group bloom without a phase table at W >= 14),
+and the margin only sizes the tile halos and the ranks per anchor. The front
 end follows the JAX package's choice (``merpcr_tpu/engine.py:346-368``):
 -N 0 scans strict over the N=0 tables; -N 1 builds the strict1 tables on
 its first search and scans strict over them when they arm; every other
 search (-N >= 2, -N 1 without strict1, an STS set that disarms strict)
 scans loose (K8). The dirty-span phase filter arms itself in strict mode
-as in the JAX package. Anything else raises NotImplementedError naming
-the ROADMAP item that ports it (W >= 12: K12; -M > 128: K13; records
-outside the alphabet: K9); nothing falls back to another path.
+as in the JAX package. A record with bytes outside the alphabet raises
+NotImplementedError naming the ROADMAP item that ports it (K9); nothing
+falls back to another path.
 
 Multi-record FASTA takes the stream path (``merpcr_tpu/engine.py``
 ``_dispatch_stream``/``_collect_stream``): every run of two or more
@@ -43,7 +48,7 @@ from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
-from .ops.scan import ScanConfig, default_config, margin_cap, scan_stream
+from .ops.scan import ScanConfig, default_config, scan_stream
 from .ops.table import build_strict1, compile_table, table_from_numpy
 
 # Constants (reference engine.py:17-39)
@@ -130,7 +135,6 @@ class MerPCR:
         self._tile_len_override: Optional[int] = None
 
         self._validate_parameters()
-        self._check_supported()
 
     def _validate_parameters(self):
         """Bounds validation (reference engine.py:80-97)."""
@@ -151,17 +155,6 @@ class MerPCR:
         if not (MIN_PCR_SIZE <= self.default_pcr_size <= MAX_PCR_SIZE):
             raise ValueError(
                 f"Default PCR size must be between {MIN_PCR_SIZE} and {MAX_PCR_SIZE}"
-            )
-
-    def _check_supported(self):
-        """Parameters outside what this engine scans raise, naming the
-        ROADMAP item that ports them (read again at every search, since
-        callers may change the attributes between searches)."""
-        if self.wordsize >= 12:
-            raise NotImplementedError("W >= 12 lookups are ROADMAP item K12")
-        if 2 * margin_cap(self.margin) + 1 > 257:
-            raise NotImplementedError(
-                "-M above 128 (R > 257 ranks) is ROADMAP item K13"
             )
 
     @property
@@ -288,6 +281,8 @@ class MerPCR:
             p2_max=m.p2_max,
             tile_len=tile_len,
             stride=m.stride,
+            exact_group=m.exact_group,
+            qbloom_bits=m.qbloom_bits,
             strict=strict,
             strict_n=strict_n,
             t16_bits=m.t16_1_bits if strict_n == 1 else m.t16_bits,
@@ -491,7 +486,6 @@ class MerPCR:
     ) -> int:
         """Search all records; emit 5-field tab-delimited hits
         (reference engine.py:365-451; line format engine.py:442)."""
-        self._check_supported()
         total_hits = 0
         # None or the literal string "stdout" (any case) -> stdout
         # (reference engine.py:368-371)

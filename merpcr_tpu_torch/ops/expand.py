@@ -1,18 +1,29 @@
-"""K2-K5 and K10 ``expand`` (strict) and ``expand_loose``: flagged units
-or stride-4 groups -> candidate (entry, position) pairs.
+"""K2-K5, K10 and K12 ``expand`` (strict) and ``expand_loose``: flagged
+units or stride groups -> candidate (entry, position) pairs.
 
 Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl`` stages K2-K5: the
 flag-word compaction (``scan.py:680-719``, ``_rank_invert`` ``:317-341``,
-``_blocked_scan`` ``:287-314``), the strict phase expansion through the
-exact phase table ``ptab`` (``:757-927``; ``ptab_bits`` ``:832-862``), the
-hashed 16-base position filter ``t16`` (``:929-949``) and the dense W <= 11
-CSR pair expansion (``exact_csr`` ``:728-730``, ``:953-964``); and K10, the
-dirty-span phase filter (``dirty_bloom``, ``:803-822`` applied at
-``:859-861``): when ``bloom`` is given, a phase of a unit whose stride-4
-span is dirty survives only if its W-mer is a key of the table's
-occupancy bitmap ``bloom``. Ambiguity-heavy genomes (1 % scattered IUPAC
-letters flag ~12 % of units) would otherwise expand every clean phase of
-every such unit through the CSR.
+``_blocked_scan`` ``:287-314``), the phase expansion (``:757-927``), the
+hashed 16-base position filter ``t16`` (``:929-949``) and the CSR pair
+expansion (``exact_csr`` ``:721-741``, ``:953-964``); and K10, the
+dirty-span phase filter (``dirty_bloom``, ``:803-822``): when ``bloom`` is
+given, a phase of a unit whose group span is dirty survives only if its
+W-mer is a key of the table's occupancy bitmap ``bloom`` (a prefix filter
+once 2W passes the bitmap's 24 bits). Ambiguity-heavy genomes (1 %
+scattered IUPAC letters flag ~12 % of units) would otherwise expand every
+clean phase of every such unit through the CSR.
+
+The word size picks the tables (``table.py:567-574``):
+
+* phase bits (``ptab_bits`` ``:832-871``): with an exact group table
+  (W <= 13) a clean span trusts the folded phase table ``ptab``, 4 bits
+  per span value at stride 4 (W <= 11) and 2 bits at stride 2 (W = 12,
+  13; four groups per unit); without one (W >= 14, ``:872-875``) every
+  valid phase expands, pruned by ``bloom`` when K10 is armed;
+* bucket lookup ``csr``: one (start, count) row of ``bsc`` (W <= 11), the
+  pair ``bstart[h]``, ``bstart[h + 1]`` (W = 12), or a binary search of
+  the sorted unique keys ``uhash`` and then ``ustart`` (W >= 13; a W-mer
+  that is no key has count 0).
 
 Pairs are in (unit, phase, bucket slot) order, so pair j is the JAX
 pipeline's pair j, whose index is the emission key ``pair_order``.
@@ -21,17 +32,18 @@ bucket slots after it, as the JAX totals do. At -N 1 the strict1 variant
 runs the same code with ``t16_1`` in place of ``t16``.
 
 ``expand_loose`` is the loose branch of the same stages (``scan.py:775-795``,
-``:863-871``), behind K8: the compacted item is a flagged stride-4 group
-(4 phases, positions 4q + d), its phase nibble is ``ptab``'s bits within
-the valid phases for a clean span and the valid phases for a dirty one,
-and there is neither a t16 filter nor K10.
+``:863-871``), behind K8: the compacted item is a flagged stride group
+(``stride`` phases, positions stride*q + d), its phase nibble is
+``ptab``'s bits within the valid phases for a clean span and the valid
+phases for a dirty one or without a ``ptab``, and there is neither a t16
+filter nor K10.
 
 Kernel: ``csrc/expand.cu``, reduce-then-scan with recompute (count pass,
 one single-block scan of the block sums, write pass), in a unit mode and
 a group mode. Its output buffers are sized from the count pass, which
 costs one host read of ``pair_total`` per tile. On the card it is bound
 by memory latency: only flagged items (a few per 10^3-10^4) gather from
-``ptab``, ``t16`` and ``bsc``. ``expand_plain`` and ``expand_loose_plain``
+``ptab``, ``t16`` and the CSR. ``expand_plain`` and ``expand_loose_plain``
 are the same functions in plain PyTorch; the wrappers use them only for
 CPU tensors.
 """
@@ -41,17 +53,53 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import (M32, group_regs, kernel_route, mul32, require, u32,
-                    unit_regs, units_of, valid_phases)
+from .front_end import GOLD
+from .units import (M32, group_regs, kernel_route, mask_bases, mul32, require,
+                    u32, unit_regs, units_of, valid_phases)
 
-_GOLD = 0x9E3779B1  # t16 multiplicative hash
-_STRIDE = 4  # ptab span group (the table compiler's stride for W <= 11)
+# bucket lookups, by the kind of ``csr`` argument (see ``_csr_kind``)
+CSR_ROWS, CSR_STARTS, CSR_SEARCH = 0, 1, 2
+
+
+def _csr_kind(csr) -> int:
+    """``csr`` is ``bsc`` int32[4^W, 2], ``bstart`` int32[4^W + 1], or the
+    pair (``uhash`` int32[U] holding uint32 keys, ``ustart`` int32[U + 1])."""
+    if isinstance(csr, (tuple, list)):
+        uhash, ustart = csr
+        if uhash.dim() != 1 or ustart.numel() != uhash.numel() + 1:
+            raise ValueError("csr pair must be (uhash[U], ustart[U + 1])")
+        return CSR_SEARCH
+    if csr.dim() == 2 and csr.shape[1] == 2:
+        return CSR_ROWS
+    if csr.dim() == 1:
+        return CSR_STARTS
+    raise ValueError(f"csr of shape {tuple(csr.shape)} is no bucket table")
+
+
+def csr_lookup(csr, phh, keep):
+    """(start, count) of the buckets of W-mers ``phh`` (int64 values),
+    count 0 where ``keep`` is false (``exact_csr``, ``scan.py:721-741``)."""
+    kind = _csr_kind(csr)
+    if kind == CSR_ROWS:
+        sc = csr.to(torch.int64)[phh]
+        return sc[:, 0], torch.where(keep, sc[:, 1], 0)
+    if kind == CSR_STARTS:
+        start = csr.to(torch.int64)[phh]
+        return start, torch.where(keep, csr.to(torch.int64)[phh + 1] - start, 0)
+    uhash, ustart = u32(csr[0]), csr[1].to(torch.int64)  # unsigned key order
+    n_keys = uhash.numel()
+    u = torch.searchsorted(uhash, phh)
+    uc = u.clamp(max=n_keys - 1)
+    found = (u < n_keys) & (uhash[uc] == phh) & keep
+    start = ustart[uc]
+    return start, torch.where(found, ustart[uc + 1] - start, 0)
 
 
 def _bloom_phases(A, B, bloom, bloom_bits: int, W: int):
     """Bit d set iff phase d's W-mer (bases d..d+W-1 of the unit window)
-    is a key of ``bloom`` (``scan.py:811-820``)."""
-    m2w = (1 << (2 * W)) - 1
+    is a key of ``bloom``, or at 2W > bloom_bits shares the top bloom_bits
+    bits of one (``scan.py:811-820``)."""
+    m2w = mask_bases(W)
     shift = 2 * W - bloom_bits
     bl = u32(bloom)
     wbf = torch.zeros_like(A)
@@ -71,20 +119,23 @@ def _flagged(words):
     return torch.nonzero(flags).flatten()
 
 
-def _span_phases(Ak, Aak, nbv_g, pt, pf_bits: int, W: int, dirty_g=None):
-    """Phase nibble of one stride-4 group (``ptab_bits`` ``scan.py:832-871``):
-    a clean 14-base span trusts ptab's phase bits within the valid ones, a
-    dirty span keeps its valid phases (``dirty_g``: those the K10 bloom
-    kept)."""
-    m2kb = (1 << (2 * (W + _STRIDE - 1))) - 1
+def _span_phases(Ak, Aak, nbv_g, pt, pf_bits: int, W: int, stride: int,
+                 dirty_g=None):
+    """Phase bits of one stride group (``ptab_bits`` ``scan.py:832-871``):
+    a clean W+stride-1-base span trusts ptab's ``stride`` phase bits
+    (32/stride span values per word) within the valid ones, a dirty span
+    keeps its valid phases (``dirty_g``: those the K10 bloom kept)."""
+    m2kb = mask_bases(W + stride - 1)
+    per_word = 32 // stride
     kf = Ak & m2kb & ((1 << pf_bits) - 1)
-    nbt = (pt[kf >> 3] >> ((kf & 7) * 4)) & 0xF
+    nbt = (pt[kf // per_word] >> ((kf % per_word) * stride)) & ((1 << stride) - 1)
     span_clean = (Aak & m2kb) == 0
     return torch.where(span_clean, nbt & nbv_g, nbv_g if dirty_g is None else dirty_g)
 
 
 def phase_nibbles(tile, words, ptab, pf_bits: int, wordsize: int, lead: int,
-                  n_scan: int, bloom=None, bloom_bits: int = 0):
+                  n_scan: int, stride: int, exact_group: bool,
+                  bloom=None, bloom_bits: int = 0):
     """(cpos, (A, Aa, B, Ba), nb) of a tile's strict-flagged units: their
     unit indices, window registers and phase nibbles, bit d of ``nb`` set
     iff phase d expands (the JAX stage's ``nb`` at ``stop="nb"``,
@@ -94,57 +145,60 @@ def phase_nibbles(tile, words, ptab, pf_bits: int, wordsize: int, lead: int,
     units = units_of(tile[: tile.numel() // 4 * 4])
     A, Aa, B, Ba = unit_regs(units, cpos + lead // 8)
     nbv = valid_phases(Aa, Ba, cpos * 8, 8, W, n_scan)
-    pt = u32(ptab)
     wbf = None if bloom is None else _bloom_phases(A, B, bloom, bloom_bits, W)
+    if not exact_group:  # no phase table: every valid phase (scan.py:872-875)
+        return cpos, (A, Aa, B, Ba), nbv if wbf is None else nbv & wbf
+    pt = u32(ptab)
+    ms = (1 << stride) - 1
     nb = torch.zeros_like(nbv)
-    for p in range(2):  # the unit's two stride-4 groups
-        sh = 2 * _STRIDE * p
+    for p in range(8 // stride):  # the unit's stride groups
+        sh = 2 * stride * p
         Ak = ((A >> sh) | (B << (32 - sh))) & M32 if sh else A
         Aak = ((Aa >> sh) | (Ba << (32 - sh))) & M32 if sh else Aa
-        nbv_p = (nbv >> (4 * p)) & 0xF
-        dirty_p = None if wbf is None else nbv_p & ((wbf >> (4 * p)) & 0xF)
-        nb = nb | (_span_phases(Ak, Aak, nbv_p, pt, pf_bits, W, dirty_p) << (4 * p))
+        nbv_p = (nbv >> (stride * p)) & ms
+        dirty_p = None if wbf is None else nbv_p & (wbf >> (stride * p)) & ms
+        nb = nb | (_span_phases(Ak, Aak, nbv_p, pt, pf_bits, W, stride, dirty_p)
+                   << (stride * p))
     return cpos, (A, Aa, B, Ba), nb
 
 
 def group_nibbles(tile, words, ptab, pf_bits: int, wordsize: int, lead: int,
-                  n_scan: int):
-    """(cpos, (A, Aa, B, Ba), nb) of a tile's loose-flagged stride-4 groups:
+                  n_scan: int, stride: int, exact_group: bool):
+    """(cpos, (A, Aa, B, Ba), nb) of a tile's loose-flagged stride groups:
     their group indices, window registers (``scan.py:777-795``) and
-    4-phase nibbles (``:863-871``; the JAX stage's ``nb`` at
+    ``stride``-phase nibbles (``:863-875``; the JAX stage's ``nb`` at
     ``stop="nb"``). The loose path has no K10 filter."""
     cpos = _flagged(words)  # ascending flagged groups
     units = units_of(tile[: tile.numel() // 4 * 4])
-    A, Aa, B, Ba = group_regs(units, cpos, lead // 8)
-    nbv = valid_phases(Aa, Ba, cpos * 4, 4, wordsize, n_scan)
-    return cpos, (A, Aa, B, Ba), _span_phases(A, Aa, nbv, u32(ptab), pf_bits, wordsize)
+    A, Aa, B, Ba = group_regs(units, cpos, lead // 8, stride)
+    nbv = valid_phases(Aa, Ba, cpos * stride, stride, wordsize, n_scan)
+    if exact_group:
+        nbv = _span_phases(A, Aa, nbv, u32(ptab), pf_bits, wordsize, stride)
+    return cpos, (A, Aa, B, Ba), nbv
 
 
-def _pairs(cpos, regs, nb, n_phases: int, t16, t16_bits: int, bsc,
+def _pairs(cpos, regs, nb, n_phases: int, t16, t16_bits: int, csr,
            n_entries: int, W: int):
     """(entry, ppos, pos_total, pair_total) of the phase bits ``nb`` of the
     compacted items ``cpos`` (``n_phases`` scan positions each), in (item,
     phase, bucket slot) order (``scan.py:880-964``)."""
     dev = nb.device
     A, Aa, B, Ba = regs
-    m2w = (1 << (2 * W)) - 1
     d = torch.arange(n_phases, device=dev)
     sel = ((nb[:, None] >> d) & 1) == 1
     pos_total = int(sel.sum())
     ui, ph = torch.nonzero(sel, as_tuple=True)  # (item, phase) ascending
     Au, Bu = A[ui], B[ui]
     win = ((Au >> (2 * ph)) | (Bu << (32 - 2 * ph))) & M32  # bases ph..ph+15
-    phh = win & m2w
+    phh = win & mask_bases(W)
     pposx = cpos[ui] * n_phases + ph
     if t16_bits:
         va16 = ((Aa[ui] >> (2 * ph)) | (Ba[ui] << (32 - 2 * ph))) & M32
-        bk = mul32(win, _GOLD) >> (32 - t16_bits)
+        bk = mul32(win, GOLD) >> (32 - t16_bits)
         keep = (((u32(t16)[bk >> 5] >> (bk & 31)) & 1) == 1) | (va16 != 0)
     else:
         keep = torch.ones_like(phh, dtype=torch.bool)
-    sc = bsc.to(torch.int64)[phh]
-    start = sc[:, 0]
-    cnt = torch.where(keep, sc[:, 1], 0)
+    start, cnt = csr_lookup(csr, phh, keep)
     pair_total = int(cnt.sum())
     src = torch.repeat_interleave(torch.arange(len(cnt), device=dev), cnt)
     excl = torch.cumsum(cnt, 0) - cnt
@@ -154,34 +208,51 @@ def _pairs(cpos, regs, nb, n_phases: int, t16, t16_bits: int, bsc,
             pair_total)
 
 
-def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
+def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
                  n_entries: int, wordsize: int, lead: int, tile_len: int,
-                 n_scan: int, bloom=None, bloom_bits: int = 0):
+                 n_scan: int, stride: int, exact_group: bool,
+                 bloom=None, bloom_bits: int = 0):
     """(entry int32[P], ppos int32[P], pos_total, pair_total) of the strict
     expansion in plain PyTorch."""
     cpos, regs, nb = phase_nibbles(tile, words, ptab, pf_bits, wordsize, lead,
-                                   n_scan, bloom, bloom_bits)
-    return _pairs(cpos, regs, nb, 8, t16, t16_bits, bsc, n_entries, wordsize)
+                                   n_scan, stride, exact_group, bloom, bloom_bits)
+    return _pairs(cpos, regs, nb, 8, t16, t16_bits, csr, n_entries, wordsize)
 
 
-def expand_loose_plain(tile, words, ptab, pf_bits: int, bsc, n_entries: int,
-                       wordsize: int, lead: int, tile_len: int, n_scan: int):
+def expand_loose_plain(tile, words, ptab, pf_bits: int, csr, n_entries: int,
+                       wordsize: int, lead: int, tile_len: int, n_scan: int,
+                       stride: int, exact_group: bool):
     """(entry int32[P], ppos int32[P], pos_total, pair_total) of the loose
-    expansion in plain PyTorch: 4 phases per flagged group, no t16."""
-    cpos, regs, nb = group_nibbles(tile, words, ptab, pf_bits, wordsize, lead, n_scan)
-    return _pairs(cpos, regs, nb, 4, None, 0, bsc, n_entries, wordsize)
+    expansion in plain PyTorch: ``stride`` phases per flagged group, no
+    t16."""
+    cpos, regs, nb = group_nibbles(tile, words, ptab, pf_bits, wordsize, lead,
+                                   n_scan, stride, exact_group)
+    return _pairs(cpos, regs, nb, stride, None, 0, csr, n_entries, wordsize)
+
+
+def _csr_tensors(csr) -> tuple:
+    return tuple(csr) if isinstance(csr, (tuple, list)) else (csr,)
 
 
 def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
-            bsc, n_entries: int, wordsize: int, lead: int, tile_len: int,
-            n_scan: int, bloom, bloom_bits: int):
+            csr, n_entries: int, wordsize: int, lead: int, tile_len: int,
+            n_scan: int, bloom, bloom_bits: int, stride: int,
+            exact_group: bool):
     """Count pass, block-sum scan, one host read of the totals, write pass
     into buffers of exactly pair_total entries."""
-    for t, name in ((words, "words"), (ptab, "ptab"), (bsc, "bsc")):
+    kind = _csr_kind(csr)
+    keys, *rest = _csr_tensors(csr)
+    for t, name in ((words, "words"), (ptab, "ptab"), (keys, "csr"), *((t, "ustart") for t in rest)):
         require(t, torch.int32, name)
     require(tile, torch.uint8, "tile")
-    if wordsize > 11:
-        raise ValueError("the dense CSR exists for W <= 11 only")
+    if stride not in (2, 4):
+        raise ValueError(f"stride {stride} is neither 2 nor 4")
+    n_buckets = 1 << (2 * wordsize)
+    if ((kind == CSR_ROWS and keys.shape[0] != n_buckets)
+            or (kind == CSR_STARTS and keys.numel() != n_buckets + 1)):
+        raise ValueError(f"csr of shape {tuple(keys.shape)} does not cover 4^{wordsize} buckets")
+    if exact_group and ptab.numel() * 32 != stride << pf_bits:
+        raise ValueError(f"ptab of {ptab.numel()} words is not 2^{pf_bits} span values")
     if t16 is not None:
         require(t16, torch.int32, "t16")
         if t16_bits and t16.numel() * 32 != 1 << t16_bits:
@@ -191,7 +262,7 @@ def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
         if not 0 < bloom_bits <= 2 * wordsize or bloom.numel() * 32 != 1 << bloom_bits:
             raise ValueError(f"bloom of {bloom.numel()} words is not 2^{bloom_bits} bits")
     n_units = tile_len // 8
-    n_items = 2 * n_units if loose else n_units  # stride-4 groups or units
+    n_items = n_units * (8 // stride) if loose else n_units  # groups or units
     if words.numel() * 32 != n_items or tile.numel() < lead // 2 + 4 * (n_units + 2):
         raise ValueError("words/tile do not match tile_len")
     dev = tile.device
@@ -199,11 +270,15 @@ def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
     totals = torch.zeros(2, dtype=torch.int32, device=dev)
     P, I = kernels.P, kernels.I
-    args = (tile.data_ptr() + lead // 2, words.data_ptr(), ptab.data_ptr(),
-            pf_bits, None if t16 is None else t16.data_ptr(), t16_bits,
-            bsc.data_ptr(), n_entries, None if bloom is None else bloom.data_ptr(),
-            2 * wordsize - bloom_bits, wordsize, n_items, n_scan, int(loose))
-    sig = [P, P, P, I, P, I, P, I, P, I, I, I, I, I]
+    args = (tile.data_ptr() + lead // 2, words.data_ptr(),
+            ptab.data_ptr() if exact_group else None, pf_bits,
+            None if t16 is None else t16.data_ptr(), t16_bits,
+            kind, keys.data_ptr(), rest[0].data_ptr() if rest else None,
+            keys.numel() if kind == CSR_SEARCH else 0, n_entries,
+            None if bloom is None else bloom.data_ptr(),
+            2 * wordsize - bloom_bits, wordsize, stride, n_items, n_scan,
+            int(loose))
+    sig = [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I]
     count = kernels.function("expand", "mp_expand_count", sig + [P, P, P, P])
     write = kernels.function("expand", "mp_expand_write", sig + [P, P, P, P])
     s = kernels.stream(tile)
@@ -219,25 +294,30 @@ def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     return entry, ppos, pos_total, pair_total
 
 
-def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
+def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
            n_entries: int, wordsize: int, lead: int, tile_len: int,
-           n_scan: int, bloom=None, bloom_bits: int = 0):
+           n_scan: int, stride: int, exact_group: bool, bloom=None,
+           bloom_bits: int = 0):
     """Candidate pairs of one tile's strict-flagged units: the CUDA kernel
     for tensors on the card, ``expand_plain`` for CPU tensors.
 
     ``words``: the tile's flag words from ``front_end``; ``ptab``/``t16``:
     int32 words of the phase and 16-base tables (``t16``/``t16_1`` at
-    -N 0/1); ``bsc``: int32[4^W, 2] CSR rows over ``n_entries`` table
-    entries; ``bloom``: int32 words of the 2^bloom_bits-bit W-mer
-    occupancy map, or None to leave the dirty-span filter (K10) off.
-    Returns (entry, ppos, pos_total, pair_total)."""
-    tables = (ptab, t16, bsc) + (() if bloom is None else (bloom,))
+    -N 0/1), ``ptab`` read only with ``exact_group``; ``csr``: the bucket
+    table over ``n_entries`` table entries, ``bsc`` int32[4^W, 2],
+    ``bstart`` int32[4^W + 1] or the pair (``uhash``, ``ustart``)
+    (``Table.csr``); ``bloom``: int32 words of the 2^bloom_bits-bit W-mer
+    occupancy map, or None to leave the dirty-span filter (K10) off;
+    ``stride``: scan positions per ptab group. Returns (entry, ppos,
+    pos_total, pair_total)."""
+    tables = (ptab, t16, *_csr_tensors(csr)) + (() if bloom is None else (bloom,))
     if not kernel_route(tile, words, *tables):
-        return expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, bsc,
+        return expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, csr,
                             n_entries, wordsize, lead, tile_len, n_scan,
-                            bloom, bloom_bits)
-    out = _launch(False, tile, words, ptab, pf_bits, t16, t16_bits, bsc,
-                  n_entries, wordsize, lead, tile_len, n_scan, bloom, bloom_bits)
+                            stride, exact_group, bloom, bloom_bits)
+    out = _launch(False, tile, words, ptab, pf_bits, t16, t16_bits, csr,
+                  n_entries, wordsize, lead, tile_len, n_scan, bloom,
+                  bloom_bits, stride, exact_group)
     expand.launches += 1
     return out
 
@@ -245,20 +325,23 @@ def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, bsc,
 expand.launches = 0
 
 
-def expand_loose(tile, words, ptab, pf_bits: int, bsc, n_entries: int,
-                 wordsize: int, lead: int, tile_len: int, n_scan: int):
-    """Candidate pairs of one tile's loose-flagged stride-4 groups (the
+def expand_loose(tile, words, ptab, pf_bits: int, csr, n_entries: int,
+                 wordsize: int, lead: int, tile_len: int, n_scan: int,
+                 stride: int, exact_group: bool):
+    """Candidate pairs of one tile's loose-flagged stride groups (the
     loose branch of K3 with K5): the CUDA kernel for tensors on the card,
     ``expand_loose_plain`` for CPU tensors.
 
     ``words``: the tile's group-ordered flag words from
-    ``front_end_loose``. Returns (entry, ppos, pos_total, pair_total), the
-    pairs in (group, phase, bucket slot) order."""
-    if not kernel_route(tile, words, ptab, bsc):
-        return expand_loose_plain(tile, words, ptab, pf_bits, bsc, n_entries,
-                                  wordsize, lead, tile_len, n_scan)
-    out = _launch(True, tile, words, ptab, pf_bits, None, 0, bsc, n_entries,
-                  wordsize, lead, tile_len, n_scan, None, 0)
+    ``front_end_loose``; ``csr`` as for ``expand``. Returns (entry, ppos,
+    pos_total, pair_total), the pairs in (group, phase, bucket slot)
+    order."""
+    if not kernel_route(tile, words, ptab, *_csr_tensors(csr)):
+        return expand_loose_plain(tile, words, ptab, pf_bits, csr, n_entries,
+                                  wordsize, lead, tile_len, n_scan, stride,
+                                  exact_group)
+    out = _launch(True, tile, words, ptab, pf_bits, None, 0, csr, n_entries,
+                  wordsize, lead, tile_len, n_scan, None, 0, stride, exact_group)
     expand_loose.launches += 1
     return out
 

@@ -12,8 +12,13 @@ into 32-unit words; ``c_total`` counts them. The table is ``qbloom_s`` at
 
 K8 replaces the loose branch (``scan.py:579-659``), which -N >= 2, -N 1
 without strict1, and STS sets that disarm strict take: one bit of the
-exact group table ``qbloom`` per stride-4 group (4 scan positions, two
-groups per unit), keyed by the group's 14-base span, flags in group order.
+group table ``qbloom`` per stride group, flags in group order. The word
+size picks the table (``table.py:567-574``): W <= 11 an exact table over
+the W+3-base span of 4 scan positions (two groups per unit); W = 12, 13
+an exact table over the W+1-base span of 2 positions (four groups per
+unit, K12a); W >= 14 a mult-hash bloom over the first min(16, W+1) bases
+of that span (``scan.py:605-611``). K1 is the same at every W: its table
+keys fixed window bases.
 
 Kernels: ``csrc/front_end.cu`` (one thread per unit or per group,
 ``__ballot_sync`` words, one atomicAdd per warp). On the card both are
@@ -28,11 +33,12 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import (M32, group_regs, kernel_route, require, to_i32, u32,
-                    unit_regs, units_of, valid_phases)
+from .units import (M32, group_regs, kernel_route, mask_bases, mul32, require,
+                    to_i32, u32, unit_regs, units_of, valid_phases)
 
 _PROJ_SHIFT = 14  # 2 * PROJ_UNIT_START: the key starts at window base 7
 _PROJ_HI = 0xFF  # bases 16..19 come from the B register
+GOLD = 0x9E3779B1  # multiplier of the hashed tables (t16, mult-hash qbloom)
 
 
 def _dirty_smear(Aa, Ba, W: int):
@@ -119,23 +125,33 @@ front_end.launches = 0
 
 
 def front_end_loose_plain(tile, qbloom, q_bits: int, wordsize: int, lead: int,
-                          tile_len: int, n_scan: int):
-    """K8 in plain PyTorch: (words int32[tile_len/128], c_total int32[1])
-    of the loose front end (``scan.py:579-659``).
+                          tile_len: int, n_scan: int, stride: int,
+                          qbloom_bits: int):
+    """K8 in plain PyTorch: (words int32[tile_len/(32*stride)], c_total
+    int32[1]) of the loose front end (``scan.py:579-659``).
 
-    Group q = 2r + p covers scan positions 4q .. 4q+3 (parity p of unit
-    r). Its flag is ``some in-bounds phase has a clean W-mer & (qbloom
-    holds the low q_bits bits of its 14-base span key | the span is
-    dirty)``; flags are packed LSB-first in group order, so bit q & 31 of
-    word q >> 5 (the JAX stage's parity interleave, ``_spread``)."""
+    Group q = P*r + p (P = 8/stride) covers scan positions stride*q ..
+    stride*q + stride-1 of unit r. Its flag is ``some in-bounds phase has
+    a clean W-mer & (qbloom holds its key | the keyed bases are dirty)``.
+    The key is the low q_bits bits of the span value for an exact table
+    (``qbloom_bits`` 0) and ``(first 16 span bases * 0x9E3779B1) >> (32 -
+    qbloom_bits)`` for the mult-hash bloom of the wide words
+    (``:605-611``). Flags are packed LSB-first in group order, so bit
+    q & 31 of word q >> 5 (the JAX stage's parity interleave,
+    ``_spread``)."""
     _check(tile, lead, tile_len, n_scan)
     W = wordsize
     units = units_of(tile[: tile.numel() // 4 * 4])
-    q = torch.arange(tile_len // 4, device=tile.device)
-    A, Aa, _B, Ba = group_regs(units, q, lead // 8)
-    m2kb = (1 << (2 * (W + 3))) - 1  # span = W + stride - 1 bases
-    some_phase_clean = valid_phases(Aa, Ba, 4 * q, 4, W, n_scan) != 0
-    bk = A & m2kb & ((1 << q_bits) - 1)
+    q = torch.arange(tile_len // stride, device=tile.device)
+    A, Aa, _B, Ba = group_regs(units, q, lead // 8, stride)
+    # keyed bases: the whole span W + stride - 1 of an exact table (at most
+    # 14), the first 16 span bases of the hashed one (scan.py:473-474)
+    m2kb = mask_bases(W + stride - 1)
+    some_phase_clean = valid_phases(Aa, Ba, stride * q, stride, W, n_scan) != 0
+    if qbloom_bits:
+        bk = mul32(A & m2kb, GOLD) >> (32 - qbloom_bits)
+    else:
+        bk = A & m2kb & ((1 << q_bits) - 1)
     hit = ((u32(qbloom)[bk >> 5] >> (bk & 31)) & 1) == 1
     span_clean = (Aa & m2kb) == 0
     flag = some_phase_clean & (hit | ~span_clean)
@@ -145,32 +161,39 @@ def front_end_loose_plain(tile, qbloom, q_bits: int, wordsize: int, lead: int,
 
 
 def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
-                    tile_len: int, n_scan: int):
+                    tile_len: int, n_scan: int, stride: int,
+                    qbloom_bits: int):
     """K8: flag words and c_total of one tile's loose front end, the CUDA
     kernel for tensors on the card, ``front_end_loose_plain`` for CPU
     tensors.
 
-    ``qbloom``: int32 words of the exact stride-4 group table (2^q_bits
-    bits). Returns (words int32[tile_len/128], c_total int32[1]), one bit
-    per stride-4 group in group order."""
+    ``qbloom``: int32 words of the group table (2^q_bits bits): exact over
+    the span values of ``stride`` positions when ``qbloom_bits`` is 0,
+    else the mult-hash bloom (then q_bits == qbloom_bits). Returns (words
+    int32[tile_len/(32*stride)], c_total int32[1]), one bit per group in
+    group order."""
     if not kernel_route(tile, qbloom):
         return front_end_loose_plain(tile, qbloom, q_bits, wordsize, lead,
-                                     tile_len, n_scan)
+                                     tile_len, n_scan, stride, qbloom_bits)
     require(tile, torch.uint8, "tile")
     require(qbloom, torch.int32, "qbloom")
     n_units = _check(tile, lead, tile_len, n_scan)
-    if qbloom.numel() * 32 != 1 << q_bits or q_bits > 2 * (wordsize + 3):
-        raise ValueError(f"qbloom of {qbloom.numel()} words is not 2^{q_bits} span bits")
+    if stride not in (2, 4):
+        raise ValueError(f"stride {stride} is neither 2 nor 4")
+    if (qbloom.numel() * 32 != 1 << q_bits or qbloom_bits not in (0, q_bits)
+            or q_bits > 2 * min(16, wordsize + stride - 1)):
+        raise ValueError(f"qbloom of {qbloom.numel()} words is not 2^{q_bits} key bits")
     if (tile.data_ptr() + lead // 2) % 4:
         raise ValueError("tile plane is not 4-byte aligned")
-    n_groups = 2 * n_units
+    n_groups = n_units * (8 // stride)
     words = torch.empty(n_groups // 32, dtype=torch.int32, device=tile.device)
     c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
-    fn = kernels.function("front_end", "mp_front_end_loose", [P, P, I, I, I, I, P, P, P])
+    fn = kernels.function("front_end", "mp_front_end_loose",
+                          [P, P, I, I, I, I, I, I, P, P, P])
     kernels.call(
-        fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, wordsize,
-        n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
+        fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, qbloom_bits,
+        wordsize, stride, n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
         kernels.stream(tile),
     )
     front_end_loose.launches += 1

@@ -1,8 +1,10 @@
 """K7, K11, K14 ``margin_p2``: margin-window primer-2 verify and hit emission.
 
 Replaces ``merpcr_tpu/ops/scan.py::_margin_stage`` (``scan.py:1047-1318``)
-on its static-slice branch (R <= 257): per (anchor, rank) the reference
-clamps of the expected product end exp/hi/lo (``:1070-1077``), rank r ->
+at every margin, its static-slice branch (R <= 257) and its rank-chunked
+one (K13, ``:1103-1127``, ``:1201-1235``; R up to 20,097 at -M 10000): per
+(anchor, rank) the reference clamps of the expected product end exp/hi/lo
+(``:1070-1077``), rank r ->
 offset d = 0, -1, +1, -2, ... (``_rank_d`` ``:344``), the structural bounds
 (``:1241-1248``), the rank mask (``:1249-1257``) and the primer-2 verify
 with the '-' strand's first-X-bases protection (``_p2_ok_of``
@@ -20,11 +22,21 @@ only after the clamps, bounds and rank mask have let it through, so no
 read leaves the record. Ranks past 2M+1 (runtime -M) can never emit and
 are not launched; the rank numbering does not depend on the cap.
 
+Where the JAX stage walks the rank axis in chunks to bound its window
+stack, here the launch is bounded: anchors go through in chunks of at
+most ``MAX_ITEMS`` (anchor, rank) items (``PLAIN_MAX_ITEMS`` in the plain
+version, whose [anchors, ranks, P2MAX] tensors are int64), at least one
+anchor each, and the chunks' rows are concatenated. Chunk order is
+(anchor, rank) order, so the rows are those of one unbounded launch. No
+number of anchors or ranks raises or drops a hit.
+
 Kernel: ``csrc/margin_p2.cu`` (one thread per (anchor, rank), the
 order-preserving compaction of ``csrc/compact.cuh``; one host read of
-``hit_total`` sizes the rows). On the card it is launch-bound: anchors are
-real primer matches, tens per 2^23-base tile. ``margin_p2_plain`` is the
-same function in plain PyTorch; the wrapper uses it only for CPU tensors.
+``hit_total`` per chunk sizes the rows). On the card it is launch-bound at
+small margins: anchors are real primer matches, tens per 2^23-base tile;
+at -M 10000 each is 20,001 threads, most of which end at the rank mask.
+``margin_p2_plain`` is the same function in plain PyTorch; the wrapper
+uses it only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +47,16 @@ from . import kernels
 from .units import (base_matches, check_codes, check_records, kernel_route,
                     nibbles_at, record_args, records_at, require)
 
-MAX_RANKS = 257  # static-slice branch of the JAX margin stage (M <= 128)
+# (anchor, rank) items of one kernel launch (one flag byte each) and of one
+# pass of the plain version (a few int64[items, P2MAX] temporaries)
+MAX_ITEMS = 1 << 24
+PLAIN_MAX_ITEMS = 1 << 17
+
+
+def _anchor_chunks(a_idx: torch.Tensor, margin: int, max_items: int):
+    """``a_idx`` in order, cut so that chunk anchors x (2M+1) ranks stay
+    within ``max_items`` (one anchor at least)."""
+    return a_idx.split(max(1, max_items // (2 * margin + 1)))
 
 
 def rank_offsets(margin: int, device=None) -> torch.Tensor:
@@ -50,7 +71,19 @@ def rank_offsets(margin: int, device=None) -> torch.Tensor:
 def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
                     tile_start: int, rmeta, recmap, lead: int, margin: int,
                     mismatches: int, three_prime: int):
-    """Hit rows int32[hit_total, 6] in plain PyTorch."""
+    """Hit rows int32[hit_total, 6] in plain PyTorch, at most
+    ``PLAIN_MAX_ITEMS`` (anchor, rank) items at a time."""
+    chunks = _anchor_chunks(a_idx, margin, PLAIN_MAX_ITEMS)
+    rows = [_margin_rows(tile, a, entry, ppos, emeta, p2_codes, p2_exp,
+                         tile_start, rmeta, recmap, lead, margin, mismatches,
+                         three_prime) for a in chunks]
+    return torch.cat(rows) if len(rows) > 1 else rows[0]
+
+
+def _margin_rows(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
+                 tile_start: int, rmeta, recmap, lead: int, margin: int,
+                 mismatches: int, three_prime: int):
+    """The rows of one chunk of anchors."""
     dev = tile.device
     j = a_idx.to(torch.int64)
     e = entry.to(torch.int64)[j]
@@ -95,10 +128,6 @@ def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
     ``ppos``: the tile's pairs; ``p2_codes``: uint8[E, P2MAX];
     ``p2_exp``: int32[E, P2MAX] IUPAC masks for -I 1, or None;
     ``rmeta``/``recmap``: the plane's records (``units.records_at``)."""
-    if 2 * margin + 1 > MAX_RANKS:
-        raise NotImplementedError(
-            "margins above 128 (R > 257) are ROADMAP queue B item K13"
-        )
     extra = tuple(t for t in (p2_exp, recmap) if t is not None)
     if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_codes, rmeta, *extra):
         return margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
@@ -111,36 +140,37 @@ def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
     check_codes(p2_codes, p2_exp, "p2")
     check_records(rmeta, recmap)
     dev = tile.device
-    n_anch = a_idx.numel()
-    if n_anch == 0:  # nothing to launch over
+    if a_idx.numel() == 0:  # nothing to launch over
         return torch.empty((0, 6), dtype=torch.int32, device=dev)
-    n_items = n_anch * (2 * margin + 1)
-    if n_items >= 1 << 31:
-        raise ValueError(f"{n_anch} anchors x {2 * margin + 1} ranks overflow int32")
-    n_blk = -(-n_items // 256)
-    hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
-    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
     P, I, LL = kernels.P, kernels.I, kernels.LL
     common = [P, LL, P, I, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
     count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
     write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
-    args = (tile.data_ptr(), 2 * tile.numel(), a_idx.data_ptr(), n_anch,
-            entry.data_ptr(), ppos.data_ptr(), emeta.data_ptr(),
-            p2_codes.data_ptr(), None if p2_exp is None else p2_exp.data_ptr(),
-            p2_codes.shape[1], tile_start, *record_args(rmeta, recmap),
-            lead, margin, mismatches, three_prime)
     s = kernels.stream(tile)
-    blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-    kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
-                 blk_off.data_ptr(), total.data_ptr(), s)
-    hit_total = int(total.item())
-    rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
-    if hit_total:
-        kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
-                     rows.data_ptr(), s)
-    margin_p2.launches += 1
-    return rows
+    out = []
+    for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
+        n_anch = chunk.numel()
+        n_items = n_anch * (2 * margin + 1)
+        n_blk = -(-n_items // 256)
+        hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
+        blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
+        total = torch.zeros(1, dtype=torch.int32, device=dev)
+        args = (tile.data_ptr(), 2 * tile.numel(), chunk.data_ptr(), n_anch,
+                entry.data_ptr(), ppos.data_ptr(), emeta.data_ptr(),
+                p2_codes.data_ptr(), None if p2_exp is None else p2_exp.data_ptr(),
+                p2_codes.shape[1], tile_start, *record_args(rmeta, recmap),
+                lead, margin, mismatches, three_prime)
+        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+        kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
+                     blk_off.data_ptr(), total.data_ptr(), s)
+        margin_p2.launches += 1  # one per chunk launched
+        hit_total = int(total.item())
+        rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
+        if hit_total:
+            kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
+                         rows.data_ptr(), s)
+        out.append(rows)
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 margin_p2.launches = 0

@@ -1,17 +1,23 @@
 """The tile scan: tile geometry and the drivers that run the kernels over
 one tile and over the tiles of one plane.
 
-Counterpart of ``merpcr_tpu/ops/scan.py`` for packed nibble planes at
-W <= 11 (exact stride-4 phase table, dense CSR) and margin caps <= 128, in
-its three front-end modes:
+Counterpart of ``merpcr_tpu/ops/scan.py`` for packed nibble planes, at
+every word size 3..16 and every margin 0..10000, in its three front-end
+modes:
 
 * strict, -N 0: the unit-projection front end over ``qbloom_s`` and the
   t16 position filter (K1, K4);
 * strict, -N 1 (``strict_n=1``): the same kernels over the strict1 tables
   ``qbloom_s1``/``t16_1``, when ``build_strict1`` armed them;
-* loose: the stride-4 group front end over the exact group table
-  ``qbloom`` (K8) and the group expansion, for -N >= 2, for -N 1 when
-  strict1 did not arm, and for STS sets that disarm strict;
+* loose: the stride-group front end over the group table ``qbloom``
+  (K8) and the group expansion, for -N >= 2, for -N 1 when strict1 did
+  not arm, and for STS sets that disarm strict;
+
+the word size choosing the tables as the table compiler built them
+(``stride``, ``exact_group``, ``qbloom_bits`` and ``Table.csr``; K12):
+stride-4 exact span tables and ``bsc`` rows at W <= 11, stride-2 exact
+tables at W = 12 (``bstart``) and 13 (binary search), and at W >= 14 a
+mult-hash group bloom, no phase table and the binary search;
 
 with the dirty-span phase filter (K10, ``dirty_bloom``, strict only), the
 IUPAC verify (K11, ``iupac``) and stream mode (K14): a plane holds one
@@ -66,8 +72,9 @@ class ScanConfig:
     tail: int  # right halo in positions (multiple of 256)
     p1_max: int
     p2_max: int
-    stride: int = 4
-    exact_group: bool = True
+    stride: int = 4  # scan positions per group-table lookup (2 at W >= 12)
+    exact_group: bool = True  # exact span tables qbloom/ptab (W <= 13)
+    qbloom_bits: int = 0  # log2 bits of the mult-hash group bloom (W >= 14)
     strict: bool = True  # strict unit front end (K1); False: loose (K8)
     strict_n: int = 0  # mismatch budget of the strict tables: 0 qbloom_s/t16,
     #                    1 qbloom_s1/t16_1 (strict1); 0 when loose
@@ -97,7 +104,7 @@ class ScanOut(NamedTuple):
     Unlike the JAX ScanOut the row columns hold exactly ``hit_total``
     entries (int32 tensors on the scan's device)."""
 
-    c_total: int  # flagged units (strict) or stride-4 groups (loose)
+    c_total: int  # flagged units (strict) or stride groups (loose)
     pos_total: int  # (unit/group, phase) positions, before the t16 filter
     pair_total: int  # (position, bucket slot) pairs, after it
     anch_total: int  # primer-1-passing pairs
@@ -125,6 +132,8 @@ def default_config(
     p2_max: int,
     tile_len: int,
     stride: int = 4,
+    exact_group: bool = True,
+    qbloom_bits: int = 0,
     strict: bool = True,
     strict_n: int = 0,
     t16_bits: int = 0,
@@ -161,6 +170,8 @@ def default_config(
         p1_max=p1_max,
         p2_max=p2_max,
         stride=stride,
+        exact_group=exact_group,
+        qbloom_bits=0 if exact_group else qbloom_bits,
         strict=strict,
         strict_n=strict_n if strict else 0,
         t16_bits=t16_bits if strict else 0,
@@ -187,10 +198,10 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
     records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
     a stream plane, None for one record; ``rt``: runtime (-M, -N, -X)."""
-    if not (cfg.exact_group and cfg.stride == 4):
-        raise NotImplementedError(
-            "stride-2 and mult-hash group tables (W >= 12) are ROADMAP item K12"
-        )
+    if (cfg.wordsize, cfg.stride, cfg.exact_group) != (
+            table.wordsize, table.stride, table.exact_group):
+        raise ValueError("the config's word size, stride or group-table kind "
+                         "is not the table's")
     if cfg.dirty_bloom and (cfg.bloom_bits != table.bloom_bits or not cfg.strict):
         raise ValueError("the dirty-span filter needs the strict front end and "
                          f"the table's bloom ({cfg.bloom_bits} != {table.bloom_bits} bits)")
@@ -202,10 +213,11 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     n_entries = table.emeta.shape[0]
     if not cfg.strict:
         words, c_total = front_end_loose(tile, table.qbloom, table.q_bits, W,
-                                         lead, L, n_scan)
+                                         lead, L, n_scan, cfg.stride,
+                                         cfg.qbloom_bits)
         entry, ppos, pos_total, pair_total = expand_loose(
-            tile, words, table.ptab, table.pf_bits, table.bsc, n_entries, W,
-            lead, L, n_scan)
+            tile, words, table.ptab, table.pf_bits, table.csr, n_entries, W,
+            lead, L, n_scan, cfg.stride, cfg.exact_group)
     else:
         if cfg.strict_n == 1:
             if not table.strict1:
@@ -217,8 +229,8 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
             raise ValueError(f"config t16_bits {cfg.t16_bits} != table's {t16_bits}")
         words, c_total = front_end(tile, qb, gq, W, lead, L, n_scan)
         entry, ppos, pos_total, pair_total = expand(
-            tile, words, table.ptab, table.pf_bits, t16, t16_bits, table.bsc,
-            n_entries, W, lead, L, n_scan,
+            tile, words, table.ptab, table.pf_bits, t16, t16_bits, table.csr,
+            n_entries, W, lead, L, n_scan, cfg.stride, cfg.exact_group,
             table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits,
         )
     p1_exp, p2_exp = (table.p1_exp, table.p2_exp) if cfg.iupac else (None, None)

@@ -933,29 +933,51 @@ class Table(NamedTuple):
     the JAX scan, so a table and its key masks cannot disagree."""
 
     qbloom_s: torch.Tensor  # int32[2^gq / 32]: strict unit-projection bits
-    ptab: torch.Tensor  # int32[4^(W+2) * stride / 32]: folded phase bits
+    ptab: torch.Tensor  # int32[4^(span-1) * stride / 32]: folded phase bits | [1]
     t16: torch.Tensor  # int32[2^t16_bits / 32] | [1]: 16-base filter
-    bsc: torch.Tensor  # int32[4^W, 2]: dense CSR (start, count) rows
+    bsc: torch.Tensor  # int32[4^W, 2]: dense CSR (start, count) rows (W <= 11) | [1, 2]
     emeta: torch.Tensor  # int32[E, 8]: hoff, p1_len, p2_len, pcr_size, ...
     p1_codes: torch.Tensor  # uint8[E, P1MAX]
     p2_codes: torch.Tensor  # uint8[E, P2MAX]
     bloom: torch.Tensor  # int32[2^bloom_bits / 32]: W-mer key occupancy (K10)
     p1_exp: torch.Tensor  # int32[E, P1MAX] IUPAC expansion masks | [1, 1]
     p2_exp: torch.Tensor  # int32[E, P2MAX] IUPAC expansion masks | [1, 1]
-    # loose front end (K8): exact stride-4 group table, span keys folded to
-    # their low q_bits bits
+    # loose front end (K8): the exact group table, span keys folded to their
+    # low q_bits bits, or (W >= 14) the mult-hash bloom of 2^qbloom_bits bits
     qbloom: torch.Tensor  # int32[2^q_bits / 32]
     # strict N=1 variant (build_strict1); [1] dummies until it armed
     qbloom_s1: torch.Tensor  # int32[2^gq1 / 32] | [1]
     t16_1: torch.Tensor  # int32[2^t16_1_bits / 32] | [1]
     gq: int  # log2 bits of qbloom_s (<= 26 after truncation)
-    pf_bits: int  # log2 folded span values of ptab
+    pf_bits: int  # log2 folded span values of ptab (no meaning without one)
     t16_bits: int  # 0: no 16-base filter
     bloom_bits: int  # log2 bits of bloom (min(2W, 24))
-    q_bits: int  # log2 bits of qbloom (<= 2 * (W + 3))
+    q_bits: int  # log2 bits of qbloom (<= 2 * span when exact)
     strict1: bool  # the N=1 variant armed (qbloom_s1/t16_1 are real)
     gq1: int  # log2 bits of qbloom_s1
     t16_1_bits: int  # 0: no 16-base filter at N=1
+    # the CSR of the wider words: bucket starts (W = 12), or the sorted
+    # unique keys and their starts for the binary search (W >= 13). uhash
+    # holds uint32 bit patterns, and at W = 16 all 32 bits: the kernel
+    # compares it as uint32_t, the plain version widens it to int64
+    bstart: torch.Tensor  # int32[4^12 + 1] | [2]
+    uhash: torch.Tensor  # int32[U] (uint32 bits), ascending as unsigned
+    ustart: torch.Tensor  # int32[U + 1]
+    wordsize: int
+    stride: int  # scan positions per group lookup: 4 (W <= 11) or 2
+    exact_group: bool  # qbloom/ptab are exact span tables (W <= 13)
+    qbloom_bits: int  # log2 bits of the group table before truncation
+
+    @property
+    def csr(self):
+        """The bucket lookup ``expand`` takes for this word size: the
+        ``bsc`` rows (W <= 11), the ``bstart`` vector (W = 12) or the
+        (``uhash``, ``ustart``) pair (W >= 13)."""
+        if self.wordsize <= 11:
+            return self.bsc
+        if self.wordsize == 12:
+            return self.bstart
+        return (self.uhash, self.ustart)
 
 
 def _bits_of(n: int) -> int:
@@ -1006,4 +1028,11 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         strict1=bool(meta.strict1),
         gq1=bits(host.qbloom_s1),
         t16_1_bits=int(meta.t16_1_bits),
+        bstart=ints(host.bstart, np.int32),
+        uhash=words(host.uhash),
+        ustart=ints(host.ustart, np.int32),
+        wordsize=int(meta.wordsize),
+        stride=int(meta.stride),
+        exact_group=bool(meta.exact_group),
+        qbloom_bits=int(meta.qbloom_bits),
     )

@@ -57,15 +57,23 @@ def unit_regs(units: torch.Tensor, r: torch.Tensor):
     return A, Aa, codes_of(u2), dirty_of(u2)
 
 
-def group_regs(units: torch.Tensor, q: torch.Tensor, lead_units: int):
-    """(A, Aa, B, Ba) registers of stride-4 groups ``q`` (group q = 2r + p
-    starts at base 4p of unit r = q >> 1): the unit's registers, shifted
-    right by 4 bases for parity 1 (``scan.py:783-795``)."""
-    A, Aa, B, Ba = unit_regs(units, (q >> 1) + lead_units)
-    odd = (q & 1) == 1
-    return (torch.where(odd, ((A >> 8) | (B << 24)) & M32, A),
-            torch.where(odd, ((Aa >> 8) | (Ba << 24)) & M32, Aa),
-            torch.where(odd, B >> 8, B), torch.where(odd, Ba >> 8, Ba))
+def group_regs(units: torch.Tensor, q: torch.Tensor, lead_units: int,
+               stride: int = 4):
+    """(A, Aa, B, Ba) registers of stride groups ``q``: a unit holds
+    P = 8 / stride groups, and group q = P * r + p starts at base
+    stride * p of unit r, so its registers are the unit's shifted right by
+    that many bases (``scan.py:581-588``, ``:783-795``)."""
+    per_unit = 8 // stride
+    A, Aa, B, Ba = unit_regs(units, q // per_unit + lead_units)
+    sh = 2 * stride * (q % per_unit)  # 0 keeps the unit's own registers
+    return (((A >> sh) | (B << (32 - sh))) & M32,
+            ((Aa >> sh) | (Ba << (32 - sh))) & M32, B >> sh, Ba >> sh)
+
+
+def mask_bases(n: int) -> int:
+    """Mask of the low ``n`` bases (2 bits each) of a 32-bit register; 16
+    bases fill it."""
+    return (1 << (2 * min(n, 16))) - 1
 
 
 def valid_phases(Aa, Ba, pos0, n_phases: int, W: int, n_scan: int):
@@ -74,7 +82,7 @@ def valid_phases(Aa, Ba, pos0, n_phases: int, W: int, n_scan: int):
     ``scan.py:796-802``)."""
     d = torch.arange(n_phases, device=Aa.device)
     # bases d .. d+W-1 (the spill from B is masked off where it is unused)
-    pha = ((Aa[:, None] >> (2 * d)) | (Ba[:, None] << (32 - 2 * d))) & ((1 << (2 * W)) - 1)
+    pha = ((Aa[:, None] >> (2 * d)) | (Ba[:, None] << (32 - 2 * d))) & mask_bases(W)
     ok = (pha == 0) & (pos0[:, None] + d < n_scan)
     return (ok.to(torch.int64) << d).sum(dim=1)
 

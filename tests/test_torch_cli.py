@@ -80,7 +80,14 @@ def test_failures_exit_1(tmp_path):
     empty = tmp_path / "empty.fa"
     empty.write_text("")
     assert _run(cli.main, [GOLDEN_STS, str(empty)], device="cpu")[0] == 1
-    assert _run(cli.main, [GOLDEN_STS, GOLDEN_FA, "-W", "12"], device="cpu")[0] == 1
+    # an error raised by the engine exits 1
+    argv = [GOLDEN_STS, GOLDEN_FA, "--three-prime-match=-1"]
+    assert _run(cli.main, argv, device="cpu")[0] == 1 == _run(jax_cli.main, argv)[0]
+    # -W 12 was refused before every word size ran: it exits 0 now, with
+    # the JAX package's bytes
+    argv = [GOLDEN_STS, GOLDEN_FA, "-W", "12"]
+    assert _run(cli.main, argv, device="cpu") == _run(jax_cli.main, argv)
+    assert _run(cli.main, argv, device="cpu")[0] == 0
 
 
 @pytest.mark.parametrize("flags", [["-N", "2"], ["N=2", "M=100"]])

@@ -125,8 +125,11 @@ def test_output_file_and_stdout_name(tmp_path):
     [{"wordsize": 16}, {"margin": 10000}, {"wordsize": 12}, {"margin": 129}],
 )
 def test_unported_parameters_raise(params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MerPCR(device="cpu", **params)
+    """The word sizes above 11 and the margins above 128 that the port
+    once refused: the engine takes them, and the golden search prints the
+    JAX package's bytes."""
+    port, ref = _both(GOLDEN_STS, GOLDEN_FA, **params)
+    assert port == ref and GOLDEN_LINE + "\n" in port
 
 
 def test_bounds_validation_matches_jax():

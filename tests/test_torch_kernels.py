@@ -39,6 +39,7 @@ from merpcr_tpu_torch.ops.front_end import (
     front_end_loose_plain,
     front_end_plain,
 )
+from merpcr_tpu_torch.ops import margin_p2 as margin_mod
 from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
 from merpcr_tpu_torch.ops.scan import record_rmeta
 from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
@@ -212,7 +213,7 @@ def _tiles(tmp_path, device, **params):
 
     packed = record_packed(rec)
     n = len(rec.sequence)
-    total = n - 10
+    total = n - eng.wordsize + 1
     cfg = eng._base_config(1 << 15)
     L = cfg.tile_len
     n_tiles = -(-total // L)
@@ -233,7 +234,7 @@ def test_kernels_equal_plain_versions(cuda, tmp_path):
         wp, cp = front_end_plain(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
         assert torch.equal(w, wp) and torch.equal(c, cp)
         args = (tile, w, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.bsc,
-                tb.emeta.shape[0], W, lead, L, n_scan)
+                tb.emeta.shape[0], W, lead, L, n_scan, 4, True)
         e, p, pt, qt = expand(*args)
         ep, pp, ptp, qtp = expand_plain(*args)
         assert (pt, qt) == (ptp, qtp)
@@ -270,14 +271,14 @@ def test_mismatch_kernels_equal_plain_versions(cuda, tmp_path, mismatches):
             w, c = front_end(*fe_args)
             wp, cp = front_end_plain(*fe_args)
             args = (tile, w, tb.ptab, tb.pf_bits, tb.t16_1, tb.t16_1_bits, tb.bsc,
-                    tb.emeta.shape[0], W, lead, L, n_scan)
+                    tb.emeta.shape[0], W, lead, L, n_scan, 4, True)
             kernel, plain = expand, expand_plain
         else:
-            fe_args = (tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan)
+            fe_args = (tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, 4, 0)
             w, c = front_end_loose(*fe_args)
             wp, cp = front_end_loose_plain(*fe_args)
             args = (tile, w, tb.ptab, tb.pf_bits, tb.bsc, tb.emeta.shape[0], W, lead,
-                    L, n_scan)
+                    L, n_scan, 4, True)
             kernel, plain = expand_loose, expand_loose_plain
         assert torch.equal(w, wp) and torch.equal(c, cp)
         e, p, pt, qt = kernel(*args)
@@ -295,6 +296,96 @@ def test_mismatch_kernels_equal_plain_versions(cuda, tmp_path, mismatches):
             seen_hits += h.shape[0]
     torch.cuda.synchronize()
     assert seen_hits > 0
+
+
+def _front_and_expand(cfg, tb, tile, n_scan, kernel: bool, bloom=None):
+    """(words, c_total, entry, ppos, pos_total, pair_total) of the config's
+    front end and expansion: the wrappers (kernels on the card) or their
+    plain versions."""
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    if cfg.strict:
+        fe, ex = (front_end, expand) if kernel else (front_end_plain, expand_plain)
+        w, c = fe(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
+        out = ex(tile, w, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.csr,
+                 tb.emeta.shape[0], W, lead, L, n_scan, cfg.stride,
+                 cfg.exact_group, bloom, tb.bloom_bits)
+    else:
+        fe, ex = ((front_end_loose, expand_loose) if kernel
+                  else (front_end_loose_plain, expand_loose_plain))
+        w, c = fe(tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, cfg.stride,
+                  cfg.qbloom_bits)
+        out = ex(tile, w, tb.ptab, tb.pf_bits, tb.csr, tb.emeta.shape[0], W,
+                 lead, L, n_scan, cfg.stride, cfg.exact_group)
+    return (w, c, *out)
+
+
+def _assert_same(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) if isinstance(g, torch.Tensor) else g == w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mismatches", [0, 2])
+@pytest.mark.parametrize("wordsize", [12, 13, 14, 16])
+def test_wordsize_kernels_equal_plain_versions(cuda, tmp_path, wordsize, mismatches):
+    """K12: the stride-2 exact tables (W = 12, 13), the mult-hash bloom
+    without a phase table (W = 14, 16) and the three bucket lookups, strict
+    (-N 0, with and without the K10 bloom) and loose (-N 2)."""
+    eng, cfg, tiles = _tiles(tmp_path, cuda, wordsize=wordsize, mismatches=mismatches)
+    assert cfg.stride == 2 and cfg.exact_group == (wordsize <= 13)
+    assert cfg.strict == (mismatches == 0)
+    tb = eng._table
+    pairs = 0
+    for tile, _t0, n_scan, _n in tiles:
+        for bloom in ((None, tb.bloom) if cfg.strict else (None,)):
+            got = _front_and_expand(cfg, tb, tile, n_scan, True, bloom)
+            _assert_same(got, _front_and_expand(cfg, tb, tile, n_scan, False, bloom))
+            pairs += got[5]
+    torch.cuda.synchronize()
+    assert pairs > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wordsize,margin,mismatches",
+                         [(12, 50, 0), (13, 300, 0), (14, 50, 2), (16, 2000, 1), (3, 129, 0)])
+def test_card_wordsize_search_equals_cpu_search(cuda, tmp_path, wordsize, margin, mismatches):
+    sts, fa = _corpus(tmp_path, n=120_000 if wordsize > 3 else 20_000, n_sts=80)
+    params = {"wordsize": wordsize, "margin": margin, "mismatches": mismatches}
+    eng = MerPCR(device=cuda, **params)
+    eng._tile_len_override = 1 << 15
+    counts = [f.launches for f in WRAPPERS]
+    on_card = _search(eng, sts, fa)
+    assert sum(f.launches - c0 for f, c0 in zip(WRAPPERS, counts)) == 4 * eng.last_scans[0][1]
+    cpu = MerPCR(device="cpu", **params)
+    cpu._tile_len_override = 1 << 15
+    assert on_card == _search(cpu, sts, fa)
+    assert on_card.count("\n") > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("margin", [129, 2000, 10000])
+def test_margin_kernel_equals_plain_and_chunks(cuda, tmp_path, monkeypatch, margin):
+    """K13: margins above 128 against the plain version, and a launch
+    bounded to a few anchors at a time equal to the unbounded one."""
+    eng, cfg, tiles = _tiles(tmp_path, cuda, margin=margin)
+    tb = eng._table
+    hits = anchors = 0
+    for tile, t0, n_scan, n in tiles[:4]:
+        _w, _c, e, p, _pt, _qt = _front_and_expand(cfg, tb, tile, n_scan, True)
+        rm = record_rmeta(n, cuda)
+        a = verify_p1(tile, e, p, tb.emeta, tb.p1_codes, None, t0, rm, None, cfg.lead, 0, 1)
+        margs = (tile, a, e, p, tb.emeta, tb.p2_codes, None, t0, rm, None,
+                 cfg.lead, margin, 0, 1)
+        h = margin_p2(*margs)
+        assert torch.equal(h, margin_p2_plain(*margs))
+        with monkeypatch.context() as mp:
+            mp.setattr(margin_mod, "MAX_ITEMS", 2 * (2 * margin + 1))
+            c0 = margin_p2.launches
+            assert torch.equal(h, margin_p2(*margs))
+            assert margin_p2.launches - c0 == -(-a.numel() // 2)  # one per chunk
+        anchors += a.numel()
+        hits += h.shape[0]
+    assert hits > 0 and anchors > 8
 
 
 @pytest.mark.gpu
@@ -339,7 +430,8 @@ def test_stream_kernels_equal_plain_versions(cuda, tmp_path):
         assert torch.equal(w, front_end_plain(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)[0])
         for bloom in (tb.bloom, None):
             args = (tile, w, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.bsc,
-                    tb.emeta.shape[0], W, lead, L, n_scan, bloom, tb.bloom_bits)
+                    tb.emeta.shape[0], W, lead, L, n_scan, 4, True, bloom,
+                    tb.bloom_bits)
             e, p, pt, qt = expand(*args)
             ep, pp, ptp, qtp = expand_plain(*args)
             assert (pt, qt) == (ptp, qtp) and torch.equal(e, ep) and torch.equal(p, pp)
@@ -376,6 +468,20 @@ def test_card_stream_search_equals_cpu_search(cuda, tmp_path):
         assert 0 < min(launched) and max(launched) <= n_tiles, launched
         assert on_card == _search(MerPCR(device="cpu", iupac_mode=iupac), sts, fa)
         assert on_card.count("\n") > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wordsize,margin", [(11, 2000), (14, 300)])
+def test_card_stream_search_at_large_margins(cuda, tmp_path, wordsize, margin):
+    """Margin windows far wider than the scaffolds, on the stream path."""
+    sts, fa = _assembly(tmp_path)
+    params = {"wordsize": wordsize, "margin": margin, "iupac_mode": 1}
+    eng = MerPCR(device=cuda, **params)
+    on_card = _search(eng, sts, fa)
+    (cfg, _, n_rec), = eng.last_scans
+    assert cfg.stream and n_rec == 400 and cfg.margin >= margin
+    assert on_card == _search(MerPCR(device="cpu", **params), sts, fa)
+    assert on_card.count("\n") > 0
 
 
 @pytest.mark.gpu

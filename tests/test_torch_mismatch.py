@@ -188,12 +188,15 @@ def test_words_and_nibbles_match_jax_stops(tmp_path_factory, mode, kind):
     for _t, tile, n_scan in c.tiles():
         x = torch.from_numpy(tile)
         if mode == "loose":
-            words, c_total = front_end_loose(x, tt.qbloom, tt.q_bits, W, c.tcfg.lead, L, n_scan)
-            _, _, nb = group_nibbles(x, words, tt.ptab, tt.pf_bits, W, c.tcfg.lead, n_scan)
+            words, c_total = front_end_loose(x, tt.qbloom, tt.q_bits, W, c.tcfg.lead, L, n_scan,
+                                             4, 0)
+            _, _, nb = group_nibbles(x, words, tt.ptab, tt.pf_bits, W, c.tcfg.lead, n_scan,
+                                     4, True)
             assert words.numel() == L // 128
         else:
             words, c_total = front_end(x, tt.qbloom_s1, tt.gq1, W, c.tcfg.lead, L, n_scan)
-            _, _, nb = phase_nibbles(x, words, tt.ptab, tt.pf_bits, W, c.tcfg.lead, n_scan)
+            _, _, nb = phase_nibbles(x, words, tt.ptab, tt.pf_bits, W, c.tcfg.lead, n_scan,
+                                     4, True)
         want = int(stop_words(tile, np.int32(n_scan)))
         assert int(words.to(torch.int64).sum()) & 0xFFFFFFFF == want & 0xFFFFFFFF
         n_flags = sum(bin(w & 0xFFFFFFFF).count("1") for w in words.tolist())
@@ -211,7 +214,7 @@ def test_loose_groups_interleave_parities(tmp_path_factory):
     both = 0
     for _t, tile, n_scan in c.tiles():
         words, _ = front_end_loose(torch.from_numpy(tile), c.ttable.qbloom,
-                                   c.ttable.q_bits, W, c.tcfg.lead, 1 << 13, n_scan)
+                                   c.ttable.q_bits, W, c.tcfg.lead, 1 << 13, n_scan, 4, 0)
         bits = [(w & 0xFFFFFFFF) for w in words.tolist()]
         both += sum(bin(w & (w >> 1) & 0x55555555).count("1") for w in bits)
     assert both > 0

@@ -320,7 +320,7 @@ def test_phase_nibbles_match_jax_stop_nb(tmp_path_factory, kind):
         tt = torch.from_numpy(tile)
         words, _ = front_end(tt, ttable.qbloom_s, ttable.gq, W, cfg.lead, L, n_scan)
         _, _, nb = phase_nibbles(tt, words, ttable.ptab, ttable.pf_bits, W, cfg.lead,
-                                 n_scan, ttable.bloom, ttable.bloom_bits)
+                                 n_scan, 4, True, ttable.bloom, ttable.bloom_bits)
         want = int(stop(tile, np.int32(t * L), np.int32(n_scan)))
         assert int(nb.sum()) == want, t
 

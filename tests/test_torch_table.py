@@ -107,7 +107,9 @@ def test_build_strict1_matches_jax(tmp_path, case, iupac, armed):
         assert host.qbloom_s1.size == host.t16_1.size == 1
 
 
-@pytest.mark.parametrize("wordsize,iupac", [(11, False), (8, False), (11, True)])
+@pytest.mark.parametrize("wordsize,iupac", [(11, False), (8, False), (11, True),
+                                            (12, False), (13, False), (14, False),
+                                            (16, False), (14, True)])
 @pytest.mark.parametrize("case", ["golden", "random", "ambiguous"])
 def test_compile_table_matches_jax(tmp_path, case, wordsize, iupac):
     path = _cases(tmp_path)[case]
@@ -135,3 +137,43 @@ def test_table_from_numpy_keeps_bits(tmp_path):
     assert t.pf_bits == 2 * (11 + 2) and t.t16_bits == meta.t16_bits > 0
     assert (1 << t.q_bits) == host.qbloom.size * 32 and t.q_bits <= 2 * (11 + 3)
     assert not t.strict1 and t.gq1 == 5 and t.t16_1_bits == 0  # [1] dummies
+
+
+@pytest.mark.parametrize("wordsize", [11, 12, 13, 14, 16])
+def test_table_from_numpy_carries_the_word_size_tier(tmp_path, wordsize):
+    """``bstart``, ``uhash``, ``ustart``, ``stride``, ``exact_group`` and
+    ``qbloom_bits`` of a table compiled by the JAX package reach the port
+    equal to the JAX ``DeviceTable``'s, and ``csr`` names the lookup of the
+    word size. ``uhash`` keeps its uint32 bits: at W = 16 keys pass 2^31
+    and are negative as int32, ascending only as unsigned."""
+    path = _random_sts(tmp_path / "w.sts", 9, 400)
+    jres = JaxSTSLoader.load_file(path, wordsize, 240)
+    jhost, jmeta = jax_compile_table(jres, wordsize, False, device=False)
+    jdev, _ = jax_compile_table(jres, wordsize, False)  # the JAX DeviceTable
+    t = table_from_numpy(jhost, jmeta, "cpu")
+    for name in ("bstart", "ustart", "bsc"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jdev, name)),
+                                      err_msg=name)
+    for name in ("uhash", "qbloom", "ptab"):
+        np.testing.assert_array_equal(getattr(t, name).numpy().view(np.uint32),
+                                      np.asarray(getattr(jdev, name)), err_msg=name)
+    assert (t.wordsize, t.stride, t.exact_group, t.qbloom_bits) == (
+        wordsize, jmeta.stride, jmeta.exact_group, jmeta.qbloom_bits)
+    assert t.stride == (4 if wordsize <= 11 else 2) and t.exact_group == (wordsize <= 13)
+    assert (1 << t.q_bits) == jhost.qbloom.size * 32
+    if t.exact_group:
+        assert (t.stride << t.pf_bits) == jhost.ptab.size * 32
+        assert t.pf_bits == 2 * (wordsize + t.stride - 2)
+    else:
+        assert jhost.ptab.size == 1 and t.q_bits == t.qbloom_bits
+    u = t.uhash.numpy().view(np.uint32).astype(np.int64)
+    assert (np.diff(u) > 0).all() and t.ustart.numel() == t.uhash.numel() + 1
+    if wordsize == 16:
+        assert (t.uhash.numpy() < 0).any()
+    csr = t.csr
+    if wordsize <= 11:
+        assert csr is t.bsc and t.bsc.shape == (4**wordsize, 2) and t.bstart.numel() == 2
+    elif wordsize == 12:
+        assert csr is t.bstart and t.bstart.numel() == 4**12 + 1 and t.bsc.shape == (1, 2)
+    else:
+        assert csr[0] is t.uhash and csr[1] is t.ustart and t.bstart.numel() == 2
