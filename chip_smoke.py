@@ -59,10 +59,23 @@ closing device line is printed only when every phase passed):
              until the launch must be cut into chunks (margin_p2 counts
              one launch per chunk: one per tile on the searches, the
              expected number of chunks here)
-9. golden    tests/data through the API and through
+9. raw      records outside the 16-letter alphabet (the raw-byte path,
+             K9): the record rendered as RNA (every T a U, the reverse-
+             strand plants too) and passed through the API as a
+             FASTARecord, at -I 1, cold then warm (launch counts around the
+             warm run: the raw wrappers once per tile, no others): at -N 0
+             bytes equal to the DNA record's -I 1 output, all planted
+             lines, no mismatch plant's, and a breakdown; at -N 2 the 1- and
+             2-mismatch plants; at W = 13 and 14 every exact plant; at
+             -M 1000 each off-size plant exactly when the margin admits it;
+             then a rendering with a junk byte (-*.0-9éZEÿ) about every
+             10 kb outside the amplicons: every planted line, bytes equal
+             to device="cpu"; the raw kernels against their plain versions
+             on tile 1 (phase raw_kernels; the byte modes also at -I 0)
+10. golden   tests/data through the API and through
              ``python -m merpcr_tpu_torch``: exactly the golden line; the
              CLI at -I 1, at -N 2 and at -W 13 -M 300 equal to the API
-10. assembly a draft assembly: 30 Mbp of random ACGT in 3,000 equal
+11. assembly a draft assembly: 30 Mbp of random ACGT in 3,000 equal
              scaffolds x --nsts random STS, --planted amplicons planted
              wholly inside scaffolds; every fourth planted STS carries R/Y/N
              letters in its primers and its sites resolve them. Four
@@ -75,10 +88,14 @@ closing device line is printed only when every phase passed):
              path launched, at most once per stream tile); every planted
              ACGT-primer line present, the R/Y/N-primer lines present in
              (c) and (d) only; bytes equal to device="cpu"; the dirty-span
-             filter (K10) armed in (b) and (c); then variant (c) at W = 13
+             filter (K10) armed in (b) and (c); then (e) variant (c) with
+             every 100th scaffold rendered as RNA: those 30 take the
+             raw-byte path alone (the raw front end and expansion launch
+             once per such scaffold), the others the stream path, and the
+             lines equal (c)'s; then variant (c) at W = 13
              and W = 14 (stream + K10 + K11 on the prefix-filter and
              every-valid-phase branches), ACGT-primer lines present
-11. stream_kernels  on one real 2^21 stream tile of variant (c), each
+12. stream_kernels  on one real 2^21 stream tile of variant (c), each
              kernel's stream + dirty-span + IUPAC variant against its plain
              version on the same card tensors (tolerance 0); the tile must
              hold anchors and hits that only the IUPAC expansion-set match
@@ -92,14 +109,15 @@ closing device line is printed only when every phase passed):
 The second-to-last JSON line lists every kernel with its launches on the
 main path, error against its plain version, times and bound: the record
 path's four kernels (phase 4 times, launches of the warm 47 Mbp search),
-their stream variants (phase 11 times, launches of the warm variant (c)
+their stream variants (phase 12 times, launches of the warm variant (c)
 search), the -N 1 (strict1) and -N 2 (loose) paths' kernels (phase 6
 times, launches of the warm 47 Mbp search at that -N), and the loose
-stream kernels (phase 11 times, launches of the warm variant (d)
+stream kernels (phase 12 times, launches of the warm variant (d)
 search), the W = 12, 13, 14, 16 kernels strict and loose (phase 7) and the
--M 1000 and -M 10000 kernels (phase 8), and the stream kernels of variant
-(c) at W = 13 and 14 (phase 11), each with the launches of its own warm
-search. ``device_ms`` pools several profiler traces, since the profiler
+-M 1000 and -M 10000 kernels (phase 8), the stream kernels of variant
+(c) at W = 13 and 14 (phase 12), and the raw-byte kernels (phase 9, with
+the launches of the warm RNA -N 0 search), each with the launches of its
+own warm search. ``device_ms`` pools several profiler traces, since the profiler
 loses events (``profiled_ms``): ``device_events_lost`` is their share,
 and a ``device_ms`` of null a reading with too few left. The line before
 the last is nvidia-smi's name and power limit; the last line is
@@ -131,6 +149,11 @@ AMBIGUITY = np.frombuffer(b"NRYKMSWBDHV", dtype=np.uint8)
 RESOLVE = {ord("R"): b"AG", ord("Y"): b"CT", ord("N"): b"ACGT"}
 COMP = bytes.maketrans(b"ACGTRYN", b"TGCAYRN")
 WRAPPERS = ("front_end", "expand", "verify_p1", "margin_p2")
+RAW_WRAPPERS = ("front_end_raw", "expand_raw", "verify_p1_raw", "margin_p2_raw")
+# wrapper -> its kernel source in merpcr_tpu_torch/csrc/
+SOURCE_OF = {"front_end_loose": "front_end", "front_end_raw": "front_end",
+             "expand_loose": "expand", "expand_raw": "expand",
+             "verify_p1_raw": "verify_p1", "margin_p2_raw": "margin_p2"}
 GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -423,7 +446,7 @@ def record_tile(eng, recs):
     check(cfg.tile_len == TILE, f"tile length {cfg.tile_len}")
     n_tiles = -(-total // cfg.tile_len)
     plane = eng._plane(record_packed(recs[0]), cfg.lead + n_tiles * cfg.tile_len + cfg.tail,
-                       cfg.lead)
+                       cfg.lead, packed=True)
     return (cfg, torch.from_numpy(plane).to(eng.device), 1, total,
             record_rmeta(n, eng.device), None)
 
@@ -449,24 +472,38 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     (anchor, rank) items pass the launch bound, so that the wrapper must cut
     the launch into chunks. Returns {wrapper name: kernel entry}."""
     from merpcr_tpu_torch.ops.expand import (expand, expand_loose, expand_loose_plain,
-                                             expand_plain)
+                                             expand_plain, expand_raw, expand_raw_plain)
     from merpcr_tpu_torch.ops.front_end import (GOLD, front_end, front_end_loose,
-                                                front_end_loose_plain, front_end_plain)
-    from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
-    from merpcr_tpu_torch.ops.units import (group_regs, mask_bases, mul32, unit_regs,
-                                            units_of)
-    from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
+                                                front_end_loose_plain, front_end_plain,
+                                                front_end_raw, front_end_raw_plain)
+    from merpcr_tpu_torch.ops.margin_p2 import (margin_p2, margin_p2_plain, margin_p2_raw,
+                                                margin_p2_raw_plain)
+    from merpcr_tpu_torch.ops.units import (group_regs, mask_bases, mul32, raw_hashes,
+                                            unit_regs, units_of)
+    from merpcr_tpu_torch.ops.verify_p1 import (verify_p1, verify_p1_plain, verify_p1_raw,
+                                                verify_p1_raw_plain)
 
     cfg, plane, t, total, rmeta, recmap = laid
     W, L, lead = eng.wordsize, cfg.tile_len, cfg.lead
     t0 = t * L
-    tile = plane[t0 // 2 : t0 // 2 + cfg.tile_buf_in]
+    step = cfg.tile_step_in  # plane bytes per tile: L/2 packed, L raw
+    tile = plane[t * step : t * step + cfg.tile_buf_in]
     n_scan = min(L, total - t0)
     tb = eng._table
     margin, nmm, x = eng._runtime_params()
     bloom = tb.bloom if cfg.dirty_bloom else None
-    p1x, p2x = (tb.p1_exp, tb.p2_exp) if cfg.iupac else (None, None)
-    code_b = 4 if cfg.iupac else 1  # bytes per primer base read
+    raw = not cfg.packed
+    if raw:  # byte verifies: primer bytes, and the match table at -I 1
+        p1c, p2c = tb.p1_bytes, tb.p2_bytes
+        p1x = p2x = tb.match if cfg.iupac else None
+        code_b = 2 if cfg.iupac else 1  # primer byte (+ match byte) per base
+        vf, vf_plain, mf, mf_plain = (verify_p1_raw, verify_p1_raw_plain, margin_p2_raw,
+                                      margin_p2_raw_plain)
+    else:
+        p1c, p2c = tb.p1_codes, tb.p2_codes
+        p1x, p2x = (tb.p1_exp, tb.p2_exp) if cfg.iupac else (None, None)
+        code_b = 4 if cfg.iupac else 1  # bytes per primer base read
+        vf, vf_plain, mf, mf_plain = verify_p1, verify_p1_plain, margin_p2, margin_p2_plain
     rec_b = 12 if cfg.stream else 0  # recmap + rmeta bytes per candidate
     res = {}
 
@@ -479,7 +516,7 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
             "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
-            "source": f"merpcr_tpu_torch/csrc/{name.replace('_loose', '')}.cu",
+            "source": f"merpcr_tpu_torch/csrc/{SOURCE_OF.get(name, name)}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
             "device_events_lost": lost,
@@ -493,8 +530,18 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     # K1 / K8: plane units of the scan span + the distinct table words
     # looked up
     n_units = L // 8
-    u = units_of(tile[: tile.numel() // 4 * 4])
-    if cfg.strict:
+    u = units_of(tile[: tile.numel() // 4 * 4]) if not raw else None
+    if raw:  # one item per scan position, one bloom word per clean window;
+        # the least work is a rolling W-mer: code the new byte (4), shift it
+        # into the hash and mask (3), roll the ambiguity state (2), the bloom
+        # word and bit (4) and the flag into its word (1) per position
+        h, amb = raw_hashes(tile, torch.arange(L, device=tile.device) + lead, W)
+        bk = (h >> (2 * W - tb.bloom_bits))[~amb]
+        n_items, fe_name, fe, fe_plain = L, "front_end_raw", front_end_raw, front_end_raw_plain
+        fe_line = "merpcr_tpu/ops/scan.py:660"
+        fe_args = (tile, tb.bloom, tb.bloom_bits, W, lead, L, n_scan)
+        del h, amb
+    elif cfg.strict:
         s1 = cfg.strict_n == 1
         qb, gq = (tb.qbloom_s1, tb.gq1) if s1 else (tb.qbloom_s, tb.gq)
         t16, t16_bits = (tb.t16_1, tb.t16_1_bits) if s1 else (tb.t16, tb.t16_bits)
@@ -516,11 +563,11 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
                    "merpcr_tpu/ops/scan.py:609")
         fe_args = (tile, qb, gq, W, lead, L, n_scan, cfg.stride, cfg.qbloom_bits)
     distinct_words = int(torch.unique(bk >> 5).numel())
-    del u, A, bk
+    del u, bk
     words, c_total = run(
         fe_name, fe, fe_plain, fe_args, 50,
-        4 * (n_units + 2) + 4 * distinct_words + n_items // 8 + 4,
-        (70 if cfg.strict else 50) * n_items, fe_line, lambda o: o,
+        (L + W - 1 if raw else 4 * (n_units + 2)) + 4 * distinct_words + n_items // 8 + 4,
+        (14 if raw else 70 if cfg.strict else 50) * n_items, fe_line, lambda o: o,
     )
     c_total = int(c_total.item())
     # bucket lookup per expanded position: one 8-byte row, two starts, or
@@ -528,7 +575,12 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     steps = max(1, int(tb.uhash.numel()).bit_length()) if W >= 13 else 0
     pos_b, pos_ops = 4 + 8 + 4 * steps, 6 * steps
     tier = cfg.stride == 2
-    if cfg.strict:
+    if raw:  # a flagged position hashes its W bytes and looks its bucket up
+        ex_name, ex, ex_plain = "expand_raw", expand_raw, expand_raw_plain
+        ex_args = (tile, words, tb.csr, tb.emeta.shape[0], W, lead, L, n_scan)
+        ex_line = "merpcr_tpu/ops/scan.py:965"
+        item_b, item_ops = W + pos_b, 6 * W + pos_ops
+    elif cfg.strict:
         ex_name, ex, ex_plain = "expand", expand, expand_plain
         ex_args = (tile, words, tb.ptab, tb.pf_bits, t16, t16_bits, tb.csr,
                    tb.emeta.shape[0], W, lead, L, n_scan, cfg.stride,
@@ -561,26 +613,30 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     entry, ppos, _, _ = run(
         ex_name, ex, ex_plain, ex_args, 20,
         n_items // 8 + c_total * item_b + pos_total * pos_b + pair_total * 8,
-        4 * n_items + item_ops * c_total + pos_ops * pos_total, ex_line, lambda o: o,
+        4 * (n_items // 32 if raw else n_items) + item_ops * c_total + pos_ops * pos_total,
+        ex_line, lambda o: o,
     )
-    v_args = (tile, entry, ppos, tb.emeta, tb.p1_codes, p1x, t0, rmeta, recmap,
+    v_args = (tile, entry, ppos, tb.emeta, p1c, p1x, t0, rmeta, recmap,
               lead, nmm, x)
     a_idx = run(
-        "verify_p1", verify_p1, verify_p1_plain, v_args, 20,
-        pair_total * (8 + rec_b + 32 + 16 + code_b * tb.p1_codes.shape[1]),
-        pair_total * 6 * tb.p1_codes.shape[1],
+        "verify_p1_raw" if raw else "verify_p1", vf, vf_plain, v_args, 20,
+        pair_total * (8 + rec_b + 32 + (16 if not raw else p1c.shape[1])
+                      + code_b * p1c.shape[1]),
+        pair_total * 6 * p1c.shape[1],
+        "merpcr_tpu/ops/scan.py:1026" if raw else
         "merpcr_tpu/ops/scan.py:985" if cfg.stream else
         "merpcr_tpu/ops/scan.py:1039" if nmm else "merpcr_tpu/ops/scan.py:979",
         lambda o: (o,),
     )
     anch = a_idx.numel()
-    m_args = (tile, a_idx, entry, ppos, tb.emeta, tb.p2_codes, p2x, t0, rmeta,
+    m_args = (tile, a_idx, entry, ppos, tb.emeta, p2c, p2x, t0, rmeta,
               recmap, lead, margin, nmm, x)
     rows = run(
-        "margin_p2", margin_p2, margin_p2_plain, m_args, 20,
-        anch * (4 + 8 + rec_b + 32 + code_b * tb.p2_codes.shape[1]
-                + (2 * margin + cfg.p2_max) // 2),
+        "margin_p2_raw" if raw else "margin_p2", mf, mf_plain, m_args, 20,
+        anch * (4 + 8 + rec_b + 32 + code_b * p2c.shape[1]
+                + (2 * margin + cfg.p2_max) // (1 if raw else 2)),
         anch * (2 * margin + 1) * 40,
+        "merpcr_tpu/ops/scan.py:1147" if raw else
         "merpcr_tpu/ops/scan.py:1058" if cfg.stream else
         "merpcr_tpu/ops/scan.py:1157" if nmm else
         "merpcr_tpu/ops/scan.py:1201" if margin > 128 else "merpcr_tpu/ops/scan.py:1047",
@@ -617,16 +673,20 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         # them the comparison above could not tell the IUPAC kernels from
         # code-equality ones (at -N 0; a mismatch budget may admit the
         # same sites as mismatches)
-        a_eq = verify_p1_plain(*v_args[:5], None, *v_args[6:])
-        r_eq = margin_p2_plain(*m_args[:6], None, *m_args[7:])
+        a_eq = vf_plain(*v_args[:5], None, *v_args[6:])
+        r_eq = mf_plain(*m_args[:6], None, *m_args[7:])
         iupac_only = {"anch": anch - a_eq.numel(), "hit": int(rows.shape[0] - r_eq.shape[0])}
+        if raw:  # the byte modes' -I 0 branch (case-insensitive equality) too
+            check(torch.equal(vf(*v_args[:5], None, *v_args[6:]), a_eq)
+                  and torch.equal(mf(*m_args[:6], None, *m_args[7:]), r_eq),
+                  f"{variant}: -I 0 byte verify differs from plain")
         # (held at W = 11, where the R/Y/N letters are clear of the W-mer)
         check(nmm or W > 11 or min(iupac_only.values()) > 0,
               f"{variant}: no IUPAC-only matches {iupac_only}")
     emit({"phase": phase, "variant": variant or "record", "tile": t, "tile_len": L,
           "card": card, "strict": cfg.strict, "strict_n": cfg.strict_n, "mismatches": nmm,
           "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
-          "stream": cfg.stream, "iupac_only": iupac_only,
+          "stream": cfg.stream, "packed": cfg.packed, "iupac_only": iupac_only,
           "wordsize": W, "stride": cfg.stride, "exact_group": cfg.exact_group,
           "margin": margin, "chunked_margin": chunked, "pos_without_bloom": unpruned,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
@@ -645,19 +705,26 @@ def breakdown(eng, recs) -> dict:
     from merpcr_tpu_torch.ops.scan import record_rmeta, scan_stream
 
     rec = recs[0]
-    seq, packed = record_seq_bytes(rec), record_packed(rec)
+    t0 = time.perf_counter()
+    seq = record_seq_bytes(rec)  # a string of the API encoded at each search
+    t_bytes = time.perf_counter() - t0
+    packed = record_packed(rec)
     n = len(seq)
     total = n - eng.wordsize + 1
-    cfg = eng._base_config(eng._pick_tile_len(total))
+    cfg = eng._base_config(eng._pick_tile_len(total), packed=packed is not None)
     out = {"wordsize": eng.wordsize, "margin": eng.margin, "mismatches": eng.mismatches,
-           "strict": cfg.strict, "dirty_rate_s": None}
+           "iupac": cfg.iupac, "strict": cfg.strict, "packed": cfg.packed,
+           "seq_bytes_s": t_bytes, "dirty_rate_s": None}
     if cfg.strict:  # the loose path takes no dirty-rate sample
         t0 = time.perf_counter()
         eng._dirty_of(seq, packed)
         out["dirty_rate_s"] = time.perf_counter() - t0
     n_tiles = -(-total // cfg.tile_len)
     t0 = time.perf_counter()
-    plane_np = eng._plane(packed, cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead)
+    plane_np = eng._plane(seq if packed is None else packed,
+                          cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                          packed=packed is not None)
+    out["plane_bytes"] = int(plane_np.nbytes)
     out["plane_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     plane = torch.from_numpy(plane_np).to(eng.device)
@@ -769,7 +836,56 @@ def phase_assembly(MerPCR, wrappers, sts, fa, iupac: int, expect, absent,
           "warm_mbp_per_s": n_bp / 1e6 / t_warm, "cpu_plain_s": t_cpu,
           "table_compile_s": t_table, "fasta_load_s": t_fasta,
           "peak_mem_bytes": peak, "launches": launches, "equal_to_cpu": True})
-    return eng, recs, launches
+    return eng, recs, launches, warm
+
+
+RNA_EVERY = 100  # variant (e): every 100th scaffold rendered as RNA
+
+
+def phase_assembly_rna(MerPCR, wrappers, sts, fa, want: str, n_bp: int,
+                       card: str) -> dict:
+    """Variant (e): variant (c) (1 % IUPAC, -I 1) with every RNA_EVERY-th
+    scaffold rendered as RNA (T -> U). Each rendered scaffold takes the
+    raw-byte path alone and ends a stream run, the others the stream path:
+    cold then warm on the card, launch counts around the warm run (the raw
+    front end and expansion once per rendered scaffold, the stream
+    kernels at most once per stream tile), and the lines equal to variant
+    (c)'s ``want``. Returns the warm launches."""
+    from merpcr_tpu_torch.models import FASTARecord
+
+    eng = MerPCR(iupac_mode=1)
+    check(eng.load_sts_file(sts), "STS load failed")
+    recs = eng.load_fasta_file(fa)
+    n_raw = 0
+    for r in range(0, len(recs), RNA_EVERY):
+        recs[r] = FASTARecord(defline=recs[r].defline, sequence=rna(recs[r].sequence))
+        n_raw += 1
+    cold, hits_cold, t_cold = search_bytes(eng, recs)
+    for w in wrappers.values():
+        w.launches = 0
+    warm, hits, t_warm = search_bytes(eng, recs)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(warm == cold and hits == hits_cold, "e: warm search differs from cold")
+    raw = [(c, t) for c, t, _ in eng.last_scans if not c.packed]
+    streams = [(c, t, k) for c, t, k in eng.last_scans if c.packed]
+    check(len(raw) == n_raw and all(t == 1 for _, t in raw), f"e: raw scans {raw[:3]}")
+    check(all(c.stream and c.strict and c.dirty_bloom and c.iupac for c, _, _ in streams)
+          and sum(k for _, _, k in streams) == ASM_RECORDS - n_raw,
+          f"e: stream scans {[(t, k) for _, t, k in streams]}")
+    tiles = sum(t for _, t, _ in streams)
+    want_n = {"front_end_raw": (n_raw, n_raw), "expand_raw": (n_raw, n_raw),
+              "verify_p1_raw": (1, n_raw), "margin_p2_raw": (1, n_raw),
+              **{k: (1, tiles) for k in path_wrappers(streams[0][0])}}
+    check(all(want_n.get(k, (0, 0))[0] <= v <= want_n.get(k, (0, 0))[1]
+              for k, v in launches.items()),
+          f"e: launches {launches} for {n_raw} RNA scaffolds, {tiles} stream tiles")
+    check(warm == want, "e: lines differ from variant (c)'s")
+    emit({"phase": "assembly", "variant": "e_dirty_I1_rna", "card": card, "bases": n_bp,
+          "records": ASM_RECORDS, "rna_records": n_raw, "stream_planes": len(streams),
+          "stream_tiles": tiles, "iupac": 1, "hits": hits, "cold_s": t_cold,
+          "warm_s": t_warm, "warm_mbp_per_s": n_bp / 1e6 / t_warm,
+          "launches": launches, "equal_to_c": True})
+    return launches
 
 
 def tier_of(wordsize: int) -> tuple:
@@ -780,6 +896,8 @@ def tier_of(wordsize: int) -> tuple:
 
 def path_wrappers(cfg) -> tuple:
     """The wrappers a scan with ``cfg`` launches (one each per tile)."""
+    if not cfg.packed:
+        return RAW_WRAPPERS
     if cfg.strict:
         return ("front_end", "expand", "verify_p1", "margin_p2")
     return ("front_end_loose", "expand_loose", "verify_p1", "margin_p2")
@@ -923,6 +1041,132 @@ def phase_margin(MerPCR, recs, wrappers, expect, off_size, n: int, card: str,
     return out
 
 
+def raw_tile(eng, rec):
+    """(cfg, card plane, tile index, scan positions, rmeta, recmap) of a
+    raw-byte record's plane (one byte per position): tile 1 of 2^23."""
+    from merpcr_tpu_torch.io.fasta import record_seq_bytes
+    from merpcr_tpu_torch.ops.scan import record_rmeta
+
+    seq = record_seq_bytes(rec)
+    n = len(seq)
+    total = n - eng.wordsize + 1
+    cfg = eng._base_config(eng._pick_tile_len(total), packed=False)
+    check(cfg.tile_len == TILE and not cfg.packed, f"raw tile {cfg}")
+    n_tiles = -(-total // cfg.tile_len)
+    plane = eng._plane(seq, cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                       packed=False)
+    return (cfg, torch.from_numpy(plane).to(eng.device), 1, total,
+            record_rmeta(n, eng.device), None)
+
+
+RNA_JUNK = "-*.0123456789\u00e9ZE\u00ff"  # bytes outside the 16-letter alphabet
+JUNK_EVERY = 10_007
+
+
+def rna(seq: str) -> str:
+    """The RNA rendering of a DNA record: every T a U."""
+    return seq.replace("T", "U").replace("t", "u")
+
+
+def with_junk(seq: str, lines) -> tuple:
+    """``seq`` with one byte of RNA_JUNK about every 10 kb, none inside an
+    amplicon of ``lines`` (hit lines of that record) or within 50 bases of
+    one. Returns (sequence, junk bytes placed)."""
+    spans = sorted((int(a) - 51, int(b) + 50) for a, b in
+                   (ln.split("\t")[1].split("..") for ln in lines))
+    chars = list(seq)
+    placed, k = 0, 0
+    for pos in range(JUNK_EVERY // 2, len(chars), JUNK_EVERY):
+        k = next((j for j in range(k, len(spans)) if spans[j][1] >= pos), len(spans))
+        if k < len(spans) and spans[k][0] <= pos:
+            continue
+        chars[pos] = RNA_JUNK[placed % len(RNA_JUNK)]
+        placed += 1
+    return "".join(chars), placed
+
+
+def phase_raw(MerPCR, recs, wrappers, expect, mism, off_size, n: int, card: str,
+              sts: str) -> tuple:
+    """The 47 Mbp record rendered as RNA (T -> U, the reverse-strand plants
+    too) and passed through the API as a FASTARecord: records outside the
+    16-letter alphabet take the raw-byte path (K9). At -I 1: -N 0 prints
+    the DNA record's -I 1 bytes and all planted lines; -N 2 the 1- and
+    2-mismatch plants; W = 13 and 14 every exact plant; -M 1000 each
+    off-size plant exactly when the margin admits it. Then a rendering
+    with a junk byte about every 10 kb outside the amplicons: every planted
+    line, bytes equal to device="cpu". Then the raw kernels against their
+    plain versions on tile 1 (phase raw_kernels). Returns (kernel entries,
+    launches of the warm -N 0 search)."""
+    from merpcr_tpu_torch.models import FASTARecord
+
+    t0 = time.perf_counter()
+    rec = FASTARecord(defline=recs[0].defline, sequence=rna(recs[0].sequence))
+    t_render = time.perf_counter() - t0
+    eng = MerPCR(iupac_mode=1)
+    check(eng.load_sts_file(sts), "STS load failed (-I 1)")
+    dna, _, t_dna = search_bytes(eng, recs)
+    check(eng.last_scans[0][0].packed, "the DNA record did not scan packed")
+
+    def run(engine, what):
+        warm, hits, t_cold, t_warm, launches, cfg, n_tiles = timed_search(
+            engine, [rec], wrappers, what)
+        check(not cfg.packed and not cfg.strict and not cfg.dirty_bloom and cfg.iupac,
+              f"{what}: ran {cfg}")
+        lines = set(warm.splitlines())
+        missing = [e for e in expect if e not in lines]
+        check(not missing, f"{what}: {len(missing)} planted lines missing, e.g. {missing[:3]}")
+        emit({"phase": "raw", "variant": what, "card": card, "genome_bp": n,
+              "wordsize": engine.wordsize, "margin": engine.margin,
+              "mismatches": engine.mismatches, "iupac": 1, "tiles": n_tiles, "hits": hits,
+              "planted_found": len(expect), "cold_s": t_cold, "warm_s": t_warm,
+              "warm_mbp_per_s": n / 1e6 / t_warm, "launches": launches})
+        return warm, lines, launches
+
+    warm, lines, launches = run(eng, "rna_I1_N0")
+    check(warm == dna, "RNA -I 1 output differs from the DNA record's -I 1 output")
+    found = [e for k in mism for e in mism[k] if e in lines]
+    check(not found, f"RNA -N 0 found {len(found)} mismatch lines, e.g. {found[:3]}")
+    emit({"phase": "raw", "variant": "rna_equals_dna", "card": card, "equal": True,
+          "dna_search_s": t_dna, "render_s": t_render})
+    emit({"phase": "breakdown", "card": card, **breakdown(eng, [rec])})
+    kern = phase_kernels(eng, raw_tile(eng, rec), card, "raw_kernels", "raw+iupac")
+
+    eng.mismatches = 2
+    _, lines, _ = run(eng, "rna_I1_N2")
+    for k, want in mism.items():
+        got = sum(line in lines for line in want)
+        check(got == len(want), f"RNA -N 2: {got} of {len(want)} {k}-mismatch lines present")
+    eng.mismatches = 0
+    for W in (13, 14):
+        e_w = MerPCR(wordsize=W, iupac_mode=1)
+        check(e_w.load_sts_file(sts), f"STS load failed at W={W}")
+        run(e_w, f"rna_I1_W{W}")
+        del e_w
+    e_m = MerPCR(margin=1000, iupac_mode=1)
+    check(e_m.load_sts_file(sts), "STS load failed (-M 1000)")
+    _, lines, _ = run(e_m, "rna_I1_M1000")
+    found = {d: sum(line in lines for line in want) for d, want in off_size.items()}
+    check(all(found[d] == (len(want) if abs(d) <= 1000 else 0)
+              for d, want in off_size.items()), f"RNA -M 1000: off-size lines {found}")
+    del e_m
+
+    junk, placed = with_junk(rec.sequence, [*expect, *(e for v in mism.values() for e in v),
+                                            *(e for v in off_size.values() for e in v)])
+    jrec = FASTARecord(defline=recs[0].defline, sequence=junk)
+    card_out, hits, t_card = search_bytes(eng, [jrec])
+    lines = set(card_out.splitlines())
+    missing = [e for e in expect if e not in lines]
+    check(not missing, f"junk rendering: {len(missing)} planted lines missing")
+    cpu = MerPCR(device="cpu", iupac_mode=1)
+    check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+    cpu_out, _, t_cpu = search_bytes(cpu, [jrec])
+    check(cpu_out == card_out, "junk rendering: card output differs from the CPU output")
+    emit({"phase": "raw", "variant": "rna_junk_I1", "card": card, "junk_bytes": placed,
+          "hits": hits, "planted_found": len(expect), "card_s": t_card,
+          "cpu_plain_s": t_cpu, "equal_to_cpu": True})
+    return kern, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -936,14 +1180,16 @@ def main() -> int:
         return 2
     from merpcr_tpu_torch import MerPCR
     from merpcr_tpu_torch.ops import kernels
-    from merpcr_tpu_torch.ops.expand import expand, expand_loose
-    from merpcr_tpu_torch.ops.front_end import front_end, front_end_loose
-    from merpcr_tpu_torch.ops.margin_p2 import margin_p2
-    from merpcr_tpu_torch.ops.verify_p1 import verify_p1
+    from merpcr_tpu_torch.ops.expand import expand, expand_loose, expand_raw
+    from merpcr_tpu_torch.ops.front_end import front_end, front_end_loose, front_end_raw
+    from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_raw
+    from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_raw
 
     wrappers = {"front_end": front_end, "front_end_loose": front_end_loose,
                 "expand": expand, "expand_loose": expand_loose,
-                "verify_p1": verify_p1, "margin_p2": margin_p2}
+                "verify_p1": verify_p1, "margin_p2": margin_p2,
+                "front_end_raw": front_end_raw, "expand_raw": expand_raw,
+                "verify_p1_raw": verify_p1_raw, "margin_p2_raw": margin_p2_raw}
     t_start = time.perf_counter()
 
     # 1. device
@@ -1022,7 +1268,10 @@ def main() -> int:
         # 8. every -M: margins above 128
         mg = phase_margin(MerPCR, recs, wrappers, expect, off_size, n, card, sts)
 
-        # 9. golden
+        # 9. records outside the 16-letter alphabet: the raw-byte path (K9)
+        rw = phase_raw(MerPCR, recs, wrappers, expect, mism, off_size, n, card, sts)
+
+        # 10. golden
         data = os.path.join(ROOT, "tests", "data")
         g_sts, g_fa = os.path.join(data, "test.sts"), os.path.join(data, "test.fa")
         g = MerPCR()
@@ -1072,7 +1321,7 @@ def main() -> int:
               "cli_n2": True, "n2_lines": api_2.count("\n"), "cli_w13_m300": True})
         del eng, g, gi, g2, gw
 
-        # 10. assembly
+        # 11. assembly
         t0 = time.perf_counter()
         a_sts, a_clean, a_dirty, a_bp, a_expect, a_expect_i = make_assembly(
             tmp, args.seed, args.nsts, args.planted)
@@ -1085,14 +1334,14 @@ def main() -> int:
                                                   ("c_dirty_I1", a_dirty, 1, True, 0),
                                                   ("d_dirty_I1_N2", a_dirty, 1, False, 2)):
             expect, absent = (a_expect + a_expect_i, []) if iupac else (a_expect, a_expect_i)
-            a_eng, a_recs, launched = phase_assembly(
+            a_eng, a_recs, launched, a_out = phase_assembly(
                 MerPCR, wrappers, a_sts, fa_v, iupac, expect, absent, a_bp,
                 card, variant, bloom, n_mm)
             if variant.startswith("c"):
-                stream_launches = launched
+                stream_launches, c_out = launched, a_out
                 emit({"phase": "assembly_breakdown", "variant": variant, "card": card,
                       **stream_breakdown(a_eng, a_recs)})
-                # 11. stream kernels on one real stream tile of variant (c)
+                # 12. stream kernels on one real stream tile of variant (c)
                 s_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
                                       "stream_kernels", "stream+dirty_bloom+iupac")
             if variant.startswith("d"):
@@ -1103,13 +1352,15 @@ def main() -> int:
                 d_res = phase_kernels(a_eng, stream_tile(a_eng, a_recs), card,
                                       "stream_kernels", "stream+iupac+N2")
             del a_eng, a_recs
+        # variant (e): (c) with every 100th scaffold rendered as RNA
+        phase_assembly_rna(MerPCR, wrappers, a_sts, a_dirty, c_out, a_bp, card)
         # variant (c) at W = 13 (stride-2 ptab, bloom as a prefix filter)
         # and W = 14 (no ptab: every valid phase, pruned by the bloom); the
         # R/Y/N letters may fall into the wider W-mer, so only the
         # ACGT-primer lines are held
         sw = []
         for W in (13, 14):
-            a_eng, a_recs, launched = phase_assembly(
+            a_eng, a_recs, launched, _ = phase_assembly(
                 MerPCR, wrappers, a_sts, a_dirty, 1, a_expect, [], a_bp, card,
                 f"c_dirty_I1_W{W}", True, 0, W)
             # and that path's kernels on one real stream tile
@@ -1120,7 +1371,7 @@ def main() -> int:
 
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),
-                           (d_res, d_launches), *ws, *mg, *sw):
+                           (d_res, d_launches), *ws, *mg, *sw, rw):
         for k, r in kern.items():
             r["launches"] = launched[k]
             rows.append(r)

@@ -20,12 +20,19 @@
 // W <= 11, the pair bstart[h], bstart[h+1] at W = 12, a binary search of
 // the sorted unique keys uhash and then ustart at W >= 13.
 //
-// The loose mode (loose != 0) is the loose branch of the same stages
+// The loose mode (mode 1) is the loose branch of the same stages
 // (scan.py:775-795, :863-875), behind the K8 front end: one thread per
 // stride group q = P*r + p, whose registers are unit r's shifted right by
 // stride*p bases; `stride` phases at scan positions stride*q + d; a clean
 // span keeps ptab's phase bits within the valid ones, a dirty span (or any
 // span without a ptab) all valid phases; no t16 and no bloom.
+//
+// The raw mode (mode 2, K9b) is the unpacked branch (scan.py:680-719,
+// :965-977) behind the raw-byte front end (K9a): one thread per flag word
+// of a plane with one byte per position (32 positions, bit d = position
+// 32w + d); each flagged position recomputes its W-mer from its W bytes and
+// expands its one bucket. There is no position stage there, so pos_total
+// stays 0 as in the JAX totals.
 //
 // Pairs come out in (item, phase, bucket slot) order, so pair j here is
 // the JAX pipeline's pair j: the order is the emission key pair_order.
@@ -179,23 +186,41 @@ __device__ __forceinline__ int2 phase_bucket(const mp::UnitRegs& g, int d,
   return bucket_of(t.csr, mp::window_bases(g.A, g.B, d, W));
 }
 
-// An item is a strict-flagged u32 unit (8 phases) or, in the loose mode, a
+// The three modes of an item (the `mode` argument of the C entries).
+enum Mode { kStrict = 0, kLoose = 1, kRaw = 2 };
+
+// An item is a strict-flagged u32 unit (8 phases), in the loose mode a
 // loose-flagged stride group (`stride` phases, scan.py:775-795, :863-875;
-// no t16, no K10). Its registers hold the window that starts at its first
-// scan position, and its phase nibble says which phases expand.
-template <bool kLoose>
+// no t16, no K10), or in the raw mode a nonzero flag word of a raw-byte
+// plane (K9b, scan.py:965-977: 32 positions, the word's bits are its
+// phases). Its registers hold the window that starts at its first scan
+// position (raw: `bytes` points at its first position's byte), and its
+// phase bits say which phases expand.
+template <int kMode>
 struct Item {
   mp::UnitRegs g;
   uint32_t nb;
+  const uint8_t* bytes;
 
   static __device__ __forceinline__ int n_phases(const Tables& t) {
-    return kLoose ? t.stride : 8;
+    return kMode == kStrict ? 8 : kMode == kLoose ? t.stride : 32;
+  }
+
+  // Is item i flagged: its bit of the flag words, or (raw) its word.
+  static __device__ __forceinline__ bool flagged(const uint32_t* __restrict__ words,
+                                                 int i) {
+    if (kMode == kRaw) return words[i] != 0u;
+    return (words[i >> 5] >> (i & 31)) & 1u;
   }
 
   __device__ __forceinline__ void load(const uint32_t* __restrict__ units,
+                                       const uint32_t* __restrict__ words,
                                        int i, int W, int n_scan,
                                        const Tables& t) {
-    if (kLoose) {
+    if (kMode == kRaw) {
+      bytes = reinterpret_cast<const uint8_t*>(units) + 32ll * i;
+      nb = words[i];
+    } else if (kMode == kLoose) {
       g = mp::load_group(units, i, t.stride);
       const uint32_t nbv =
           valid_phases(g, t.stride, static_cast<long long>(t.stride) * i, W, n_scan);
@@ -206,20 +231,30 @@ struct Item {
     }
   }
 
+  // Bucket (start, count) of phase d. Raw: the front end flagged only
+  // clean windows, so the position's W-mer hashes.
+  __device__ __forceinline__ int2 bucket(int d, int W, const Tables& t) const {
+    if (kMode == kRaw) {
+      uint32_t h;
+      return mp::raw_hash(bytes + d, W, &h) ? bucket_of(t.csr, h) : make_int2(0, 0);
+    }
+    return phase_bucket(g, d, W, t);
+  }
+
+  // Positions the JAX totals count: the raw path has no position stage
+  // (pos_total is 0 there, scan.py:967).
+  __device__ __forceinline__ int n_positions() const {
+    return kMode == kRaw ? 0 : __popc(nb);
+  }
+
   __device__ __forceinline__ int n_pairs(int W, const Tables& t) const {
     int n = 0;
-    for (int d = 0; d < 8; ++d)
-      if ((nb >> d) & 1u) n += phase_bucket(g, d, W, t).y;
+    for (uint32_t m = nb; m; m &= m - 1u) n += bucket(__ffs(m) - 1, W, t).y;
     return n;
   }
 };
 
-__device__ __forceinline__ bool item_flag(const uint32_t* __restrict__ words,
-                                          int i) {
-  return (words[i >> 5] >> (i & 31)) & 1u;
-}
-
-template <bool kLoose>
+template <int kMode>
 __global__ void expand_count_kernel(const uint32_t* __restrict__ units,
                                     const uint32_t* __restrict__ words,
                                     Tables t, int W, int n_items, int n_scan,
@@ -228,10 +263,10 @@ __global__ void expand_count_kernel(const uint32_t* __restrict__ units,
   __shared__ int warp_sums[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   int n_pos = 0, n_pairs = 0;
-  if (i < n_items && item_flag(words, i)) {
-    Item<kLoose> it;
-    it.load(units, i, W, n_scan, t);
-    n_pos = __popc(it.nb);
+  if (i < n_items && Item<kMode>::flagged(words, i)) {
+    Item<kMode> it;
+    it.load(units, words, i, W, n_scan, t);
+    n_pos = it.n_positions();
     n_pairs = it.n_pairs(W, t);
   }
   int blk;
@@ -241,7 +276,7 @@ __global__ void expand_count_kernel(const uint32_t* __restrict__ units,
   if (threadIdx.x == 0) blk_pairs[blockIdx.x] = blk;
 }
 
-template <bool kLoose>
+template <int kMode>
 __global__ void expand_write_kernel(const uint32_t* __restrict__ units,
                                     const uint32_t* __restrict__ words,
                                     Tables t, int W, int n_items, int n_scan,
@@ -250,22 +285,23 @@ __global__ void expand_write_kernel(const uint32_t* __restrict__ units,
                                     int* __restrict__ ppos) {
   __shared__ int warp_sums[32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  Item<kLoose> it;
+  Item<kMode> it;
   it.g = {0, 0, 0, 0};
   it.nb = 0;
+  it.bytes = nullptr;
   int n_pairs = 0;
-  if (i < n_items && item_flag(words, i)) {
-    it.load(units, i, W, n_scan, t);
+  if (i < n_items && Item<kMode>::flagged(words, i)) {
+    it.load(units, words, i, W, n_scan, t);
     n_pairs = it.n_pairs(W, t);
   }
   int unused;
   int out = mp::block_exclusive_scan(n_pairs, warp_sums, &unused);
   if (!n_pairs) return;
   out += blk_off[blockIdx.x];
-  const int n_phases = Item<kLoose>::n_phases(t);
-  for (int d = 0; d < n_phases; ++d) {
-    if (!((it.nb >> d) & 1u)) continue;
-    const int2 sc = phase_bucket(it.g, d, W, t);
+  const int n_phases = Item<kMode>::n_phases(t);
+  for (uint32_t m = it.nb; m; m &= m - 1u) {  // phases in ascending order
+    const int d = __ffs(m) - 1;
+    const int2 sc = it.bucket(d, W, t);
     for (int s = 0; s < sc.y; ++s, ++out) {
       entry[out] = min(max(sc.x + s, 0), t.n_entries - 1);
       ppos[out] = i * n_phases + d;
@@ -289,22 +325,44 @@ Tables make_tables(const void* ptab, int pf_bits, const void* t16,
                 bloom_shift};
 }
 
+template <int kMode>
+cudaError_t launch_count(int nb, cudaStream_t s, const uint32_t* u,
+                         const uint32_t* w, const Tables& t, int W,
+                         int n_items, int n_scan, int* tot, int* blk_pairs) {
+  expand_count_kernel<kMode><<<nb, mp::kBlock, 0, s>>>(u, w, t, W, n_items,
+                                                       n_scan, tot, blk_pairs);
+  return cudaGetLastError();
+}
+
+template <int kMode>
+cudaError_t launch_write(int nb, cudaStream_t s, const uint32_t* u,
+                         const uint32_t* w, const Tables& t, int W,
+                         int n_items, int n_scan, const int* off, int* entry,
+                         int* ppos) {
+  expand_write_kernel<kMode><<<nb, mp::kBlock, 0, s>>>(u, w, t, W, n_items,
+                                                       n_scan, off, entry, ppos);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Count pass + block-sum scan. n_items: tile_len / 8 units, or with loose
-// != 0 tile_len / stride groups; blk_pairs/blk_off hold n_blocks(n_items)
-// ints; totals is int[2] = (pos_total, pair_total), zeroed by the caller.
-// ptab null: no exact group table (W >= 14). t16 may be null when t16_bits
-// is 0, bloom null to leave K10 off (the loose mode never reads either).
+// Count pass + block-sum scan. mode 0 (strict): n_items = tile_len / 8
+// units; 1 (loose): tile_len / stride groups; 2 (raw): tile_len / 32 flag
+// words of 32 positions, `units` then being the raw byte plane offset to the first scan position
+// (W - 1 readable bytes past the last). blk_pairs/blk_off hold
+// n_blocks(n_items) ints; totals is int[2] = (pos_total, pair_total),
+// zeroed by the caller. ptab null: no exact group table (W >= 14, and the
+// raw mode). t16 may be null when t16_bits is 0, bloom null to leave K10
+// off (the loose and raw modes read neither).
 // csr_kind 0: csr_a = bsc rows; 1: csr_a = bstart; 2: csr_a = uhash
 // (n_keys of them), csr_b = ustart.
 int mp_expand_count(const void* units, const void* words, const void* ptab,
                     int pf_bits, const void* t16, int t16_bits, int csr_kind,
                     const void* csr_a, const void* csr_b, int n_keys,
                     int n_entries, const void* bloom, int bloom_shift, int W,
-                    int stride, int n_items, int n_scan, int loose,
+                    int stride, int n_items, int n_scan, int mode,
                     void* blk_pairs, void* blk_off, void* totals,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -315,13 +373,11 @@ int mp_expand_count(const void* units, const void* words, const void* ptab,
   int* tot = static_cast<int*>(totals);
   const uint32_t* u = static_cast<const uint32_t*>(units);
   const uint32_t* w = static_cast<const uint32_t*>(words);
-  if (loose)
-    expand_count_kernel<true><<<nb, mp::kBlock, 0, s>>>(
-        u, w, t, W, n_items, n_scan, tot, static_cast<int*>(blk_pairs));
-  else
-    expand_count_kernel<false><<<nb, mp::kBlock, 0, s>>>(
-        u, w, t, W, n_items, n_scan, tot, static_cast<int*>(blk_pairs));
-  cudaError_t e = cudaGetLastError();
+  int* bp = static_cast<int*>(blk_pairs);
+  const cudaError_t e =
+      mode == kRaw ? launch_count<kRaw>(nb, s, u, w, t, W, n_items, n_scan, tot, bp)
+      : mode == kLoose ? launch_count<kLoose>(nb, s, u, w, t, W, n_items, n_scan, tot, bp)
+                       : launch_count<kStrict>(nb, s, u, w, t, W, n_items, n_scan, tot, bp);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(mp::launch_scan_sums(
       static_cast<const int*>(blk_pairs), nb, static_cast<int*>(blk_off),
@@ -333,7 +389,7 @@ int mp_expand_write(const void* units, const void* words, const void* ptab,
                     int pf_bits, const void* t16, int t16_bits, int csr_kind,
                     const void* csr_a, const void* csr_b, int n_keys,
                     int n_entries, const void* bloom, int bloom_shift, int W,
-                    int stride, int n_items, int n_scan, int loose,
+                    int stride, int n_items, int n_scan, int mode,
                     const void* blk_off, void* entry, void* ppos,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -344,15 +400,12 @@ int mp_expand_write(const void* units, const void* words, const void* ptab,
   const uint32_t* u = static_cast<const uint32_t*>(units);
   const uint32_t* w = static_cast<const uint32_t*>(words);
   const int* off = static_cast<const int*>(blk_off);
-  if (loose)
-    expand_write_kernel<true><<<nb, mp::kBlock, 0, s>>>(
-        u, w, t, W, n_items, n_scan, off, static_cast<int*>(entry),
-        static_cast<int*>(ppos));
-  else
-    expand_write_kernel<false><<<nb, mp::kBlock, 0, s>>>(
-        u, w, t, W, n_items, n_scan, off, static_cast<int*>(entry),
-        static_cast<int*>(ppos));
-  return static_cast<int>(cudaGetLastError());
+  int* en = static_cast<int*>(entry);
+  int* pp = static_cast<int*>(ppos);
+  return static_cast<int>(
+      mode == kRaw ? launch_write<kRaw>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp)
+      : mode == kLoose ? launch_write<kLoose>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp)
+                       : launch_write<kStrict>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp));
 }
 
 const char* mp_error_string(int code) {

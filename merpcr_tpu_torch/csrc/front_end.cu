@@ -1,4 +1,5 @@
-// front_end: the front ends of one tile, strict (K1) and loose (K8).
+// front_end: the front ends of one tile, strict (K1), loose (K8) and
+// raw-byte (K9a, front_end_raw_kernel below).
 //
 // K1 replaces merpcr_tpu/ops/scan.py::_scan_tile_impl, packed decode and
 // the strict branch (scan.py:452-502, :522-578, _bit_at :252): per u32
@@ -15,7 +16,11 @@
 // plane words (coalesced), __ballot_sync builds each flag word in
 // registers, and c_total costs one atomicAdd per warp, not per flag. The
 // loose kernel makes one gather per group (two or four per unit) into an
-// 8-32 MB group table.
+// 8-32 MB group table. The raw kernel reads one byte per position, codes
+// it once into shared memory and builds each position's W-mer from W codes
+// there (~3W integer ops per position; a rolling W-mer would need ~14), and
+// makes one random 4-byte gather into the bloom per clean window. Its bound
+// is the ~1.2 bytes per position it moves, not its arithmetic.
 
 #include "compact.cuh"
 #include "units.cuh"
@@ -96,6 +101,48 @@ __global__ void front_end_loose_kernel(const uint32_t* __restrict__ units,
   }
 }
 
+// K9a: the raw-byte front end (scan.py:660-678, bloom_flag :445-450), for
+// records with bytes outside the 16-letter alphabet. One thread per scan
+// position i: the LSB-first W-mer of bytes i .. i+W-1 (any ambiguous byte
+// clears the flag), i < n_scan, and one bit of the table's W-mer occupancy
+// map at h >> (2W - bloom_bits), a prefix filter once 2W passes its 24 bits.
+// A block codes its kBlock + W - 1 bytes once (coalesced byte loads, the
+// branch-free mp::scode) into shared memory; each thread then reads its W
+// codes there (neighbouring threads share 4-byte words: no bank conflict).
+// A warp is 32 consecutive positions, so __ballot_sync gives the flag word
+// with bit i = position 32w + i; one random 4-byte gather into the <= 2 MB
+// bloom (L2-resident) per clean window.
+__global__ void front_end_raw_kernel(const uint8_t* __restrict__ plane,
+                                     const uint32_t* __restrict__ bloom,
+                                     int bloom_shift, int W, int n_pos,
+                                     int n_scan, uint32_t* __restrict__ words,
+                                     int* __restrict__ c_total) {
+  __shared__ uint8_t codes[mp::kBlock + 16];
+  const int base = blockIdx.x * mp::kBlock;
+  const int i = base + threadIdx.x;
+  // n_pos is a multiple of kBlock and W - 1 bytes past it are readable
+  codes[threadIdx.x] = mp::scode(plane[i]);
+  if (threadIdx.x < W - 1)
+    codes[mp::kBlock + threadIdx.x] = mp::scode(plane[base + mp::kBlock + threadIdx.x]);
+  __syncthreads();
+  uint32_t h = 0, any = 0;
+  for (int k = 0; k < W; ++k) {
+    const uint32_t c = codes[threadIdx.x + k];
+    h |= (c & 3u) << (2 * k);
+    any |= c;
+  }
+  bool flag = false;
+  if (i < n_scan && !(any & ~3u)) {  // only kAmbig has a bit above the low two
+    const uint32_t bk = h >> bloom_shift;
+    flag = (__ldg(bloom + (bk >> 5)) >> (bk & 31u)) & 1u;
+  }
+  const unsigned word = __ballot_sync(0xffffffffu, flag);
+  if ((threadIdx.x & 31) == 0) {
+    words[i >> 5] = word;
+    if (word) atomicAdd(c_total, __popc(word));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,6 +178,21 @@ int mp_front_end_loose(const void* units, const void* qbloom, int q_bits,
       static_cast<const uint32_t*>(units), static_cast<const uint32_t*>(qbloom),
       m2q, m2kb, hash_bits, W, stride, n_groups, n_scan,
       static_cast<uint32_t*>(words), static_cast<int*>(c_total));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K9a. plane: the raw tile plane, one byte per position, offset to the first
+// scan position (lead); n_pos = tile_len (a multiple of 256), with W - 1
+// readable bytes past it; bloom: 2^(2W - bloom_shift) bits; words: n_pos / 32
+// outputs; c_total: one int, zeroed by the caller.
+int mp_front_end_raw(const void* plane, const void* bloom, int bloom_shift,
+                     int W, int n_pos, int n_scan, void* words, void* c_total,
+                     void* stream) {
+  front_end_raw_kernel<<<mp::n_blocks(n_pos), mp::kBlock, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(plane), static_cast<const uint32_t*>(bloom),
+      bloom_shift, W, n_pos, n_scan, static_cast<uint32_t*>(words),
+      static_cast<int*>(c_total));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,8 @@
 // = 0, -1, +1, -2, ... (_rank_d :344), the structural bounds (:1241-1248),
 // the rank mask (:1249-1257) and the primer-2 verify with the '-' strand's
 // first-X-bases protection (_p2_ok_of :1133-1158; at -I 1 the IUPAC
-// expansion-set test of K11, :1139-1143). Every clamp and bound runs in the
+// expansion-set test of K11, :1139-1143; in the byte mode, K9c, genome
+// bytes against primer bytes, :1147-1152). Every clamp and bound runs in the
 // coordinates of the anchor's record (K14, :1058-1077): its length and
 // index come from the record that owns the pair's scan position, while the
 // plane reads use the plane anchor. Hits come out anchor-major, rank-minor
@@ -35,14 +36,16 @@
 namespace {
 
 struct Margin {
-  const uint8_t* plane;  // tile plane (packed nibbles)
+  const uint8_t* plane;  // tile plane (packed nibbles, or raw bytes)
   long long n_pos;  // positions in the tile plane
+  bool raw;  // one byte per position (K9c)
   const int* a_idx;  // anchor -> pair index
   const int* entry;  // pair -> entry
   const int* ppos;  // pair -> scan position in the tile
   const int* emeta;  // [E, 8]
-  const uint8_t* p2_codes;  // [E, p2_max]
+  const uint8_t* p2_codes;  // [E, p2_max] codes, or primer bytes when raw
   const uint32_t* p2_exp;  // [E, p2_max] IUPAC masks (-I 1); null: -I 0
+  const uint8_t* match;  // raw: 256 x 256 match table (-I 1); null: -I 0
   int p2_max;
   long long tile_start;  // plane position of the first scan position
   mp::Records rec;
@@ -103,7 +106,7 @@ __device__ __forceinline__ bool p2_ok(const Item& it, const Margin& m) {
   const uint32_t* px = m.p2_exp ? m.p2_exp + row : nullptr;
   int mism = 0;
   for (int i = 0; i < it.l2; ++i) {
-    if (!mp::base_match(mp::nibble_at(m.plane, base + i, m.n_pos), i, pc, px)) {
+    if (!mp::site_match(m.plane, base + i, m.n_pos, m.raw, i, pc, px, m.match)) {
       if (i < m.three_prime) return false;  // '-': first X bases
       ++mism;
     }
@@ -145,17 +148,19 @@ __global__ void margin_write_kernel(Margin m, long long n_items,
   row[5] = it.rec;
 }
 
-Margin make_margin(const void* plane, long long n_pos, const void* a_idx,
-                   const void* entry, const void* ppos, const void* emeta,
-                   const void* p2_codes, const void* p2_exp, int p2_max,
+Margin make_margin(const void* plane, long long n_pos, int raw,
+                   const void* a_idx, const void* entry, const void* ppos,
+                   const void* emeta, const void* p2_codes,
+                   const void* p2_exp, const void* match, int p2_max,
                    long long tile_start, const void* rmeta,
                    const void* recmap, long long n_map, int lead, int margin,
                    int nmm, int three_prime) {
-  return Margin{static_cast<const uint8_t*>(plane), n_pos,
+  return Margin{static_cast<const uint8_t*>(plane), n_pos, raw != 0,
                 static_cast<const int*>(a_idx), static_cast<const int*>(entry),
                 static_cast<const int*>(ppos), static_cast<const int*>(emeta),
                 static_cast<const uint8_t*>(p2_codes),
-                static_cast<const uint32_t*>(p2_exp), p2_max, tile_start,
+                static_cast<const uint32_t*>(p2_exp),
+                static_cast<const uint8_t*>(match), p2_max, tile_start,
                 mp::Records{static_cast<const int*>(rmeta),
                             static_cast<const int*>(recmap), n_map},
                 lead, margin, nmm, three_prime};
@@ -167,19 +172,24 @@ extern "C" {
 
 // Count pass + block-sum scan over n_anch * (2 * margin + 1) items: hit
 // holds one byte per item, blk_cnt/blk_off n_blocks(items) ints, hit_total
-// one int. p2_exp null: -I 0. recmap null: the plane holds record 0 alone.
-int mp_margin_count(const void* plane, long long n_pos, const void* a_idx,
-                    int n_anch, const void* entry, const void* ppos,
-                    const void* emeta, const void* p2_codes,
-                    const void* p2_exp, int p2_max, long long tile_start,
+// one int. raw 0: a nibble plane of n_pos positions, p2_codes and (-I 1)
+// p2_exp; raw 1: a byte plane of n_pos bytes, p2_codes holding the primer
+// bytes and (-I 1) match the 65,536-byte match table. p2_exp/match null:
+// -I 0. recmap null: the plane holds record 0 alone.
+int mp_margin_count(const void* plane, long long n_pos, int raw,
+                    const void* a_idx, int n_anch, const void* entry,
+                    const void* ppos, const void* emeta, const void* p2_codes,
+                    const void* p2_exp, const void* match, int p2_max,
+                    long long tile_start,
                     const void* rmeta, const void* recmap, long long n_map,
                     int lead, int margin, int nmm, int three_prime, void* hit,
                     void* blk_cnt, void* blk_off, void* hit_total,
                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Margin m = make_margin(plane, n_pos, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_exp, p2_max, tile_start, rmeta,
-                               recmap, n_map, lead, margin, nmm, three_prime);
+  const Margin m = make_margin(plane, n_pos, raw, a_idx, entry, ppos, emeta,
+                               p2_codes, p2_exp, match, p2_max, tile_start,
+                               rmeta, recmap, n_map, lead, margin, nmm,
+                               three_prime);
   const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
   const int nb = mp::n_blocks(n_items);
   margin_count_kernel<<<nb, mp::kBlock, 0, s>>>(
@@ -192,17 +202,19 @@ int mp_margin_count(const void* plane, long long n_pos, const void* a_idx,
 }
 
 // Write pass: rows holds hit_total x 6 ints.
-int mp_margin_write(const void* plane, long long n_pos, const void* a_idx,
-                    int n_anch, const void* entry, const void* ppos,
-                    const void* emeta, const void* p2_codes,
-                    const void* p2_exp, int p2_max, long long tile_start,
+int mp_margin_write(const void* plane, long long n_pos, int raw,
+                    const void* a_idx, int n_anch, const void* entry,
+                    const void* ppos, const void* emeta, const void* p2_codes,
+                    const void* p2_exp, const void* match, int p2_max,
+                    long long tile_start,
                     const void* rmeta, const void* recmap, long long n_map,
                     int lead, int margin, int nmm, int three_prime,
                     const void* hit,
                     const void* blk_off, void* rows, void* stream) {
-  const Margin m = make_margin(plane, n_pos, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_exp, p2_max, tile_start, rmeta,
-                               recmap, n_map, lead, margin, nmm, three_prime);
+  const Margin m = make_margin(plane, n_pos, raw, a_idx, entry, ppos, emeta,
+                               p2_codes, p2_exp, match, p2_max, tile_start,
+                               rmeta, recmap, n_map, lead, margin, nmm,
+                               three_prime);
   const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
   margin_write_kernel<<<mp::n_blocks(n_items), mp::kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(

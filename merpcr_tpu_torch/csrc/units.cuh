@@ -77,6 +77,39 @@ __device__ __forceinline__ uint32_t window16(uint32_t lo, uint32_t hi, int d) {
   return d == 0 ? lo : (lo >> (2 * d)) | (hi << (32 - 2 * d));
 }
 
+// Raw-byte planes (records outside the 16-letter alphabet) hold one byte per
+// position. kAmbig is the code of every byte that is no A/C/G/T/U, in
+// either case (encoding.SCODE, scan.py:270-284, without a table); it is the
+// only code with a bit above the low two.
+constexpr uint32_t kAmbig = 100u;
+
+// Branch-free, so that a warp over mixed bases does not diverge: a letter's
+// low five bits are 1 (A), 3 (C), 7 (G), 20 (T) or 21 (U) in either case;
+// kBases marks those five, kCodes holds their 2-bit codes at bits 2 * low5.
+constexpr uint32_t kBases = (1u << 1) | (1u << 3) | (1u << 7) | (1u << 20) | (1u << 21);
+constexpr uint64_t kCodes = (1ull << 6) | (2ull << 14) | (3ull << 40) | (3ull << 42);
+
+__device__ __forceinline__ uint32_t scode(uint32_t b) {
+  const uint32_t low5 = b & 0x1Fu;
+  const bool letter = (b | 32u) - 'a' <= 'z' - 'a';  // ASCII letters only
+  const bool base = (kBases >> low5) & 1u;
+  return letter && base ? static_cast<uint32_t>(kCodes >> (2 * low5)) & 3u : kAmbig;
+}
+
+// The LSB-first W-mer of the W bytes at p (base k at bits 2k, 2k+1; all 32
+// bits at W = 16), or false when one of them is ambiguous (scan.py:661-669).
+__device__ __forceinline__ bool raw_hash(const uint8_t* __restrict__ p, int W,
+                                         uint32_t* h) {
+  uint32_t v = 0;
+  for (int k = 0; k < W; ++k) {
+    const uint32_t c = scode(p[k]);
+    if (c == kAmbig) return false;
+    v |= c << (2 * k);
+  }
+  *h = v;
+  return true;
+}
+
 // Exact-width OR-smear of the dirty fields: field d of the result is
 // nonzero iff window d .. d+W-1 holds a dirty base. sm[k] smears over 2^k
 // bases; W is assembled from its binary digits, high first.

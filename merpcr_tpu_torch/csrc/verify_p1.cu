@@ -8,7 +8,10 @@
 // primer length (code equality, or at -I 1 the IUPAC expansion-set test
 // of K11, :1020-1022) with the mismatch budget and the '+' strand's
 // last-X-bases protection. The passing pairs, in pair order, are the
-// anchors; an anchor's pair index is its emission key pair_order.
+// anchors; an anchor's pair index is its emission key pair_order. The byte
+// mode (K9c, :1026-1031) reads a raw-byte plane and compares genome bytes
+// with the primer bytes, case-insensitively at -I 0 and through the
+// reference's 256 x 256 match table at -I 1; everything else is the same.
 //
 // Bound on the card: memory latency of small gathers. A pair reads one
 // 32-byte emeta row, at most 16 plane bytes and one primer row; pairs are
@@ -23,11 +26,13 @@
 namespace {
 
 struct Verify1 {
-  const uint8_t* plane;  // tile plane (packed nibbles)
+  const uint8_t* plane;  // tile plane (packed nibbles, or raw bytes)
   long long n_pos;  // positions in the tile plane
+  bool raw;  // one byte per position (K9c)
   const int* emeta;  // [E, 8]
-  const uint8_t* p1_codes;  // [E, p1_max]
+  const uint8_t* p1_codes;  // [E, p1_max] codes, or primer bytes when raw
   const uint32_t* p1_exp;  // [E, p1_max] IUPAC masks (-I 1); null: -I 0
+  const uint8_t* match;  // raw: 256 x 256 match table (-I 1); null: -I 0
   int p1_max;
   long long tile_start;  // plane position of the first scan position
   mp::Records rec;
@@ -48,7 +53,7 @@ __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
   const uint32_t* px = v.p1_exp ? v.p1_exp + row : nullptr;
   int mism = 0;
   for (int i = 0; i < l1; ++i) {
-    if (!mp::base_match(mp::nibble_at(v.plane, kl + i, v.n_pos), i, pc, px)) {
+    if (!mp::site_match(v.plane, kl + i, v.n_pos, v.raw, i, pc, px, v.match)) {
       if (i >= l1 - v.three_prime) return false;  // '+': last X bases
       ++mism;
     }
@@ -72,20 +77,25 @@ __global__ void verify_p1_count_kernel(const int* __restrict__ entry,
 extern "C" {
 
 // Count pass + block-sum scan: ok holds n bytes, blk_cnt/blk_off hold
-// n_blocks(n) ints, anch_total one int.
-// p1_exp null: -I 0. recmap null: the plane holds record 0 alone.
-int mp_verify_p1_count(const void* plane, long long n_pos, const void* entry,
-                       const void* ppos, int n, const void* emeta,
-                       const void* p1_codes, const void* p1_exp, int p1_max,
+// n_blocks(n) ints, anch_total one int. raw 0: a nibble plane of n_pos
+// positions, p1_codes and (-I 1) p1_exp; raw 1: a byte plane of n_pos
+// bytes, p1_codes holding the primer bytes and (-I 1) match the 65,536-byte
+// match table. p1_exp/match null: -I 0. recmap null: the plane holds
+// record 0 alone.
+int mp_verify_p1_count(const void* plane, long long n_pos, int raw,
+                       const void* entry, const void* ppos, int n,
+                       const void* emeta, const void* p1_codes,
+                       const void* p1_exp, const void* match, int p1_max,
                        long long tile_start, const void* rmeta,
                        const void* recmap, long long n_map, int lead,
                        int nmm, int three_prime, void* ok, void* blk_cnt,
                        void* blk_off, void* anch_total, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Verify1 v = {static_cast<const uint8_t*>(plane), n_pos,
+  const Verify1 v = {static_cast<const uint8_t*>(plane), n_pos, raw != 0,
                      static_cast<const int*>(emeta),
                      static_cast<const uint8_t*>(p1_codes),
-                     static_cast<const uint32_t*>(p1_exp), p1_max, tile_start,
+                     static_cast<const uint32_t*>(p1_exp),
+                     static_cast<const uint8_t*>(match), p1_max, tile_start,
                      mp::Records{static_cast<const int*>(rmeta),
                                  static_cast<const int*>(recmap), n_map},
                      lead, nmm, three_prime};

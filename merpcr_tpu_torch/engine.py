@@ -10,9 +10,9 @@ device path (``MERPCR_TPU_HOST_MAX=0``), which is itself held to the
 reference CLI's T=1 output.
 
 What this engine scans: every -W (3 to 16), -M (0 to 10000), -N (0 to 10)
-and -I (0 or 1) the reference accepts, on records in the 16-letter FASTA
-alphabet at any ambiguity. The word size picks the lookup tables as the
-table compiler built them (stride-4 exact tables and dense CSR rows at
+and -I (0 or 1) the reference accepts, on any record. The word size picks
+the lookup tables as the table compiler built them (stride-4 exact tables
+and dense CSR rows at
 W <= 11; stride 2 above, with bucket starts at W = 12, a binary search at
 W >= 13 and a mult-hash group bloom without a phase table at W >= 14),
 and the margin only sizes the tile halos and the ranks per anchor. The front
@@ -21,9 +21,11 @@ end follows the JAX package's choice (``merpcr_tpu/engine.py:346-368``):
 its first search and scans strict over them when they arm; every other
 search (-N >= 2, -N 1 without strict1, an STS set that disarms strict)
 scans loose (K8). The dirty-span phase filter arms itself in strict mode
-as in the JAX package. A record with bytes outside the alphabet raises
-NotImplementedError naming the ROADMAP item that ports it (K9); nothing
-falls back to another path.
+as in the JAX package. A record in the 16-letter FASTA alphabet is scanned
+as a nibble plane; one with other bytes (only the API can pass one: the
+FASTA loader drops them) as a raw-byte plane, one byte per position, with
+the reference's byte semantics (K9: loose at every -N, no strict1 build,
+no dirty-span filter), as the JAX package's raw-byte path does.
 
 Multi-record FASTA takes the stream path (``merpcr_tpu/engine.py``
 ``_dispatch_stream``/``_collect_stream``): every run of two or more
@@ -266,11 +268,14 @@ class MerPCR:
         return False, 0
 
     def _base_config(self, tile_len: int, stream: bool = False,
-                     dirty_pos: float = 0.0) -> ScanConfig:
+                     dirty_pos: float = 0.0, packed: bool = True) -> ScanConfig:
         """Tile geometry, front end and filters of the scan for the loaded
         table; ``dirty_pos`` is the quantized dirty-position rate that
-        arms the dirty-span filter (K10, strict only)."""
-        strict, strict_n = self._front_end()
+        arms the dirty-span filter (K10, strict only). A raw-byte plane
+        (``packed`` False) scans loose without asking ``_front_end``, which
+        would build the strict1 tables at -N 1 (the JAX engine builds them
+        for packed records only, ``merpcr_tpu/engine.py:351-353``)."""
+        strict, strict_n = self._front_end() if packed else (False, 0)
         m = self._meta
         return default_config(
             wordsize=self.wordsize,
@@ -290,15 +295,20 @@ class MerPCR:
             iupac=bool(self.iupac_mode),
             stream=stream,
             dirty_pos_rate=dirty_pos,
+            packed=packed,
         )
 
     @staticmethod
-    def _plane(packed_rec: np.ndarray, pos_len: int, lead: int) -> np.ndarray:
-        """Host-side input plane: the nibble-packed record copied into a
-        zero-padded buffer (lead is even, so the record stays byte-aligned
-        in packed space)."""
-        buf = np.zeros(pos_len // 2, dtype=np.uint8)
-        buf[lead // 2 : lead // 2 + len(packed_rec)] = packed_rec
+    def _plane(data: np.ndarray, pos_len: int, lead: int, *, packed: bool) -> np.ndarray:
+        """Host-side input plane of ``pos_len`` positions: ``data`` copied
+        into a zero-padded buffer after ``lead`` positions. ``data`` is the
+        nibble-packed record, two positions per byte (lead is even, so the
+        record stays byte-aligned), or with ``packed`` False the raw bytes,
+        one per position (zero bytes are ambiguous: no window reaching into
+        the padding hashes)."""
+        per_byte = 2 if packed else 1
+        buf = np.zeros(pos_len // per_byte, dtype=np.uint8)
+        buf[lead // per_byte : lead // per_byte + len(data)] = data
         return buf
 
     def _runtime_params(self) -> tuple:
@@ -344,30 +354,28 @@ class MerPCR:
 
     def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
         """Run the kernels over one record (the record path: a plane of
-        [lead zeros][record][zeros]); in strict mode the dirty-span filter
-        is armed from this record's own dirty rate
-        (``merpcr_tpu/engine.py:497-504``). The loose path never arms it, so
-        it skips the dirty-rate sample.
+        [lead zeros][record][zeros], nibble-packed, or raw bytes when
+        ``packed_rec`` is None); in strict mode the dirty-span filter is
+        armed from this record's own dirty rate
+        (``merpcr_tpu/engine.py:497-504``). The loose and raw paths never
+        arm it, so they skip the dirty-rate sample.
 
         Returns an int64 array of shape (n_hits, 6) with columns
         (pos1, pos2, entry, tile_idx, pair_order, rank), 0-based."""
         n = len(seq)
         if n <= self.wordsize:  # reference engine.py:458-459 (note <=)
             return np.zeros((0, 6), dtype=np.int64)
-        if packed_rec is None:
-            raise NotImplementedError(
-                "records with bytes outside the 16-letter FASTA alphabet "
-                "take the raw-byte path, ROADMAP queue B item K9"
-            )
+        packed = packed_rec is not None
         total_scan = n - self.wordsize + 1
         tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
         dirty_pos = 0.0
-        if self._front_end()[0]:
+        if packed and self._front_end()[0]:
             dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
-        cfg = self._base_config(tile_len, dirty_pos=dirty_pos)
+        cfg = self._base_config(tile_len, dirty_pos=dirty_pos, packed=packed)
         n_tiles = -(-total_scan // cfg.tile_len)
-        plane = self._plane(packed_rec, cfg.lead + n_tiles * cfg.tile_len + cfg.tail,
-                            cfg.lead)
+        plane = self._plane(packed_rec if packed else seq,
+                            cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                            packed=packed)
         rmeta = np.asarray([[0, n]], dtype=np.int32)
         return self._scan_plane(cfg, plane, total_scan, n, rmeta, None)[:, :6]
 

@@ -1,5 +1,6 @@
-"""K2-K5, K10 and K12 ``expand`` (strict) and ``expand_loose``: flagged
-units or stride groups -> candidate (entry, position) pairs.
+"""K2-K5, K10 and K12 ``expand`` (strict), ``expand_loose`` and K9b
+``expand_raw``: flagged units, stride groups or raw-plane positions ->
+candidate (entry, position) pairs.
 
 Replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl`` stages K2-K5: the
 flag-word compaction (``scan.py:680-719``, ``_rank_invert`` ``:317-341``,
@@ -38,14 +39,19 @@ runs the same code with ``t16_1`` in place of ``t16``.
 phases for a dirty one or without a ``ptab``, and there is neither a t16
 filter nor K10.
 
+``expand_raw`` is the unpacked branch (``scan.py:680-719``, ``:965-977``)
+behind K9a: each flagged position of a raw-byte plane (one byte per
+position) looks up the bucket of its W-mer; there is no phase stage, so
+``pos_total`` is 0, as in the JAX totals of that path.
+
 Kernel: ``csrc/expand.cu``, reduce-then-scan with recompute (count pass,
-one single-block scan of the block sums, write pass), in a unit mode and
-a group mode. Its output buffers are sized from the count pass, which
-costs one host read of ``pair_total`` per tile. On the card it is bound
-by memory latency: only flagged items (a few per 10^3-10^4) gather from
-``ptab``, ``t16`` and the CSR. ``expand_plain`` and ``expand_loose_plain``
-are the same functions in plain PyTorch; the wrappers use them only for
-CPU tensors.
+one single-block scan of the block sums, write pass), in a unit mode, a
+group mode and a raw mode (one item per flag word). Its output buffers are
+sized from the count pass, which costs one host read of ``pair_total`` per
+tile. On the card it is bound by memory latency: only flagged items (a few
+per 10^3-10^4) gather from ``ptab``, ``t16`` and the CSR. ``expand_plain``,
+``expand_loose_plain`` and ``expand_raw_plain`` are the same functions in
+plain PyTorch; the wrappers use them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -54,11 +60,13 @@ import torch
 
 from . import kernels
 from .front_end import GOLD
-from .units import (M32, group_regs, kernel_route, mask_bases, mul32, require,
-                    u32, unit_regs, units_of, valid_phases)
+from .units import (M32, group_regs, kernel_route, mask_bases, mul32,
+                    raw_hashes, require, u32, unit_regs, units_of, valid_phases)
 
 # bucket lookups, by the kind of ``csr`` argument (see ``_csr_kind``)
 CSR_ROWS, CSR_STARTS, CSR_SEARCH = 0, 1, 2
+# item modes of the kernel's C entries: units, stride groups, raw positions
+STRICT, LOOSE, RAW = 0, 1, 2
 
 
 def _csr_kind(csr) -> int:
@@ -199,13 +207,20 @@ def _pairs(cpos, regs, nb, n_phases: int, t16, t16_bits: int, csr,
     else:
         keep = torch.ones_like(phh, dtype=torch.bool)
     start, cnt = csr_lookup(csr, phh, keep)
+    entry, ppos, pair_total = _bucket_pairs(start, cnt, pposx, n_entries)
+    return entry, ppos, pos_total, pair_total
+
+
+def _bucket_pairs(start, cnt, pposx, n_entries: int):
+    """(entry int32[P], ppos int32[P], pair_total) of the buckets (start,
+    cnt) of positions ``pposx``, in (position, bucket slot) order
+    (``scan.py:953-964``)."""
     pair_total = int(cnt.sum())
-    src = torch.repeat_interleave(torch.arange(len(cnt), device=dev), cnt)
+    src = torch.repeat_interleave(torch.arange(len(cnt), device=cnt.device), cnt)
     excl = torch.cumsum(cnt, 0) - cnt
-    slot = torch.arange(pair_total, device=dev) - excl[src]
+    slot = torch.arange(pair_total, device=cnt.device) - excl[src]
     entry = (start[src] + slot).clamp(0, n_entries - 1)
-    return (entry.to(torch.int32), pposx[src].to(torch.int32), pos_total,
-            pair_total)
+    return entry.to(torch.int32), pposx[src].to(torch.int32), pair_total
 
 
 def expand_plain(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
@@ -234,19 +249,23 @@ def _csr_tensors(csr) -> tuple:
     return tuple(csr) if isinstance(csr, (tuple, list)) else (csr,)
 
 
-def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
+def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
             csr, n_entries: int, wordsize: int, lead: int, tile_len: int,
             n_scan: int, bloom, bloom_bits: int, stride: int,
             exact_group: bool):
     """Count pass, block-sum scan, one host read of the totals, write pass
-    into buffers of exactly pair_total entries."""
+    into buffers of exactly pair_total entries. ``mode``: STRICT (units),
+    LOOSE (stride groups) or RAW (flag words of a byte plane, 32
+    positions each; no ptab, t16 or bloom)."""
     kind = _csr_kind(csr)
     keys, *rest = _csr_tensors(csr)
-    for t, name in ((words, "words"), (ptab, "ptab"), (keys, "csr"), *((t, "ustart") for t in rest)):
+    for t, name in ((words, "words"), (keys, "csr"), *((t, "ustart") for t in rest)):
         require(t, torch.int32, name)
     require(tile, torch.uint8, "tile")
-    if stride not in (2, 4):
-        raise ValueError(f"stride {stride} is neither 2 nor 4")
+    if mode != RAW:
+        require(ptab, torch.int32, "ptab")
+        if stride not in (2, 4):
+            raise ValueError(f"stride {stride} is neither 2 nor 4")
     n_buckets = 1 << (2 * wordsize)
     if ((kind == CSR_ROWS and keys.shape[0] != n_buckets)
             or (kind == CSR_STARTS and keys.numel() != n_buckets + 1)):
@@ -262,22 +281,26 @@ def _launch(loose: bool, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
         if not 0 < bloom_bits <= 2 * wordsize or bloom.numel() * 32 != 1 << bloom_bits:
             raise ValueError(f"bloom of {bloom.numel()} words is not 2^{bloom_bits} bits")
     n_units = tile_len // 8
-    n_items = n_units * (8 // stride) if loose else n_units  # groups or units
-    if words.numel() * 32 != n_items or tile.numel() < lead // 2 + 4 * (n_units + 2):
+    if mode == RAW:  # flag words of 32 positions of a plane of bytes
+        n_items, first, n_bytes = tile_len // 32, lead, lead + tile_len + wordsize - 1
+    else:  # units or stride groups of a nibble plane
+        n_items = n_units * (8 // stride) if mode == LOOSE else n_units
+        first, n_bytes = lead // 2, lead // 2 + 4 * (n_units + 2)
+    flag_bits = n_items * (32 if mode == RAW else 1)
+    if words.numel() * 32 != flag_bits or tile.numel() < n_bytes:
         raise ValueError("words/tile do not match tile_len")
     dev = tile.device
     n_blk = -(-n_items // 256)
     blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
     totals = torch.zeros(2, dtype=torch.int32, device=dev)
     P, I = kernels.P, kernels.I
-    args = (tile.data_ptr() + lead // 2, words.data_ptr(),
+    args = (tile.data_ptr() + first, words.data_ptr(),
             ptab.data_ptr() if exact_group else None, pf_bits,
             None if t16 is None else t16.data_ptr(), t16_bits,
             kind, keys.data_ptr(), rest[0].data_ptr() if rest else None,
             keys.numel() if kind == CSR_SEARCH else 0, n_entries,
             None if bloom is None else bloom.data_ptr(),
-            2 * wordsize - bloom_bits, wordsize, stride, n_items, n_scan,
-            int(loose))
+            2 * wordsize - bloom_bits, wordsize, stride, n_items, n_scan, mode)
     sig = [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I]
     count = kernels.function("expand", "mp_expand_count", sig + [P, P, P, P])
     write = kernels.function("expand", "mp_expand_write", sig + [P, P, P, P])
@@ -315,7 +338,7 @@ def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
         return expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, csr,
                             n_entries, wordsize, lead, tile_len, n_scan,
                             stride, exact_group, bloom, bloom_bits)
-    out = _launch(False, tile, words, ptab, pf_bits, t16, t16_bits, csr,
+    out = _launch(STRICT, tile, words, ptab, pf_bits, t16, t16_bits, csr,
                   n_entries, wordsize, lead, tile_len, n_scan, bloom,
                   bloom_bits, stride, exact_group)
     expand.launches += 1
@@ -340,10 +363,44 @@ def expand_loose(tile, words, ptab, pf_bits: int, csr, n_entries: int,
         return expand_loose_plain(tile, words, ptab, pf_bits, csr, n_entries,
                                   wordsize, lead, tile_len, n_scan, stride,
                                   exact_group)
-    out = _launch(True, tile, words, ptab, pf_bits, None, 0, csr, n_entries,
+    out = _launch(LOOSE, tile, words, ptab, pf_bits, None, 0, csr, n_entries,
                   wordsize, lead, tile_len, n_scan, None, 0, stride, exact_group)
     expand_loose.launches += 1
     return out
 
 
 expand_loose.launches = 0
+
+
+def expand_raw_plain(tile, words, csr, n_entries: int, wordsize: int,
+                     lead: int, tile_len: int, n_scan: int):
+    """K9b in plain PyTorch: (entry int32[P], ppos int32[P], pos_total = 0,
+    pair_total) of a raw-byte tile's flagged positions, each through the
+    bucket of its W-mer (``scan.py:965-977``, ``exact_csr`` ``:721-741``)."""
+    cpos = _flagged(words)  # ascending flagged positions
+    h, _amb = raw_hashes(tile, cpos + lead, wordsize)
+    start, cnt = csr_lookup(csr, h, torch.ones_like(h, dtype=torch.bool))
+    entry, ppos, pair_total = _bucket_pairs(start, cnt, cpos, n_entries)
+    return entry, ppos, 0, pair_total
+
+
+def expand_raw(tile, words, csr, n_entries: int, wordsize: int, lead: int,
+               tile_len: int, n_scan: int):
+    """K9b: candidate pairs of a raw-byte tile (one byte per position), the
+    CUDA kernel (the raw mode of ``csrc/expand.cu``) for tensors on the
+    card, ``expand_raw_plain`` for CPU tensors.
+
+    ``words``: the tile's flag words from ``front_end_raw``, one bit per
+    position; ``csr`` as for ``expand``. Returns (entry, ppos, pos_total,
+    pair_total) in (position, bucket slot) order; ``pos_total`` is 0, as
+    in the JAX totals of this path (``scan.py:967``)."""
+    if not kernel_route(tile, words, *_csr_tensors(csr)):
+        return expand_raw_plain(tile, words, csr, n_entries, wordsize, lead,
+                                tile_len, n_scan)
+    out = _launch(RAW, tile, words, None, 0, None, 0, csr, n_entries, wordsize,
+                  lead, tile_len, n_scan, None, 0, 1, False)
+    expand_raw.launches += 1
+    return out
+
+
+expand_raw.launches = 0

@@ -1,5 +1,5 @@
-"""The two front ends of a tile: K1 ``front_end`` (strict) and K8
-``front_end_loose``.
+"""The three front ends of a tile: K1 ``front_end`` (strict), K8
+``front_end_loose`` and K9a ``front_end_raw`` (raw-byte planes).
 
 K1 replaces ``merpcr_tpu/ops/scan.py::_scan_tile_impl``, packed decode and
 strict branch (``scan.py:452-502``, ``:522-578``; ``_bit_at`` ``:252``).
@@ -20,12 +20,22 @@ unit, K12a); W >= 14 a mult-hash bloom over the first min(16, W+1) bases
 of that span (``scan.py:605-611``). K1 is the same at every W: its table
 keys fixed window bases.
 
-Kernels: ``csrc/front_end.cu`` (one thread per unit or per group,
-``__ballot_sync`` words, one atomicAdd per warp). On the card both are
-bound by memory: the tile's plane bytes plus one 4-byte gather per unit
+K9a replaces the unpacked branch (``scan.py:660-678``, ``bloom_flag``
+``:445-450``), which records with bytes outside the 16-letter alphabet
+take at every -N: the plane holds one byte per position, each scan
+position hashes its W bytes (``units.scode``: A, C, G, T/U in either case,
+every other byte ambiguous), and a clean W-mer is flagged when the table's
+occupancy map ``bloom`` holds its top ``bloom_bits`` bits (exact at
+2W <= 24, a prefix filter above). One bit per position.
+
+Kernels: ``csrc/front_end.cu`` (one thread per unit, group or position,
+``__ballot_sync`` words, one atomicAdd per warp). On the card K1 and K8
+are bound by memory: the tile's plane bytes plus one 4-byte gather per unit
 or group into an 8-32 MB table. ``front_end_plain`` and
 ``front_end_loose_plain`` are the same functions in plain PyTorch; the
-wrappers use them only for CPU tensors.
+wrappers use them only for CPU tensors. The raw kernel hashes W bytes per
+position and is bound by integer operations at W >= 8;
+``front_end_raw_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -33,8 +43,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import (M32, group_regs, kernel_route, mask_bases, mul32, require,
-                    to_i32, u32, unit_regs, units_of, valid_phases)
+from .units import (M32, group_regs, kernel_route, mask_bases, mul32, raw_hashes,
+                    require, to_i32, u32, unit_regs, units_of, valid_phases)
 
 _PROJ_SHIFT = 14  # 2 * PROJ_UNIT_START: the key starts at window base 7
 _PROJ_HI = 0xFF  # bases 16..19 come from the B register
@@ -201,3 +211,65 @@ def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
 
 
 front_end_loose.launches = 0
+
+
+def _check_raw(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
+               tile_len: int, n_scan: int) -> None:
+    if not 0 <= n_scan <= tile_len:
+        raise ValueError(f"n_scan {n_scan} outside [0, {tile_len}]")
+    if tile_len % 256:
+        raise ValueError(f"tile_len {tile_len} is not a multiple of 256")
+    if tile.numel() < lead + tile_len + wordsize - 1:
+        raise ValueError("raw tile plane shorter than lead + tile_len + W - 1 bytes")
+    if not 0 < bloom_bits <= 2 * wordsize or bloom.numel() * 32 != 1 << bloom_bits:
+        raise ValueError(f"bloom of {bloom.numel()} words is not 2^{bloom_bits} bits")
+
+
+def front_end_raw_plain(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
+                        tile_len: int, n_scan: int):
+    """K9a in plain PyTorch: (words int32[tile_len/32], c_total int32[1]).
+
+    Position i of the tile (plane byte lead + i) is flagged iff i < n_scan,
+    its W bytes hold no ambiguous byte, and ``bloom`` holds the top
+    ``bloom_bits`` bits of their W-mer (``scan.py:660-678``, ``bloom_flag``
+    ``:445-450``); bit i & 31 of word i >> 5."""
+    _check_raw(tile, bloom, bloom_bits, wordsize, lead, tile_len, n_scan)
+    i = torch.arange(tile_len, device=tile.device)
+    h, amb = raw_hashes(tile, i + lead, wordsize)
+    bk = h >> (2 * wordsize - bloom_bits)
+    hit = ((u32(bloom)[bk >> 5] >> (bk & 31)) & 1) == 1
+    flag = hit & ~amb & (i < n_scan)
+    lanes = torch.arange(32, device=tile.device)
+    words = (flag.view(-1, 32).to(torch.int64) << lanes).sum(dim=1)
+    return to_i32(words), flag.sum().to(torch.int32).reshape(1)
+
+
+def front_end_raw(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
+                  tile_len: int, n_scan: int):
+    """K9a: flag words and c_total of a raw-byte tile (one byte per
+    position), the CUDA kernel for tensors on the card,
+    ``front_end_raw_plain`` for CPU tensors.
+
+    ``bloom``: int32 words of the table's W-mer occupancy map (2^bloom_bits
+    bits, ``Table.bloom``). Returns (words int32[tile_len/32], c_total
+    int32[1]), one bit per scan position."""
+    if not kernel_route(tile, bloom):
+        return front_end_raw_plain(tile, bloom, bloom_bits, wordsize, lead,
+                                   tile_len, n_scan)
+    require(tile, torch.uint8, "tile")
+    require(bloom, torch.int32, "bloom")
+    _check_raw(tile, bloom, bloom_bits, wordsize, lead, tile_len, n_scan)
+    words = torch.empty(tile_len // 32, dtype=torch.int32, device=tile.device)
+    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    P, I = kernels.P, kernels.I
+    fn = kernels.function("front_end", "mp_front_end_raw", [P, P, I, I, I, I, P, P, P])
+    kernels.call(
+        fn, tile.data_ptr() + lead, bloom.data_ptr(), 2 * wordsize - bloom_bits,
+        wordsize, tile_len, n_scan, words.data_ptr(), c_total.data_ptr(),
+        kernels.stream(tile),
+    )
+    front_end_raw.launches += 1
+    return words, c_total
+
+
+front_end_raw.launches = 0

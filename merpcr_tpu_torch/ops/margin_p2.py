@@ -16,6 +16,12 @@ reads use the plane anchor. Hits come out anchor-major, rank-minor as
 int32 rows (pos1, pos2, entry, pair_order, rank, rec), pos1/pos2
 record-local; ``hit_total`` is their count.
 
+``margin_p2_raw`` is its byte mode, K9c (``scan.py:1147-1152``, the
+window read ``:1179-1181``), for raw-byte planes: genome bytes against the
+primer bytes ``p2_bytes``, case-insensitively at -I 0 and through the
+reference's ``match`` table at -I 1; the clamps, bounds, rank mask and
+chunking are the same.
+
 The JAX stage reads a window sized by the margin cap and clamps its row
 gathers; here each (anchor, rank) reads exactly its own primer-2 site, and
 only after the clamps, bounds and rank mask have let it through, so no
@@ -35,8 +41,8 @@ order-preserving compaction of ``csrc/compact.cuh``; one host read of
 ``hit_total`` per chunk sizes the rows). On the card it is launch-bound at
 small margins: anchors are real primer matches, tens per 2^23-base tile;
 at -M 10000 each is 20,001 threads, most of which end at the rank mask.
-``margin_p2_plain`` is the same function in plain PyTorch; the wrapper
-uses it only for CPU tensors.
+``margin_p2_plain`` and ``margin_p2_raw_plain`` are the same functions in
+plain PyTorch; the wrappers use them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -44,8 +50,9 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import (base_matches, check_codes, check_records, kernel_route,
-                    nibbles_at, record_args, records_at, require)
+from .units import (base_matches, byte_matches, bytes_at, check_codes,
+                    check_match, check_records, kernel_route, nibbles_at,
+                    record_args, records_at, require)
 
 # (anchor, rank) items of one kernel launch (one flag byte each) and of one
 # pass of the plain version (a few int64[items, P2MAX] temporaries)
@@ -68,19 +75,40 @@ def rank_offsets(margin: int, device=None) -> torch.Tensor:
     return torch.where(r % 2 == 1, -dmag, dmag)
 
 
-def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
-                    tile_start: int, rmeta, recmap, lead: int, margin: int,
-                    mismatches: int, three_prime: int):
-    """Hit rows int32[hit_total, 6] in plain PyTorch, at most
-    ``PLAIN_MAX_ITEMS`` (anchor, rank) items at a time."""
+def _margin_plain(tile, a_idx, entry, ppos, emeta, p_max: int, matches,
+                  tile_start: int, rmeta, recmap, lead: int, margin: int,
+                  mismatches: int, three_prime: int):
+    """Hit rows int32[hit_total, 6], at most ``PLAIN_MAX_ITEMS`` (anchor,
+    rank) items at a time; ``matches(pos, e)`` tells whether the genome at
+    tile positions pos [a, R, p_max] matches primer row e [a, 1]."""
     chunks = _anchor_chunks(a_idx, margin, PLAIN_MAX_ITEMS)
-    rows = [_margin_rows(tile, a, entry, ppos, emeta, p2_codes, p2_exp,
+    rows = [_margin_rows(tile, a, entry, ppos, emeta, p_max, matches,
                          tile_start, rmeta, recmap, lead, margin, mismatches,
                          three_prime) for a in chunks]
     return torch.cat(rows) if len(rows) > 1 else rows[0]
 
 
-def _margin_rows(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
+def margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
+                    tile_start: int, rmeta, recmap, lead: int, margin: int,
+                    mismatches: int, three_prime: int):
+    """Hit rows int32[hit_total, 6] in plain PyTorch."""
+    return _margin_plain(
+        tile, a_idx, entry, ppos, emeta, p2_codes.shape[1],
+        lambda pos, e: base_matches(nibbles_at(tile, pos), e, p2_codes, p2_exp),
+        tile_start, rmeta, recmap, lead, margin, mismatches, three_prime)
+
+
+def margin_p2_raw_plain(tile, a_idx, entry, ppos, emeta, p2_bytes, match,
+                        tile_start: int, rmeta, recmap, lead: int, margin: int,
+                        mismatches: int, three_prime: int):
+    """K9c: hit rows of a raw-byte tile in plain PyTorch."""
+    return _margin_plain(
+        tile, a_idx, entry, ppos, emeta, p2_bytes.shape[1],
+        lambda pos, e: byte_matches(bytes_at(tile, pos), e, p2_bytes, match),
+        tile_start, rmeta, recmap, lead, margin, mismatches, three_prime)
+
+
+def _margin_rows(tile, a_idx, entry, ppos, emeta, p_max: int, matches,
                  tile_start: int, rmeta, recmap, lead: int, margin: int,
                  mismatches: int, three_prime: int):
     """The rows of one chunk of anchors."""
@@ -104,9 +132,9 @@ def _margin_rows(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
     p2 = (ak + exp - l2)[:, None] + d
     # k + len_p1 <= p2 is checked for d <= 0 only (engine.py:546, 568)
     fits = (p2 + l2[:, None] <= arl[:, None]) & ((d > 0) | (p2 >= (ak + l1)[:, None]))
-    i = torch.arange(p2_codes.shape[1], device=dev)
-    nib = nibbles_at(tile, (p2 + (rstart - tile_start + lead)[:, None])[:, :, None] + i)
-    mm = (i < l2[:, None, None]) & ~base_matches(nib, e[:, None], p2_codes, p2_exp)
+    i = torch.arange(p_max, device=dev)
+    site = (p2 + (rstart - tile_start + lead)[:, None])[:, :, None] + i
+    mm = (i < l2[:, None, None]) & ~matches(site, e[:, None])
     prot = i < three_prime  # '-': first X bases
     p2_ok = ~(mm & prot).any(dim=2) & (mm.sum(dim=2) <= mismatches)
     hit = room[:, None] & rmask & fits & p2_ok
@@ -116,6 +144,55 @@ def _margin_rows(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
         dim=1,
     )
     return rows.to(torch.int32).reshape(-1, 6)
+
+
+def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
+            match, tile_start: int, rmeta, recmap, lead: int, margin: int,
+            mismatches: int, three_prime: int):
+    """Count pass, block-sum scan, one host read of hit_total and write
+    pass per anchor chunk; ``wrapper.launches`` counts the chunks.
+    ``p2``: primer codes (nibble plane) or bytes (``raw``)."""
+    require(tile, torch.uint8, "tile")
+    for t, name in ((a_idx, "a_idx"), (entry, "entry"), (ppos, "ppos"),
+                    (emeta, "emeta")):
+        require(t, torch.int32, name)
+    check_codes(p2, p2_exp, "p2")
+    check_match(match)
+    check_records(rmeta, recmap)
+    dev = tile.device
+    if a_idx.numel() == 0:  # nothing to launch over
+        return torch.empty((0, 6), dtype=torch.int32, device=dev)
+    P, I, LL = kernels.P, kernels.I, kernels.LL
+    common = [P, LL, I, P, I, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
+    count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
+    write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
+    s = kernels.stream(tile)
+    out = []
+    for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
+        n_anch = chunk.numel()
+        n_items = n_anch * (2 * margin + 1)
+        n_blk = -(-n_items // 256)
+        hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
+        blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
+        total = torch.zeros(1, dtype=torch.int32, device=dev)
+        args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+                chunk.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
+                emeta.data_ptr(), p2.data_ptr(),
+                None if p2_exp is None else p2_exp.data_ptr(),
+                None if match is None else match.data_ptr(), p2.shape[1],
+                tile_start, *record_args(rmeta, recmap), lead, margin,
+                mismatches, three_prime)
+        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+        kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
+                     blk_off.data_ptr(), total.data_ptr(), s)
+        wrapper.launches += 1  # one per chunk launched
+        hit_total = int(total.item())
+        rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
+        if hit_total:
+            kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
+                         rows.data_ptr(), s)
+        out.append(rows)
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
@@ -133,44 +210,32 @@ def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
         return margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
                                p2_exp, tile_start, rmeta, recmap, lead,
                                margin, mismatches, three_prime)
-    require(tile, torch.uint8, "tile")
-    for t, name in ((a_idx, "a_idx"), (entry, "entry"), (ppos, "ppos"),
-                    (emeta, "emeta")):
-        require(t, torch.int32, name)
-    check_codes(p2_codes, p2_exp, "p2")
-    check_records(rmeta, recmap)
-    dev = tile.device
-    if a_idx.numel() == 0:  # nothing to launch over
-        return torch.empty((0, 6), dtype=torch.int32, device=dev)
-    P, I, LL = kernels.P, kernels.I, kernels.LL
-    common = [P, LL, P, I, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
-    count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
-    write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
-    s = kernels.stream(tile)
-    out = []
-    for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
-        n_anch = chunk.numel()
-        n_items = n_anch * (2 * margin + 1)
-        n_blk = -(-n_items // 256)
-        hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
-        blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-        total = torch.zeros(1, dtype=torch.int32, device=dev)
-        args = (tile.data_ptr(), 2 * tile.numel(), chunk.data_ptr(), n_anch,
-                entry.data_ptr(), ppos.data_ptr(), emeta.data_ptr(),
-                p2_codes.data_ptr(), None if p2_exp is None else p2_exp.data_ptr(),
-                p2_codes.shape[1], tile_start, *record_args(rmeta, recmap),
-                lead, margin, mismatches, three_prime)
-        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-        kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
-                     blk_off.data_ptr(), total.data_ptr(), s)
-        margin_p2.launches += 1  # one per chunk launched
-        hit_total = int(total.item())
-        rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
-        if hit_total:
-            kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
-                         rows.data_ptr(), s)
-        out.append(rows)
-    return torch.cat(out) if len(out) > 1 else out[0]
+    return _launch(margin_p2, False, tile, a_idx, entry, ppos, emeta, p2_codes,
+                   p2_exp, None, tile_start, rmeta, recmap, lead, margin,
+                   mismatches, three_prime)
 
 
 margin_p2.launches = 0
+
+
+def margin_p2_raw(tile, a_idx, entry, ppos, emeta, p2_bytes, match,
+                  tile_start: int, rmeta, recmap, lead: int, margin: int,
+                  mismatches: int, three_prime: int):
+    """K9c: hit rows of one raw-byte tile (one byte per position), the CUDA
+    kernel (the byte mode of ``csrc/margin_p2.cu``) for tensors on the
+    card, ``margin_p2_raw_plain`` for CPU tensors.
+
+    ``p2_bytes``: uint8[E, P2MAX] primer bytes (``Table.p2_bytes``);
+    ``match``: uint8[65536] match table (``Table.match``) for -I 1, or None
+    for -I 0; the rest as for ``margin_p2``."""
+    extra = tuple(t for t in (match, recmap) if t is not None)
+    if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_bytes, rmeta, *extra):
+        return margin_p2_raw_plain(tile, a_idx, entry, ppos, emeta, p2_bytes,
+                                   match, tile_start, rmeta, recmap, lead,
+                                   margin, mismatches, three_prime)
+    return _launch(margin_p2_raw, True, tile, a_idx, entry, ppos, emeta,
+                   p2_bytes, None, match, tile_start, rmeta, recmap, lead,
+                   margin, mismatches, three_prime)
+
+
+margin_p2_raw.launches = 0

@@ -1,9 +1,9 @@
 """The tile scan: tile geometry and the drivers that run the kernels over
 one tile and over the tiles of one plane.
 
-Counterpart of ``merpcr_tpu/ops/scan.py`` for packed nibble planes, at
-every word size 3..16 and every margin 0..10000, in its three front-end
-modes:
+Counterpart of ``merpcr_tpu/ops/scan.py`` at every word size 3..16 and
+every margin 0..10000. A packed nibble plane scans in one of three
+front-end modes:
 
 * strict, -N 0: the unit-projection front end over ``qbloom_s`` and the
   t16 position filter (K1, K4);
@@ -22,7 +22,10 @@ mult-hash group bloom, no phase table and the binary search;
 with the dirty-span phase filter (K10, ``dirty_bloom``, strict only), the
 IUPAC verify (K11, ``iupac``) and stream mode (K14): a plane holds one
 record or many records laid end to end, and ``rmeta``/``recmap`` tell each
-candidate its record. The JAX program runs fixed-capacity stages inside
+candidate its record; and a fourth mode for raw-byte planes (K9,
+``packed`` False: a record with bytes outside the 16-letter alphabet, one
+byte per position, one record per plane), which scans loose at every -N
+without K10. The JAX program runs fixed-capacity stages inside
 one compiled function per tile and reports overflow through its stage
 totals; here every stage sizes its output from its own count pass, so a
 tile never overflows and carries no capacities.
@@ -35,6 +38,12 @@ Per tile, in order (each stage replaces the JAX lines its module names):
   verify_p1                    -> anchor pair indices,       (K6, K11, K14)
                                   anch_total
   margin_p2                    -> hit rows, hit_total        (K7, K11, K14)
+
+and on a raw-byte plane (``scan.py`` with ``cfg.packed`` False):
+
+  front_end_raw                -> flag words (one bit per position), c_total (K9a)
+  expand_raw                   -> (entry, ppos) pairs, pos_total 0, pair_total (K9b)
+  verify_p1_raw, margin_p2_raw -> anchors, hit rows (byte verifies, K9c)
 
 Scan positions are partitioned across tiles (each position belongs to one
 tile) and every bound and output coordinate is computed in the
@@ -53,11 +62,11 @@ from typing import List, NamedTuple
 
 import torch
 
-from .expand import expand, expand_loose
-from .front_end import front_end, front_end_loose
-from .margin_p2 import margin_p2
+from .expand import expand, expand_loose, expand_raw
+from .front_end import front_end, front_end_loose, front_end_raw
+from .margin_p2 import margin_p2, margin_p2_raw
 from .table import Table
-from .verify_p1 import verify_p1
+from .verify_p1 import verify_p1, verify_p1_raw
 
 
 @dataclass(frozen=True)
@@ -86,6 +95,9 @@ class ScanConfig:
     dirty_bloom: bool = False
     iupac: bool = False  # K11: -I 1 expansion-set verify
     stream: bool = False  # K14: many records per plane (recmap given)
+    # False: a raw-byte plane, one byte per position (K9: records with bytes
+    # outside the 16-letter alphabet; loose, no K10)
+    packed: bool = True
 
     @property
     def tile_buf(self) -> int:
@@ -94,8 +106,14 @@ class ScanConfig:
 
     @property
     def tile_buf_in(self) -> int:
-        """Tile buffer length in plane BYTES (2 bases per byte)."""
-        return self.tile_buf // 2
+        """Tile buffer length in plane BYTES (2 bases per byte when
+        packed, 1 on a raw plane)."""
+        return self.tile_buf // 2 if self.packed else self.tile_buf
+
+    @property
+    def tile_step_in(self) -> int:
+        """Plane bytes from one tile's start to the next's."""
+        return self.tile_len // 2 if self.packed else self.tile_len
 
 
 class ScanOut(NamedTuple):
@@ -141,6 +159,7 @@ def default_config(
     iupac: bool = False,
     stream: bool = False,
     dirty_pos_rate: float = 0.0,
+    packed: bool = True,
 ) -> ScanConfig:
     """Halo geometry and filter choice of the JAX package's
     ``default_config`` (``scan.py:1415-1634``).
@@ -158,8 +177,14 @@ def default_config(
     dirty-span phase filter is armed in strict mode, as in the JAX package
     (``scan.py:1542-1543``); the loose path never arms it. ``strict_n``
     and ``t16_bits`` are the strict tables' (the caller passes
-    ``t16_1_bits`` at strict_n 1) and are 0 on the loose path."""
+    ``t16_1_bits`` at strict_n 1) and are 0 on the loose path.
+
+    ``packed`` False configures a raw-byte plane (K9), which the strict
+    front end and the dirty-span filter do not exist for: it forces the
+    loose path (``scan.py:1502``, ``:1542-1543``). Its halos are the
+    packed ones, counted in positions."""
     mcap = margin_cap(margin)
+    strict = strict and packed
     dirty_pos = min(max(dirty_pos_rate, 0.0), 1.0)
     return ScanConfig(
         wordsize=wordsize,
@@ -179,6 +204,7 @@ def default_config(
         dirty_bloom=strict and dirty_pos >= 1.0 / 256,
         iupac=iupac,
         stream=stream,
+        packed=packed,
     )
 
 
@@ -193,7 +219,8 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     """Scan one halo-padded tile (``get_scan_fn``'s contract, and with
     ``cfg.stream`` the tile body of ``get_stream_scan_fn``).
 
-    ``tile``: uint8[cfg.tile_buf_in] plane; ``tile_start``: plane position
+    ``tile``: uint8[cfg.tile_buf_in] plane (nibbles, or with
+    ``cfg.packed`` False one byte per position); ``tile_start``: plane position
     of local scan position 0; ``n_scan``: valid scan positions (<=
     tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
     records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
@@ -211,6 +238,8 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     n_scan = max(0, min(int(n_scan), cfg.tile_len))
     W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
     n_entries = table.emeta.shape[0]
+    if not cfg.packed:
+        return _scan_raw_tile(cfg, table, tile, tile_start, n_scan, rmeta, rt)
     if not cfg.strict:
         words, c_total = front_end_loose(tile, table.qbloom, table.q_bits, W,
                                          lead, L, n_scan, cfg.stride,
@@ -243,23 +272,45 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
                    a_idx.numel(), rows.shape[0], *cols)
 
 
+def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
+                   tile_start: int, n_scan: int, rmeta: torch.Tensor,
+                   rt) -> ScanOut:
+    """The raw-byte tile program (K9, the JAX ``cfg.packed == False``
+    branches): per-position front end, position expansion (pos_total 0),
+    byte verifies against ``p1_bytes``/``p2_bytes`` (``match`` at -I 1)."""
+    margin, nmm, x = (int(v) for v in rt)
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    words, c_total = front_end_raw(tile, table.bloom, table.bloom_bits, W,
+                                   lead, L, n_scan)
+    entry, ppos, pos_total, pair_total = expand_raw(
+        tile, words, table.csr, table.emeta.shape[0], W, lead, L, n_scan)
+    match = table.match if cfg.iupac else None
+    a_idx = verify_p1_raw(tile, entry, ppos, table.emeta, table.p1_bytes, match,
+                          tile_start, rmeta, None, lead, nmm, x)
+    rows = margin_p2_raw(tile, a_idx, entry, ppos, table.emeta, table.p2_bytes,
+                         match, tile_start, rmeta, None, lead, margin, nmm, x)
+    return ScanOut(int(c_total.item()), pos_total, pair_total, a_idx.numel(),
+                   rows.shape[0], *rows.unbind(dim=1))
+
+
 def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
                 total_scan: int, stream_len: int, rmeta: torch.Tensor,
                 recmap, rt, n_tiles: int) -> List[ScanOut]:
     """Scan ``n_tiles`` tiles of one plane (``get_stream_scan_fn``'s
     contract, and ``get_record_scan_fn``'s for a one-record plane): tile t
-    is the view plane[t*L/2 : t*L/2 + tile_buf_in] of the plane laid out
-    as [lead][records][tail], and owns scan positions [t*L, (t+1)*L) of
+    is the view plane[t*S : t*S + tile_buf_in] (S = ``tile_step_in``: L/2
+    bytes of a nibble plane, L of a raw one) of the plane laid out as
+    [lead][records][tail], and owns scan positions [t*L, (t+1)*L) of
     the ``total_scan`` positions; ``stream_len`` is the laid-out length
     (the last record's end)."""
-    L = cfg.tile_len
-    if plane.numel() < (n_tiles - 1) * L // 2 + cfg.tile_buf_in:
+    L, S = cfg.tile_len, cfg.tile_step_in
+    if plane.numel() < (n_tiles - 1) * S + cfg.tile_buf_in:
         raise ValueError("plane shorter than its tiles")
     if recmap is not None and recmap.numel() != -(-stream_len // 8):
         raise ValueError(f"recmap of {recmap.numel()} blocks for {stream_len} positions")
     outs = []
     for t in range(n_tiles):
-        tile = plane[t * L // 2 : t * L // 2 + cfg.tile_buf_in]
+        tile = plane[t * S : t * S + cfg.tile_buf_in]
         n_scan = min(max(total_scan - t * L, 0), L)
         outs.append(scan_tile(cfg, table, tile, t * L, n_scan, rmeta, recmap, rt))
     return outs

@@ -967,6 +967,12 @@ class Table(NamedTuple):
     stride: int  # scan positions per group lookup: 4 (W <= 11) or 2
     exact_group: bool  # qbloom/ptab are exact span tables (W <= 13)
     qbloom_bits: int  # log2 bits of the group table before truncation
+    # the raw-byte path (K9): primer bytes as written (case kept, 0-padded)
+    # and the reference's 256 x 256 match table of the table's -I mode,
+    # flattened [genome byte * 256 + primer byte]
+    p1_bytes: torch.Tensor  # uint8[E, P1MAX]
+    p2_bytes: torch.Tensor  # uint8[E, P2MAX]
+    match: torch.Tensor  # uint8[65536]
 
     @property
     def csr(self):
@@ -1035,4 +1041,7 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         stride=int(meta.stride),
         exact_group=bool(meta.exact_group),
         qbloom_bits=int(meta.qbloom_bits),
+        p1_bytes=ints(host.p1_bytes, np.uint8),
+        p2_bytes=ints(host.p2_bytes, np.uint8),
+        match=ints(host.match, np.uint8),
     )

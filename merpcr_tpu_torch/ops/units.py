@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .encoding import iupac_exp_masks
+from .encoding import AMBIG, iupac_exp_masks
 
 M32 = 0xFFFFFFFF
 # IUPAC expansion masks of the 16 genome letters (csrc/records.cuh kExpNib)
@@ -105,6 +105,63 @@ def nibbles_at(plane: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(inside, nib, torch.full_like(nib, 0xFF))
 
 
+def scode(b: torch.Tensor) -> torch.Tensor:
+    """2-bit hash codes of bytes ``b`` (int64 values 0..255): A/a 0, C/c 1,
+    G/g 2, T/t/U/u 3, every other byte AMBIG (``encoding.SCODE``, computed
+    as the JAX package's ``_encode_codes`` computes it, ``scan.py:270-284``;
+    csrc/units.cuh ``mp::scode``)."""
+    folded = b | 32  # lowercase letters unchanged; uppercase -> lowercase
+    is_letter = (folded >= ord("a")) & (folded <= ord("z"))
+    b5 = b & 0x1F
+    code = torch.full_like(b, AMBIG)
+    for low5, c in ((1, 0), (3, 1), (7, 2), (20, 3), (21, 3)):
+        code = torch.where(b5 == low5, c, code)
+    return torch.where(is_letter, code, AMBIG)
+
+
+def fold(b: torch.Tensor) -> torch.Tensor:
+    """ASCII a..z -> A..Z; every other value unchanged (``_byte_fold``,
+    ``scan.py:263-267``; csrc/records.cuh ``mp::fold``)."""
+    return torch.where((b >= ord("a")) & (b <= ord("z")), b - 32, b)
+
+
+def raw_hashes(plane: torch.Tensor, pos: torch.Tensor, W: int):
+    """(h, amb) of the W-byte windows that start at plane positions ``pos``
+    of a byte plane: the LSB-first 2-bit W-mer h (base k at bits 2k, 2k+1;
+    at W = 16 all 32 bits, held in int64) and whether a byte of the window
+    is AMBIG (``scan.py:661-669``)."""
+    codes = scode(plane.to(torch.int64))
+    h = torch.zeros_like(pos)
+    amb = torch.zeros_like(pos, dtype=torch.bool)
+    for k in range(W):
+        c = codes[pos + k]
+        amb |= c == AMBIG
+        h |= torch.where(c == AMBIG, 0, c) << (2 * k)
+    return h, amb
+
+
+def bytes_at(plane: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Bytes of a byte plane at positions ``pos`` (int64); positions outside
+    the plane read -1, which equals no byte (0xFF is a real byte, ÿ)."""
+    n_pos = plane.numel()
+    inside = (pos >= 0) & (pos < n_pos)
+    b = plane[pos.clamp(0, n_pos - 1)].to(torch.int64)
+    return torch.where(inside, b, -1)
+
+
+def byte_matches(s: torch.Tensor, e: torch.Tensor, primer_bytes, match):
+    """Genome bytes ``s`` [n, P] (-1 outside the plane) against primer row
+    ``e`` [n] (or [n, 1]) of ``primer_bytes``: case-insensitive equality
+    (``match`` None, -I 0, ``scan.py:1031``), else the reference's 256 x 256
+    table ``match[s * 256 + p] != 0`` (-I 1, ``:1029``). -1 matches
+    nothing."""
+    p = primer_bytes.to(torch.int64)[e]
+    if match is None:
+        return (s >= 0) & (fold(s) == fold(p))
+    m = match.to(torch.int64)[(s.clamp(min=0) * 256 + p)]
+    return (s >= 0) & (m != 0)
+
+
 def records_at(rmeta: torch.Tensor, recmap, gpos: torch.Tensor):
     """(record id, start, length) of the record owning plane positions
     ``gpos`` (``scan.py:993-1005``): ``recmap`` maps 8-position blocks to
@@ -153,6 +210,14 @@ def check_codes(codes: torch.Tensor, exp, name: str) -> None:
         if exp.shape != codes.shape:
             raise ValueError(f"{name}_exp {tuple(exp.shape)} does not match "
                              f"{name}_codes {tuple(codes.shape)}")
+
+
+def check_match(match) -> None:
+    """``match`` is None (-I 0) or the 256 x 256 byte table, flattened."""
+    if match is not None:
+        require(match, torch.uint8, "match")
+        if match.numel() != 1 << 16:
+            raise ValueError(f"match table of {match.numel()} bytes, not 65536")
 
 
 def kernel_route(*tensors: torch.Tensor) -> bool:

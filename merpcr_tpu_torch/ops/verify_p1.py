@@ -14,11 +14,21 @@ pair order, are the anchors; ``a_idx`` holds their pair indices, and
 
 The JAX stage gathers whole 16-byte rows and clamps them into the plane;
 here each pair reads exactly its primer's nibbles, guarded at the plane's
-edges. Kernel: ``csrc/verify_p1.cu`` (one thread per pair, then the
+edges.
+
+``verify_p1_raw`` is its byte mode, K9c (``scan.py:1026-1031``), for
+raw-byte planes (one byte per position): genome bytes against the
+primer bytes ``p1_bytes``, case-insensitively at -I 0 and through the
+reference's 256 x 256 ``match`` table at -I 1. A byte read outside the
+plane is -1, which equals no byte (the JAX stage clamps instead; no
+in-bounds window reaches the plane's edge).
+
+Kernel: ``csrc/verify_p1.cu`` (one thread per pair, then the
 order-preserving compaction of ``csrc/compact.cuh``; one host read of
 ``anch_total`` sizes ``a_idx``). On the card it is launch-bound: pairs
-number in the hundreds per 2^23-base tile of a clean genome. ``verify_p1_plain`` is the same
-function in plain PyTorch; the wrapper uses it only for CPU tensors.
+number in the hundreds per 2^23-base tile of a clean genome.
+``verify_p1_plain`` and ``verify_p1_raw_plain`` are the same functions in
+plain PyTorch; the wrappers use them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,15 +36,17 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .units import (base_matches, check_codes, check_records, kernel_route,
-                    nibbles_at, record_args, records_at, require)
+from .units import (base_matches, byte_matches, bytes_at, check_codes,
+                    check_match, check_records, kernel_route, nibbles_at,
+                    record_args, records_at, require)
 
 
-def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
-                    tile_start: int, rmeta, recmap, lead: int,
-                    mismatches: int, three_prime: int):
-    """a_idx int32[anch_total] (pair indices, ascending) in plain PyTorch."""
-    dev = tile.device
+def _verify_plain(tile, entry, ppos, emeta, p_max: int, matches,
+                  tile_start: int, rmeta, recmap, lead: int, mismatches: int,
+                  three_prime: int):
+    """a_idx of the pairs whose primer 1 passes; ``matches(pos, e)`` tells
+    whether the genome at tile positions pos [n, p_max] matches primer row
+    e [n]."""
     e = entry.to(torch.int64)
     em = emeta.to(torch.int64)[e]
     hoff, l1 = em[:, 0], em[:, 1]
@@ -42,12 +54,79 @@ def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
     _, rstart, rlen = records_at(rmeta, recmap, tile_start + pos)
     kg = tile_start + pos - hoff - rstart  # record-local anchor
     inb = (kg >= 0) & (kg + l1 <= rlen)  # scan.py:1010
-    i = torch.arange(p1_codes.shape[1], device=dev)
-    nib = nibbles_at(tile, (pos - hoff + lead)[:, None] + i)
-    mm = (i < l1[:, None]) & ~base_matches(nib, e, p1_codes, p1_exp)
+    i = torch.arange(p_max, device=tile.device)
+    mm = (i < l1[:, None]) & ~matches((pos - hoff + lead)[:, None] + i, e)
     prot = i >= (l1[:, None] - three_prime)  # '+': last X bases
     ok = inb & ~(mm & prot).any(dim=1) & (mm.sum(dim=1) <= mismatches)
     return torch.nonzero(ok).flatten().to(torch.int32)
+
+
+def verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
+                    tile_start: int, rmeta, recmap, lead: int,
+                    mismatches: int, three_prime: int):
+    """a_idx int32[anch_total] (pair indices, ascending) in plain PyTorch."""
+    return _verify_plain(
+        tile, entry, ppos, emeta, p1_codes.shape[1],
+        lambda pos, e: base_matches(nibbles_at(tile, pos), e, p1_codes, p1_exp),
+        tile_start, rmeta, recmap, lead, mismatches, three_prime)
+
+
+def verify_p1_raw_plain(tile, entry, ppos, emeta, p1_bytes, match,
+                        tile_start: int, rmeta, recmap, lead: int,
+                        mismatches: int, three_prime: int):
+    """K9c: a_idx of a raw-byte tile in plain PyTorch."""
+    return _verify_plain(
+        tile, entry, ppos, emeta, p1_bytes.shape[1],
+        lambda pos, e: byte_matches(bytes_at(tile, pos), e, p1_bytes, match),
+        tile_start, rmeta, recmap, lead, mismatches, three_prime)
+
+
+def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
+            tile_start: int, rmeta, recmap, lead: int, mismatches: int,
+            three_prime: int):
+    """Count pass, block-sum scan, one host read of anch_total, write
+    pass; ``wrapper.launches`` counts the launch (none without pairs).
+    ``p1``: primer codes (nibble plane) or bytes (``raw``)."""
+    require(tile, torch.uint8, "tile")
+    for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
+        require(t, torch.int32, name)
+    check_codes(p1, p1_exp, "p1")
+    check_match(match)
+    check_records(rmeta, recmap)
+    if entry.shape != ppos.shape:
+        raise ValueError("entry and ppos differ in length")
+    dev = tile.device
+    n = entry.numel()
+    if n == 0:  # nothing to launch over
+        return torch.empty(0, dtype=torch.int32, device=dev)
+    n_blk = -(-n // 256)
+    ok = torch.empty(n, dtype=torch.uint8, device=dev)
+    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
+    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    P, I, LL = kernels.P, kernels.I, kernels.LL
+    count = kernels.function(
+        "verify_p1", "mp_verify_p1_count",
+        [P, LL, I, P, P, I, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, P, P, P],
+    )
+    write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
+    s = kernels.stream(tile)
+    blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+    kernels.call(
+        count, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+        entry.data_ptr(), ppos.data_ptr(), n, emeta.data_ptr(), p1.data_ptr(),
+        None if p1_exp is None else p1_exp.data_ptr(),
+        None if match is None else match.data_ptr(), p1.shape[1],
+        tile_start, *record_args(rmeta, recmap), lead, mismatches,
+        three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
+        total.data_ptr(), s,
+    )
+    anch_total = int(total.item())
+    a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
+    if anch_total:
+        kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
+                     a_idx.data_ptr(), s)
+    wrapper.launches += 1
+    return a_idx
 
 
 def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,
@@ -66,44 +145,29 @@ def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,
         return verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
                                tile_start, rmeta, recmap, lead, mismatches,
                                three_prime)
-    require(tile, torch.uint8, "tile")
-    for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
-        require(t, torch.int32, name)
-    check_codes(p1_codes, p1_exp, "p1")
-    check_records(rmeta, recmap)
-    if entry.shape != ppos.shape:
-        raise ValueError("entry and ppos differ in length")
-    dev = tile.device
-    n = entry.numel()
-    if n == 0:  # nothing to launch over
-        return torch.empty(0, dtype=torch.int32, device=dev)
-    n_blk = -(-n // 256)
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
-    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
-    P, I, LL = kernels.P, kernels.I, kernels.LL
-    count = kernels.function(
-        "verify_p1", "mp_verify_p1_count",
-        [P, LL, P, P, I, P, P, P, I, LL, P, P, LL, I, I, I, P, P, P, P, P],
-    )
-    write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
-    s = kernels.stream(tile)
-    blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-    kernels.call(
-        count, tile.data_ptr(), 2 * tile.numel(), entry.data_ptr(),
-        ppos.data_ptr(), n, emeta.data_ptr(), p1_codes.data_ptr(),
-        None if p1_exp is None else p1_exp.data_ptr(), p1_codes.shape[1],
-        tile_start, *record_args(rmeta, recmap), lead, mismatches,
-        three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
-        total.data_ptr(), s,
-    )
-    anch_total = int(total.item())
-    a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
-    if anch_total:
-        kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
-                     a_idx.data_ptr(), s)
-    verify_p1.launches += 1
-    return a_idx
+    return _launch(verify_p1, False, tile, entry, ppos, emeta, p1_codes, p1_exp,
+                   None, tile_start, rmeta, recmap, lead, mismatches, three_prime)
 
 
 verify_p1.launches = 0
+
+
+def verify_p1_raw(tile, entry, ppos, emeta, p1_bytes, match, tile_start: int,
+                  rmeta, recmap, lead: int, mismatches: int, three_prime: int):
+    """K9c: anchors of one raw-byte tile (one byte per position), the CUDA
+    kernel (the byte mode of ``csrc/verify_p1.cu``) for tensors on the
+    card, ``verify_p1_raw_plain`` for CPU tensors.
+
+    ``p1_bytes``: uint8[E, P1MAX] primer bytes (``Table.p1_bytes``);
+    ``match``: uint8[65536] match table (``Table.match``) for -I 1, or None
+    for -I 0; the rest as for ``verify_p1``."""
+    extra = tuple(t for t in (match, recmap) if t is not None)
+    if not kernel_route(tile, entry, ppos, emeta, p1_bytes, rmeta, *extra):
+        return verify_p1_raw_plain(tile, entry, ppos, emeta, p1_bytes, match,
+                                   tile_start, rmeta, recmap, lead, mismatches,
+                                   three_prime)
+    return _launch(verify_p1_raw, True, tile, entry, ppos, emeta, p1_bytes, None,
+                   match, tile_start, rmeta, recmap, lead, mismatches, three_prime)
+
+
+verify_p1_raw.launches = 0

@@ -142,13 +142,26 @@ def test_bounds_validation_matches_jax():
         assert str(a.value) == str(b.value)
 
 
-def test_unported_inputs_raise(tmp_path):
-    eng = MerPCR(device="cpu")
-    assert eng.load_sts_file(GOLDEN_STS)
+@pytest.mark.parametrize("params", [{}, {"iupac_mode": 1}, {"mismatches": 1}])
+def test_raw_byte_record_matches_jax_bytes(params):
+    """A record with a byte outside the 16-letter alphabet (only the API
+    passes one) takes the raw-byte path (K9) and prints the JAX package's
+    bytes; the golden genome rendered with U for T and junk bytes keeps
+    the golden line wherever the JAX package keeps it."""
+    from merpcr_tpu.models import FASTARecord as JaxFASTARecord
     from merpcr_tpu_torch.models import FASTARecord
 
-    with pytest.raises(NotImplementedError, match="K9"):
-        eng.search([FASTARecord(defline=">x", sequence="ACGT" * 10 + "E" + "ACGT" * 10)])
+    golden = JaxMerPCR().load_fasta_file(GOLDEN_FA)[0].sequence
+    rna = golden.replace("T", "U").replace("t", "u")
+    seqs = ["ACGT" * 10 + "E" + "ACGT" * 10, rna[:500] + "é-ÿ" + rna[503:]]
+    outs = []
+    for eng, rec in ((MerPCR(device="cpu", **params), FASTARecord),
+                     (JaxMerPCR(**params), JaxFASTARecord)):
+        assert eng.load_sts_file(GOLDEN_STS)
+        outs.append(run_search(eng, [rec(defline=f">L78833 r{i}", sequence=s)
+                                     for i, s in enumerate(seqs)]))
+    assert outs[0] == outs[1]
+    assert (GOLDEN_LINE in outs[0]) == bool(params.get("iupac_mode"))
 
 
 def test_dirty_genome_arms_k10(tmp_path):

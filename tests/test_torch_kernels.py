@@ -27,22 +27,37 @@ import torch
 
 from merpcr_tpu_torch import MerPCR
 from merpcr_tpu_torch.ops import kernels
+from merpcr_tpu_torch.models import FASTARecord
 from merpcr_tpu_torch.ops.expand import (
     expand,
     expand_loose,
     expand_loose_plain,
     expand_plain,
+    expand_raw,
+    expand_raw_plain,
 )
 from merpcr_tpu_torch.ops.front_end import (
     front_end,
     front_end_loose,
     front_end_loose_plain,
     front_end_plain,
+    front_end_raw,
+    front_end_raw_plain,
 )
 from merpcr_tpu_torch.ops import margin_p2 as margin_mod
-from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_plain
+from merpcr_tpu_torch.ops.margin_p2 import (
+    margin_p2,
+    margin_p2_plain,
+    margin_p2_raw,
+    margin_p2_raw_plain,
+)
 from merpcr_tpu_torch.ops.scan import record_rmeta
-from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_plain
+from merpcr_tpu_torch.ops.verify_p1 import (
+    verify_p1,
+    verify_p1_plain,
+    verify_p1_raw,
+    verify_p1_raw_plain,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_STS = os.path.join(ROOT, "tests", "data", "test.sts")
@@ -131,8 +146,30 @@ def _search(engine, sts, fa) -> str:
     return buf.getvalue()
 
 
+def _rna_records(fa, every: int = 1) -> list:
+    """The records of ``fa``, every ``every``-th rendered as RNA (T -> U)
+    with a '-' and a latin-1 'é' in it: records outside the 16-letter
+    alphabet, which take the raw-byte path (K9)."""
+    recs = MerPCR(device="cpu").load_fasta_file(fa)
+    for r, rec in enumerate(recs):
+        if r % every == 0:
+            s = rec.sequence.replace("T", "U").replace("t", "u")
+            recs[r] = FASTARecord(defline=rec.defline, sequence=s[:7] + "-é" + s[9:])
+    return recs
+
+
+def _search_records(engine, sts, recs) -> str:
+    assert engine.load_sts_file(sts)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        engine.search(recs)
+    return buf.getvalue()
+
+
 # ---------------------------------------------------------------- CPU rules
-WRAPPERS = (front_end, front_end_loose, expand, expand_loose, verify_p1, margin_p2)
+RAW_WRAPPERS = (front_end_raw, expand_raw, verify_p1_raw, margin_p2_raw)
+WRAPPERS = (front_end, front_end_loose, expand, expand_loose, verify_p1, margin_p2,
+            *RAW_WRAPPERS)
 
 
 @pytest.mark.parametrize("mismatches", [0, 1, 2])
@@ -140,6 +177,9 @@ def test_cpu_tensors_take_the_plain_versions(tmp_path, mismatches):
     counts = [f.launches for f in WRAPPERS]
     out = _search(MerPCR(device="cpu", mismatches=mismatches), GOLDEN_STS, GOLDEN_FA)
     assert GOLDEN_LINE + "\n" in out
+    raw = _search_records(MerPCR(device="cpu", mismatches=mismatches, iupac_mode=1),
+                          GOLDEN_STS, _rna_records(GOLDEN_FA))
+    assert GOLDEN_LINE + "\n" in raw
     assert [f.launches for f in WRAPPERS] == counts
 
 
@@ -217,7 +257,8 @@ def _tiles(tmp_path, device, **params):
     cfg = eng._base_config(1 << 15)
     L = cfg.tile_len
     n_tiles = -(-total // L)
-    plane = torch.from_numpy(eng._plane(packed, cfg.lead + n_tiles * L + cfg.tail, cfg.lead)).to(device)
+    plane = torch.from_numpy(eng._plane(packed, cfg.lead + n_tiles * L + cfg.tail, cfg.lead,
+                                        packed=True)).to(device)
     tiles = [(plane[t * L // 2 : t * L // 2 + cfg.tile_buf_in], t * L,
               min(L, total - t * L), n) for t in range(n_tiles)]
     return eng, cfg, tiles
@@ -494,3 +535,92 @@ def test_card_search_equals_cpu_search(cuda, tmp_path):
     launched = [f.launches - c0 for f, c0 in zip((front_end, expand, verify_p1, margin_p2), counts)]
     assert all(k > 0 for k in launched), launched
     assert _search(MerPCR(), GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
+
+
+def _raw_tiles(tmp_path, device, **params):
+    """(engine on ``device``, raw cfg, per-tile argument tuples) of the
+    corpus record rendered as RNA with junk bytes (the raw-byte path)."""
+    sts, fa = _corpus(tmp_path)
+    eng = MerPCR(device=device, **params)
+    assert eng.load_sts_file(sts)
+    rec, = _rna_records(fa)
+    from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
+
+    assert record_packed(rec) is None
+    seq = record_seq_bytes(rec)
+    n = len(seq)
+    total = n - eng.wordsize + 1
+    cfg = eng._base_config(1 << 15, packed=False)
+    L = cfg.tile_len
+    n_tiles = -(-total // L)
+    plane = torch.from_numpy(eng._plane(seq, cfg.lead + n_tiles * L + cfg.tail, cfg.lead,
+                                        packed=False)).to(device)
+    tiles = [(plane[t * L : t * L + cfg.tile_buf_in], t * L, min(L, total - t * L), n)
+             for t in range(n_tiles)]
+    return eng, cfg, tiles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wordsize,iupac,margin", [(11, 1, 50), (11, 0, 50), (3, 1, 50),
+                                                   (13, 1, 300), (16, 0, 2000)])
+def test_raw_kernels_equal_plain_versions(cuda, tmp_path, wordsize, iupac, margin):
+    """K9: front_end_raw, expand_raw (bsc rows, bstart, binary search) and
+    the byte modes of verify_p1/margin_p2 (fold and match table) against
+    their plain versions on the tiles of an RNA rendering."""
+    eng, cfg, tiles = _raw_tiles(tmp_path, cuda, wordsize=wordsize, iupac_mode=iupac,
+                                 margin=margin)
+    assert not cfg.packed and not cfg.strict
+    tb = eng._table
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    hits = 0
+    for tile, t0, n_scan, n in tiles:
+        fe_args = (tile, tb.bloom, tb.bloom_bits, W, lead, L, n_scan)
+        w, c = front_end_raw(*fe_args)
+        _assert_same((w, c), front_end_raw_plain(*fe_args))
+        args = (tile, w, tb.csr, tb.emeta.shape[0], W, lead, L, n_scan)
+        e, p, pt, qt = expand_raw(*args)
+        _assert_same((e, p, pt, qt), expand_raw_plain(*args))
+        assert pt == 0
+        rm = record_rmeta(n, cuda)
+        for match in ((tb.match, None) if iupac else (None,)):
+            for nmm, x in ((0, 1), (2, 0)):
+                vargs = (tile, e, p, tb.emeta, tb.p1_bytes, match, t0, rm, None, lead,
+                         nmm, x)
+                a = verify_p1_raw(*vargs)
+                assert torch.equal(a, verify_p1_raw_plain(*vargs))
+                margs = (tile, a, e, p, tb.emeta, tb.p2_bytes, match, t0, rm, None,
+                         lead, margin, nmm, x)
+                h = margin_p2_raw(*margs)
+                assert torch.equal(h, margin_p2_raw_plain(*margs))
+                hits += h.shape[0]
+    torch.cuda.synchronize()
+    assert hits > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mismatches", [0, 1, 2])
+def test_card_raw_search_equals_cpu_search(cuda, tmp_path, mismatches):
+    """An RNA rendering at -I 1 on the card prints the DNA record's bytes
+    and the CPU's, through the raw wrappers only, once per tile; then a
+    scaffold assembly with every 7th scaffold rendered: the raw wrappers
+    launch for those scaffolds, the packed ones for the stream runs."""
+    sts, fa = _corpus(tmp_path)
+    params = {"iupac_mode": 1, "mismatches": mismatches}
+    counts = [f.launches for f in WRAPPERS]
+    eng = MerPCR(device=cuda, **params)
+    eng._tile_len_override = 1 << 15
+    on_card = _search_records(eng, sts, _rna_records(fa))
+    launched = dict(zip(WRAPPERS, (f.launches - c0 for f, c0 in zip(WRAPPERS, counts))))
+    (cfg, n_tiles, _), = eng.last_scans
+    assert not cfg.packed and n_tiles > 1
+    assert all(launched[f] == (n_tiles if f in RAW_WRAPPERS[:2] else 0)
+               for f in WRAPPERS if f not in RAW_WRAPPERS[2:]), launched
+    assert all(0 < launched[f] <= n_tiles for f in RAW_WRAPPERS[2:]), launched
+    assert on_card == _search_records(MerPCR(device="cpu", **params), sts, _rna_records(fa))
+    assert on_card.count("\n") > 0
+    asm_sts, asm_fa = _assembly(tmp_path)
+    counts = [f.launches for f in RAW_WRAPPERS]
+    recs = _rna_records(asm_fa, every=7)
+    on_card = _search_records(MerPCR(device=cuda, **params), asm_sts, recs)
+    assert [f.launches - c0 for f, c0 in zip(RAW_WRAPPERS, counts)][:2] == [58, 58]
+    assert on_card == _search_records(MerPCR(device="cpu", **params), asm_sts, recs)

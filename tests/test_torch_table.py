@@ -132,6 +132,10 @@ def test_table_from_numpy_keeps_bits(tmp_path):
     np.testing.assert_array_equal(t.emeta.numpy(), host.emeta)
     np.testing.assert_array_equal(t.p1_codes.numpy(), host.p1_codes)
     np.testing.assert_array_equal(t.p2_codes.numpy(), host.p2_codes)
+    for name in ("p1_bytes", "p2_bytes", "match"):
+        got = getattr(t, name)
+        assert got.dtype == torch.uint8, name
+        np.testing.assert_array_equal(got.numpy(), getattr(host, name), err_msg=name)
     assert t.qbloom_s.dtype == torch.int32
     assert (1 << t.gq) == host.qbloom_s.size * 32
     assert t.pf_bits == 2 * (11 + 2) and t.t16_bits == meta.t16_bits > 0
@@ -177,3 +181,25 @@ def test_table_from_numpy_carries_the_word_size_tier(tmp_path, wordsize):
         assert csr is t.bstart and t.bstart.numel() == 4**12 + 1 and t.bsc.shape == (1, 2)
     else:
         assert csr[0] is t.uhash and csr[1] is t.ustart and t.bstart.numel() == 2
+
+
+@pytest.mark.parametrize("iupac", [False, True])
+def test_table_carries_the_raw_byte_fields(tmp_path, iupac):
+    """``p1_bytes``, ``p2_bytes`` and ``match`` (the raw-byte path, K9) of a
+    table compiled by the port equal the JAX ``DeviceTable``'s: primer
+    bytes as written (U and lowercase kept, zero-padded) and the 256 x 256
+    match table of the table's -I mode."""
+    path = tmp_path / "u.sts"
+    path.write_text("U1\tGGCUCAGAGUAUUUGGGAUG\tctcttggaatcctatctcactg\t200\n"
+                    "U2\tACGTRYNACGTACGTACG\tTTTTGGGGCCCCAAAAU\t150\n")
+    res = STSLoader.load_file(str(path), 11, 240)
+    host, meta = compile_table(res, 11, iupac)
+    t = table_from_numpy(host, meta, "cpu")
+    jdev, _ = jax_compile_table(JaxSTSLoader.load_file(str(path), 11, 240), 11, iupac)
+    for name in ("p1_bytes", "p2_bytes", "match"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(jdev, name)),
+                                      err_msg=name)
+    assert t.match.numel() == 1 << 16
+    assert bytes(t.p1_bytes[0, :20].tolist()) == b"GGCUCAGAGUAUUUGGGAUG"
+    u, tt = ord("U"), ord("T")
+    assert int(t.match[u * 256 + tt]) == int(iupac)  # U ~ T only at -I 1
