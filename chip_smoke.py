@@ -105,6 +105,23 @@ closing device line is printed only when every phase passed):
              variant (c) at W = 13 and W = 14 on that tile. Wherever the
              dirty-span filter is armed the tile must hold positions that
              only the filter removes (the filter changes totals, not lines)
+13. sharded  the sharded search (K15) on the one card (overhead, not
+             scaling): the 47 Mbp record at -N 0 and -N 2 on 1, 2 and 4
+             shards of cuda:0 (``use_mesh``) and assembly (c) on 1 and 2,
+             each cold then warm with the launch counts read around the
+             warm run (front end and expansion once per global tile,
+             padding tiles included; verify and margin at most once per
+             real tile: a padding tile has no pairs and skips them) and
+             bytes equal to the single-device output; the per-global-tile
+             outputs of the record's 4-shard plane on the card against the
+             same call on the CPU (plain versions, padding tiles included,
+             tolerance 0); then ``python -m merpcr_tpu_torch --multihost``
+             as two gloo ranks on cuda:0 (launcher environment): rank 0's
+             stdout equal to the single-device bytes, rank 1's empty, both
+             exit 0 with the same hit count; a summary line with the warm
+             seconds per shard count, the gather's milliseconds (whole,
+             and its row collective alone) and bytes from rank 0's log,
+             and its bound at this host's memcpy rate
 
 The second-to-last JSON line lists every kernel with its launches on the
 main path, error against its plain version, times and bound: the record
@@ -1167,6 +1184,190 @@ def phase_raw(MerPCR, recs, wrappers, expect, mism, off_size, n: int, card: str,
     return kern, launches
 
 
+SHARD_COUNTS = (2, 4)  # shards on the one card (overhead, not scaling)
+GATHER_LOG = "gather: "  # the rank-0 log line of parallel.distributed.gather_tiles
+
+
+def sharded_search(MerPCR, recs, wrappers, sts: str, shards: int, what: str,
+                   **params) -> dict:
+    """One search of ``recs`` on ``shards`` shards of cuda:0 (1: no mesh),
+    cold then warm, launch counts read around the warm run: the path's
+    front end and expansion once per global tile (padding tiles included),
+    verify and margin only on tiles with pairs or anchors (at most once per
+    real tile: a padding tile skips both, and expansion's write pass), no
+    other wrapper. Returns the warm output and figures."""
+    from merpcr_tpu_torch.parallel import make_mesh
+
+    eng = MerPCR(**params)
+    if shards > 1:
+        eng.use_mesh(make_mesh(("cuda:0",) * shards))
+    check(eng.load_sts_file(sts), "STS load failed")
+    cold, hits_cold, t_cold = search_bytes(eng, recs)
+    for w in wrappers.values():
+        w.launches = 0
+    warm, hits, t_warm = search_bytes(eng, recs)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    check(warm == cold and hits == hits_cold, f"{what}: warm search differs from cold")
+    (scan,) = eng.last_scans
+    cfg, n_tiles = scan.cfg, scan.tiles
+    n_global = shards * -(-n_tiles // shards)
+    check(scan.shards == shards, f"{what}: last_scans shows {scan.shards} shards")
+    used = path_wrappers(cfg)
+    check(all(v == 0 for k, v in launches.items() if k not in used)
+          and launches[used[0]] == launches[used[1]] == n_global
+          and all(0 < launches[k] <= n_tiles for k in used[2:]),
+          f"{what}: launches {launches} for {n_tiles} tiles, {n_global} global")
+    return {"out": warm, "hits": hits, "cold_s": t_cold, "warm_s": t_warm,
+            "launches": launches, "tiles": n_tiles, "global_tiles": n_global,
+            "last_scans_shards": scan.shards, "cfg": cfg}
+
+
+def host_copy_bytes_per_s() -> float:
+    """This host's memcpy rate: the best of five copies of 256 MiB."""
+    src = np.ones(1 << 28, dtype=np.uint8)
+    dst = np.empty_like(src)
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.copyto(dst, src)
+        best = min(best, time.perf_counter() - t0)
+    return src.nbytes / best
+
+
+def two_process_search(sts: str, fa: str, want: str) -> dict:
+    """``python -m merpcr_tpu_torch --multihost`` as two ranks of one gloo
+    group, both on cuda:0 (launcher environment, loopback rendezvous):
+    rank 0 prints ``want``, rank 1 nothing, both exit 0 and log the same
+    hit count. Returns the rank-0 gather's figures from its log."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    procs = []
+    for r in (0, 1):
+        # both ranks on this host: gloo's sockets on the loopback device
+        env = {"GLOO_SOCKET_IFNAME": "lo", **os.environ, "RANK": str(r),
+               "LOCAL_RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(port)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "merpcr_tpu_torch", sts, fa, "--multihost", "-Q", "0"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    t0 = time.perf_counter()
+    try:
+        res = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, res)):
+        check(p.returncode == 0, f"rank {r} rc={p.returncode} err={err[-3000:]}")
+    check(res[0][0] == want, "rank 0's output differs from the single-device output")
+    check(res[1][0] == "", f"rank 1 printed {res[1][0][:200]!r}")
+    found = [[ln for ln in err.splitlines() if "Search complete" in ln] for _, err in res]
+    counts = [ln[-1].split("Search complete: ")[1] for ln in found]
+    check(counts[0] == counts[1] == f"{want.count(chr(10))} hits found",
+          f"hit counts {counts}")
+    gathers = [ln.split(GATHER_LOG)[1] for ln in res[0][1].splitlines() if GATHER_LOG in ln]
+    check(len(gathers) == 1, f"rank 0 logged {len(gathers)} gathers")
+    f = dict(kv.split("=") for kv in gathers[0].split())  # tiles= rows= bytes= ms= rows_ms=
+    return {"seconds": seconds, "gather_tiles": int(f["tiles"]),
+            "gather_rows": int(f["rows"]), "gather_bytes": int(f["bytes"]),
+            "gather_ms": float(f["ms"]), "gather_rows_ms": float(f["rows_ms"])}
+
+
+def phase_sharded(MerPCR, recs, wrappers, sts: str, fa: str, want_n0: str,
+                  a_sts: str, a_fa: str, want_c: str, n: int, a_bp: int, card: str) -> dict:
+    """Phase 13: the sharded search (K15) on the one card. The 47 Mbp
+    record at -N 0 and -N 2 on 1, 2 and 4 shards of cuda:0, assembly (c)
+    on 2: bytes equal to the single-device output; the per-global-tile
+    outputs of one sharded record plane on the card against the same call
+    on the CPU (plain versions, padding tiles included); two processes of
+    the CLI under --multihost. Returns the summary."""
+    from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
+    from merpcr_tpu_torch.parallel import make_mesh
+    from merpcr_tpu_torch.parallel.sharded import sharded_scan_record
+
+    warm_s = {}
+    for n_mm in (0, 2):
+        base = None
+        for shards in (1, *SHARD_COUNTS):
+            r = sharded_search(MerPCR, recs, wrappers, sts, shards,
+                               f"47 Mbp -N {n_mm} on {shards} shards", mismatches=n_mm)
+            base = base or r["out"]
+            check(r["out"] == base, f"-N {n_mm}: {shards} shards differ from one device")
+            check(n_mm or r["out"] == want_n0, "-N 0: differs from phase 5's output")
+            warm_s[f"N{n_mm}_{shards}"] = r["warm_s"]
+            emit({"phase": "sharded", "run": f"record_N{n_mm}", "card": card,
+                  "genome_bp": n, "shards": shards, "strict": r["cfg"].strict,
+                  "tiles": r["tiles"], "global_tiles": r["global_tiles"],
+                  "last_scans_shards": r["last_scans_shards"], "hits": r["hits"],
+                  "cold_s": r["cold_s"], "warm_s": r["warm_s"],
+                  "warm_mbp_per_s": n / 1e6 / r["warm_s"], "launches": r["launches"],
+                  "equal_to_one_device": True,
+                  "padding_tiles_skip": ["verify_p1", "margin_p2", "expand write pass"]})
+    a_recs = MerPCR(device="cpu").load_fasta_file(a_fa)
+    for shards in (1, 2):
+        r = sharded_search(MerPCR, a_recs, wrappers, a_sts, shards,
+                           f"assembly (c) on {shards} shards", iupac_mode=1)
+        check(r["out"] == want_c, f"assembly (c) on {shards} shards differs from phase 11")
+        warm_s[f"asm_c_{shards}"] = r["warm_s"]
+        emit({"phase": "sharded", "run": "assembly_c", "card": card, "bases": a_bp,
+              "shards": shards, "stream": r["cfg"].stream, "tiles": r["tiles"],
+              "global_tiles": r["global_tiles"], "last_scans_shards": r["last_scans_shards"],
+              "hits": r["hits"], "cold_s": r["cold_s"], "warm_s": r["warm_s"],
+              "warm_mbp_per_s": a_bp / 1e6 / r["warm_s"], "launches": r["launches"],
+              "equal_to_one_device": True})
+    del a_recs
+
+    # K15 against its plain version: one sharded plane, per global tile
+    eng = MerPCR()
+    check(eng.load_sts_file(sts), "STS load failed")
+    seq, packed = record_seq_bytes(recs[0]), record_packed(recs[0])
+    total = len(seq) - eng.wordsize + 1
+    cfg = eng._base_config(eng._pick_tile_len(total))
+    rt = eng._runtime_params()
+    shards = SHARD_COUNTS[-1]
+    t0 = time.perf_counter()
+    card_outs = sharded_scan_record(cfg, eng._table, seq, eng.wordsize,
+                                    make_mesh(("cuda:0",) * shards), rt, packed_rec=packed)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_outs = sharded_scan_record(cfg, eng._table, seq, eng.wordsize,
+                                   make_mesh(("cpu",) * shards), rt, packed_rec=packed)
+    t_cpu = time.perf_counter() - t0
+    n_real = -(-total // cfg.tile_len)
+    check(len(card_outs) == len(cpu_outs) == shards * -(-n_real // shards),
+          f"{len(card_outs)} card tiles, {len(cpu_outs)} CPU tiles")
+    err = max(max_abs_err([v.cpu() if isinstance(v, torch.Tensor) else v for v in a], b)
+              for a, b in zip(card_outs, cpu_outs))
+    check(err == 0, f"sharded tiles differ from the plain versions by {err}")
+    check(all(o.c_total == 0 and o.hit_total == 0 for o in card_outs[n_real:]),
+          "a padding tile reports totals or rows")
+    emit({"phase": "sharded_tiles", "card": card, "shards": shards,
+          "global_tiles": len(card_outs), "real_tiles": n_real,
+          "hits": sum(o.hit_total for o in card_outs), "max_abs_err": err,
+          "card_s": t_card, "cpu_plain_s": t_cpu})
+    del eng
+
+    # two processes, both on cuda:0
+    mp = two_process_search(sts, fa, want_n0)
+    rate = host_copy_bytes_per_s()
+    summary = {"phase": "sharded_summary", "card": card, "warm_s": warm_s,
+               "two_process_s": mp["seconds"], "gather_ms": mp["gather_ms"],
+               "gather_rows_ms": mp["gather_rows_ms"],
+               "gather_tiles": mp["gather_tiles"], "gather_rows": mp["gather_rows"],
+               "gather_bytes": mp["gather_bytes"], "host_copy_bytes_per_s": rate,
+               "gather_bound_ms": mp["gather_bytes"] / rate * 1e3,
+               "two_process_equal": True,
+               "note": "shards share one card: overhead, not scaling"}
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1368,6 +1569,10 @@ def main() -> int:
                                      "stream_kernels", f"stream+dirty_bloom+iupac+W{W}"),
                        launched))
             del a_eng, a_recs
+
+        # 13. the sharded search (K15): meshes on the card, two processes
+        phase_sharded(MerPCR, recs, wrappers, sts, fa, warm, a_sts, a_dirty, c_out, n,
+                      a_bp, card)
 
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),

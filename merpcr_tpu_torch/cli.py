@@ -1,10 +1,11 @@
 """Command-line interface: ``python -m merpcr_tpu_torch sts fa [flags]``.
 
 Flag-for-flag compatible with the reference CLI (``src/merpcr/cli.py``):
-same 12 flags, same defaults, same bounds validators (cli.py:79-124), same
-legacy me-PCR ``X=value`` argument conversion (cli.py:19-62), same exit
-codes (0 success / 1 failure, cli.py:256-266), diagnostics to stderr and
-results to stdout (cli.py:65-76). The search runs on the CUDA card; without
+same 12 flags (plus the JAX package's ``--multihost``), same defaults,
+same bounds validators (cli.py:79-124), same legacy me-PCR ``X=value``
+argument conversion (cli.py:19-62), same exit codes (0 success / 1
+failure, cli.py:256-266), diagnostics to stderr and results to stdout
+(cli.py:65-76). The search runs on the CUDA card; without
 one, ``main`` raises before it parses the files.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from typing import List, Optional
 
@@ -165,6 +167,16 @@ def create_parser() -> argparse.ArgumentParser:
         version=f"merPCR-TPU version {__version__}",
     )
     parser.add_argument("--debug", action="store_true", help="Enable debug logging")
+    # No reference counterpart (merpcr_tpu/cli.py:165-175): spread the search
+    # over the processes of a torch.distributed group, one shard each; start
+    # one process per card with this flag (or MERPCR_TPU_MULTIHOST=1), e.g.
+    # under torchrun, and only rank 0 writes output.
+    parser.add_argument(
+        "--multihost", action="store_true",
+        default=os.environ.get("MERPCR_TPU_MULTIHOST", "") == "1",
+        help="Distribute the search across the processes of a "
+        "torch.distributed group (output written by rank 0 only)",
+    )
     return parser
 
 
@@ -194,6 +206,9 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
             max_sts_line_length=args.max_sts_line_length,
             device=device,
         )
+
+        if args.multihost:
+            mer_pcr.enable_multihost()
 
         if not mer_pcr.load_sts_file(args.sts_file):
             logger.error(f"Failed to load STS file: {args.sts_file}")

@@ -33,12 +33,20 @@ consecutive packable records is laid end to end in one plane, separated by
 0xFF gaps, and scanned as tiles of up to 2^21 positions, so the kernels
 launch once per tile, not once per record. A lone record takes the record
 path (one record per plane).
+
+Several devices (``use_mesh``) and several processes (``enable_multihost``)
+take the sharded scan of ``parallel`` (K15, the JAX package's
+``shard_map`` path): each plane's scan positions are cut into one span of
+whole tiles per shard, every shard tile runs the same kernels on its
+shard's device, and the tiles keep their global index, so the output bytes
+are the single-device bytes for any shard count.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import sys
 import time
 from typing import List, Optional
@@ -52,6 +60,8 @@ from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
 from .ops.scan import ScanConfig, default_config, scan_stream
 from .ops.table import build_strict1, compile_table, table_from_numpy
+from .parallel import distributed
+from .parallel.sharded import make_mesh, sharded_scan_record, sharded_scan_stream
 
 # Constants (reference engine.py:17-39)
 DEFAULT_MARGIN = 50
@@ -92,7 +102,25 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class PlaneScan(tuple):
+    """(cfg, tiles, records) of one scanned plane, with ``shards``: the
+    mesh's shard count (1 without a mesh). ``tiles`` counts the plane's
+    real tiles; a mesh of n shards scans n * ceil(tiles / n) global tiles,
+    the rest padding."""
+
+    def __new__(cls, cfg, tiles: int, records: int, shards: int = 1):
+        self = super().__new__(cls, (cfg, tiles, records))
+        self.shards = shards
+        return self
+
+    cfg = property(lambda self: self[0])
+    tiles = property(lambda self: self[1])
+    records = property(lambda self: self[2])
 
 
 class MerPCR:
@@ -125,11 +153,16 @@ class MerPCR:
         self.max_pcr_size = 0
         self.total_hits = 0
 
-        # (ScanConfig, tiles, records) of every plane the last search
-        # scanned, in order
+        # PlaneScan (ScanConfig, tiles, records; .shards) of every plane
+        # the last search scanned, in order
         self.last_scans: list = []
         self._table_host = None  # HostTable of NumPy arrays
-        self._table_dev = None  # Table on self.device (see _table)
+        self._tables: dict = {}  # device -> Table (see _table)
+        # 1-D device mesh of the sharded scan (use_mesh), None: one device
+        self.mesh: Optional[tuple] = None
+        # several processes (enable_multihost): every rank scans its shard
+        # of every plane and only rank 0 writes
+        self._multihost = False
         self._meta = None  # TableMeta
         self._strict1_tried = False  # build_strict1 ran for this table
         # Test hook: force a specific tile length (exercises multi-tile
@@ -159,14 +192,43 @@ class MerPCR:
                 f"Default PCR size must be between {MIN_PCR_SIZE} and {MAX_PCR_SIZE}"
             )
 
+    def use_mesh(self, mesh) -> "MerPCR":
+        """Shard the scan across a 1-D mesh (``parallel.make_mesh``: a
+        tuple of devices, one per shard; None: one device again). Tiles
+        are partitioned by scan position and the table replicated; the
+        output is byte-identical to the single-device path
+        (``merpcr_tpu/engine.py:185-190``)."""
+        self.mesh = None if mesh is None else make_mesh(mesh)
+        return self
+
+    def enable_multihost(
+        self,
+        coordinator_address: Optional[str] = None,
+        num_processes: Optional[int] = None,
+        process_id: Optional[int] = None,
+    ) -> "MerPCR":
+        """Run the search over every process of a ``torch.distributed``
+        group (``merpcr_tpu/engine.py:192-213``): starts the gloo group
+        (``parallel.distributed.initialize``: a no-op in one process or
+        when a group exists), scans on this rank's device, one shard per
+        rank (``global_mesh``), and gates emission in :meth:`search` so
+        that rank 0 alone writes. The rows are gathered to every rank, so
+        every rank returns the same ``total_hits``."""
+        distributed.initialize(coordinator_address, num_processes, process_id)
+        self._multihost = True
+        self.device = distributed.rank_device(self.device)
+        return self.use_mesh(distributed.global_mesh(self.device))
+
     @property
     def _table(self):
         """The compiled table on the engine's device (moved on first use)."""
-        if self._table_dev is None and self._table_host is not None:
-            self._table_dev = table_from_numpy(
+        if self._table_host is None:
+            return None
+        if self.device not in self._tables:
+            self._tables[self.device] = table_from_numpy(
                 self._table_host, self._meta, self.device
             )
-        return self._table_dev
+        return self._tables[self.device]
 
     # ------------------------------------------------------------------ load
     def load_sts_file(self, filename: str) -> bool:
@@ -179,7 +241,7 @@ class MerPCR:
         self._table_host, self._meta = compile_table(
             res, self.wordsize, bool(self.iupac_mode)
         )
-        self._table_dev = None
+        self._tables = {}
         self._strict1_tried = False
         return True
 
@@ -262,7 +324,7 @@ class MerPCR:
             if not self._strict1_tried:
                 self._table_host, self._meta = build_strict1(
                     self._table_host, m, bool(self.iupac_mode))
-                self._table_dev = None
+                self._tables = {}
                 self._strict1_tried = True
             return (True, 1) if self._meta.strict1 else (False, 0)
         return False, 0
@@ -327,20 +389,34 @@ class MerPCR:
                     total_scan: int, stream_len: int, rmeta: np.ndarray,
                     recmap) -> np.ndarray:
         """Upload a plane and its record tables, run the kernels over its
-        tiles, and download every tile's hits in one copy.
+        tiles, and download every tile's hits in one copy; with a mesh, cut
+        the plane into shards first (``sharded_scan_stream``).
 
         Returns an int64 array of shape (n_hits, 7) with columns
         (pos1, pos2, entry, tile_idx, pair_order, rank, rec), pos1/pos2
         0-based in the coordinates of record ``rec`` (an rmeta row)."""
         n_tiles = -(-total_scan // cfg.tile_len)
-        self.last_scans.append((cfg, n_tiles, len(rmeta)))
+        rt = self._runtime_params()
+        if self.mesh is not None:
+            outs = sharded_scan_stream(cfg, self._table, plane_np, rmeta, total_scan,
+                                       stream_len, self.mesh, rt, recmap=recmap,
+                                       tables=self._tables)
+            return self._rows(cfg, n_tiles, len(rmeta), outs)
         dev = self.device
         outs = scan_stream(
             cfg, self._table, torch.from_numpy(plane_np).to(dev), total_scan,
             stream_len, torch.from_numpy(rmeta).to(dev),
             None if recmap is None else torch.from_numpy(recmap).to(dev),
-            self._runtime_params(), n_tiles,
+            rt, n_tiles,
         )
+        return self._rows(cfg, n_tiles, len(rmeta), outs)
+
+    def _rows(self, cfg: ScanConfig, n_tiles: int, n_records: int, outs) -> np.ndarray:
+        """Record the plane in ``last_scans`` and stack its tiles' hits as
+        (n_hits, 7) int64 rows; the tile column is the index in ``outs``,
+        the global tile index ``shard * tiles_per_shard + t`` under a mesh."""
+        shards = 1 if self.mesh is None else len(self.mesh)
+        self.last_scans.append(PlaneScan(cfg, n_tiles, n_records, shards))
         parts = []
         for t, o in enumerate(outs):
             if o.hit_total:
@@ -350,6 +426,8 @@ class MerPCR:
                     dim=1))
         if not parts:
             return np.zeros((0, 7), dtype=np.int64)
+        if len({p.device for p in parts}) > 1:  # shards on several devices
+            parts = [p.cpu() for p in parts]
         return torch.cat(parts).cpu().numpy().astype(np.int64)
 
     def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
@@ -373,6 +451,11 @@ class MerPCR:
             dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
         cfg = self._base_config(tile_len, dirty_pos=dirty_pos, packed=packed)
         n_tiles = -(-total_scan // cfg.tile_len)
+        if self.mesh is not None:
+            outs = sharded_scan_record(cfg, self._table, seq, self.wordsize, self.mesh,
+                                       self._runtime_params(), packed_rec=packed_rec,
+                                       tables=self._tables)
+            return self._rows(cfg, n_tiles, 1, outs)[:, :6]
         plane = self._plane(packed_rec if packed else seq,
                             cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
                             packed=packed)
@@ -495,9 +578,15 @@ class MerPCR:
         """Search all records; emit 5-field tab-delimited hits
         (reference engine.py:365-451; line format engine.py:442)."""
         total_hits = 0
+        # Several processes: every rank runs every plan item (all must join
+        # each gather, in the same order) but only rank 0 writes; the others
+        # never create output_file (merpcr_tpu/engine.py:1394-1409)
+        emit_here = not self._multihost or distributed.is_output_host()
         # None or the literal string "stdout" (any case) -> stdout
         # (reference engine.py:368-371)
-        if output_file and output_file.lower() != "stdout":
+        if not emit_here:
+            output = open(os.devnull, "w")
+        elif output_file and output_file.lower() != "stdout":
             output = open(output_file, "w")
         else:
             output = sys.stdout

@@ -304,16 +304,17 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     sig = [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I]
     count = kernels.function("expand", "mp_expand_count", sig + [P, P, P, P])
     write = kernels.function("expand", "mp_expand_write", sig + [P, P, P, P])
-    s = kernels.stream(tile)
-    blk_sums, blk_off = blk[:n_blk], blk[n_blk:]
-    kernels.call(count, *args, blk_sums.data_ptr(), blk_off.data_ptr(),
-                 totals.data_ptr(), s)
-    pos_total, pair_total = (int(v) for v in totals.tolist())
-    entry = torch.empty(pair_total, dtype=torch.int32, device=dev)
-    ppos = torch.empty(pair_total, dtype=torch.int32, device=dev)
-    if pair_total:
-        kernels.call(write, *args, blk_off.data_ptr(), entry.data_ptr(),
-                     ppos.data_ptr(), s)
+    with kernels.on_device(tile):
+        s = kernels.stream(tile)
+        blk_sums, blk_off = blk[:n_blk], blk[n_blk:]
+        kernels.call(count, *args, blk_sums.data_ptr(), blk_off.data_ptr(),
+                     totals.data_ptr(), s)
+        pos_total, pair_total = (int(v) for v in totals.tolist())
+        entry = torch.empty(pair_total, dtype=torch.int32, device=dev)
+        ppos = torch.empty(pair_total, dtype=torch.int32, device=dev)
+        if pair_total:
+            kernels.call(write, *args, blk_off.data_ptr(), entry.data_ptr(),
+                         ppos.data_ptr(), s)
     return entry, ppos, pos_total, pair_total
 
 

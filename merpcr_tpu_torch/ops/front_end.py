@@ -122,11 +122,12 @@ def front_end(tile, qbloom_s, gq: int, wordsize: int, lead: int,
     c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
     fn = kernels.function("front_end", "mp_front_end", [P, P, I, I, I, I, P, P, P])
-    kernels.call(
-        fn, tile.data_ptr() + lead // 2, qbloom_s.data_ptr(), gq, wordsize,
-        n_units, n_scan, words.data_ptr(),
-        c_total.data_ptr(), kernels.stream(tile),
-    )
+    with kernels.on_device(tile):
+        kernels.call(
+            fn, tile.data_ptr() + lead // 2, qbloom_s.data_ptr(), gq, wordsize,
+            n_units, n_scan, words.data_ptr(),
+            c_total.data_ptr(), kernels.stream(tile),
+        )
     front_end.launches += 1
     return words, c_total
 
@@ -201,11 +202,12 @@ def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
     P, I = kernels.P, kernels.I
     fn = kernels.function("front_end", "mp_front_end_loose",
                           [P, P, I, I, I, I, I, I, P, P, P])
-    kernels.call(
-        fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, qbloom_bits,
-        wordsize, stride, n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
-        kernels.stream(tile),
-    )
+    with kernels.on_device(tile):
+        kernels.call(
+            fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, qbloom_bits,
+            wordsize, stride, n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
+            kernels.stream(tile),
+        )
     front_end_loose.launches += 1
     return words, c_total
 
@@ -263,11 +265,12 @@ def front_end_raw(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
     c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
     fn = kernels.function("front_end", "mp_front_end_raw", [P, P, I, I, I, I, P, P, P])
-    kernels.call(
-        fn, tile.data_ptr() + lead, bloom.data_ptr(), 2 * wordsize - bloom_bits,
-        wordsize, tile_len, n_scan, words.data_ptr(), c_total.data_ptr(),
-        kernels.stream(tile),
-    )
+    with kernels.on_device(tile):
+        kernels.call(
+            fn, tile.data_ptr() + lead, bloom.data_ptr(), 2 * wordsize - bloom_bits,
+            wordsize, tile_len, n_scan, words.data_ptr(), c_total.data_ptr(),
+            kernels.stream(tile),
+        )
     front_end_raw.launches += 1
     return words, c_total
 

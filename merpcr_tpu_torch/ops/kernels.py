@@ -138,6 +138,13 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def on_device(t: torch.Tensor):
+    """Context that makes ``t``'s CUDA device current. A ctypes launch runs
+    in the current device's context, whatever stream it is given: without
+    this a tile on ``cuda:1`` would be launched against ``cuda:0``."""
+    return torch.cuda.device(t.device)
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 - C type aliases read like the signatures
 LL = ctypes.c_longlong

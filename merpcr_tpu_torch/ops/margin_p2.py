@@ -166,32 +166,33 @@ def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
     common = [P, LL, I, P, I, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
     count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
     write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
-    s = kernels.stream(tile)
-    out = []
-    for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
-        n_anch = chunk.numel()
-        n_items = n_anch * (2 * margin + 1)
-        n_blk = -(-n_items // 256)
-        hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
-        blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-        total = torch.zeros(1, dtype=torch.int32, device=dev)
-        args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
-                chunk.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
-                emeta.data_ptr(), p2.data_ptr(),
-                None if p2_exp is None else p2_exp.data_ptr(),
-                None if match is None else match.data_ptr(), p2.shape[1],
-                tile_start, *record_args(rmeta, recmap), lead, margin,
-                mismatches, three_prime)
-        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-        kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
-                     blk_off.data_ptr(), total.data_ptr(), s)
-        wrapper.launches += 1  # one per chunk launched
-        hit_total = int(total.item())
-        rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
-        if hit_total:
-            kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
-                         rows.data_ptr(), s)
-        out.append(rows)
+    with kernels.on_device(tile):
+        s = kernels.stream(tile)
+        out = []
+        for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
+            n_anch = chunk.numel()
+            n_items = n_anch * (2 * margin + 1)
+            n_blk = -(-n_items // 256)
+            hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
+            blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
+            total = torch.zeros(1, dtype=torch.int32, device=dev)
+            args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+                    chunk.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
+                    emeta.data_ptr(), p2.data_ptr(),
+                    None if p2_exp is None else p2_exp.data_ptr(),
+                    None if match is None else match.data_ptr(), p2.shape[1],
+                    tile_start, *record_args(rmeta, recmap), lead, margin,
+                    mismatches, three_prime)
+            blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+            kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
+                         blk_off.data_ptr(), total.data_ptr(), s)
+            wrapper.launches += 1  # one per chunk launched
+            hit_total = int(total.item())
+            rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
+            if hit_total:
+                kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
+                             rows.data_ptr(), s)
+            out.append(rows)
     return torch.cat(out) if len(out) > 1 else out[0]
 
 

@@ -295,14 +295,17 @@ def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
 
 def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
                 total_scan: int, stream_len: int, rmeta: torch.Tensor,
-                recmap, rt, n_tiles: int) -> List[ScanOut]:
+                recmap, rt, n_tiles: int, start: int = 0) -> List[ScanOut]:
     """Scan ``n_tiles`` tiles of one plane (``get_stream_scan_fn``'s
     contract, and ``get_record_scan_fn``'s for a one-record plane): tile t
     is the view plane[t*S : t*S + tile_buf_in] (S = ``tile_step_in``: L/2
     bytes of a nibble plane, L of a raw one) of the plane laid out as
-    [lead][records][tail], and owns scan positions [t*L, (t+1)*L) of
-    the ``total_scan`` positions; ``stream_len`` is the laid-out length
-    (the last record's end)."""
+    [lead][records][tail], and owns scan positions [start + t*L, start +
+    (t+1)*L) of the ``total_scan`` positions; ``stream_len`` is the
+    laid-out length (the last record's end). ``start`` is the first scan
+    position of ``plane``: 0 for a whole plane, the shard's first position
+    for one shard's slice (``parallel.sharded``), whose tiles past
+    ``total_scan`` own no position (``n_scan`` 0)."""
     L, S = cfg.tile_len, cfg.tile_step_in
     if plane.numel() < (n_tiles - 1) * S + cfg.tile_buf_in:
         raise ValueError("plane shorter than its tiles")
@@ -311,6 +314,7 @@ def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
     outs = []
     for t in range(n_tiles):
         tile = plane[t * S : t * S + cfg.tile_buf_in]
-        n_scan = min(max(total_scan - t * L, 0), L)
-        outs.append(scan_tile(cfg, table, tile, t * L, n_scan, rmeta, recmap, rt))
+        t0 = start + t * L
+        n_scan = min(max(total_scan - t0, 0), L)
+        outs.append(scan_tile(cfg, table, tile, t0, n_scan, rmeta, recmap, rt))
     return outs

@@ -109,22 +109,23 @@ def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
         [P, LL, I, P, P, I, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, P, P, P],
     )
     write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
-    s = kernels.stream(tile)
-    blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-    kernels.call(
-        count, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
-        entry.data_ptr(), ppos.data_ptr(), n, emeta.data_ptr(), p1.data_ptr(),
-        None if p1_exp is None else p1_exp.data_ptr(),
-        None if match is None else match.data_ptr(), p1.shape[1],
-        tile_start, *record_args(rmeta, recmap), lead, mismatches,
-        three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
-        total.data_ptr(), s,
-    )
-    anch_total = int(total.item())
-    a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
-    if anch_total:
-        kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
-                     a_idx.data_ptr(), s)
+    with kernels.on_device(tile):
+        s = kernels.stream(tile)
+        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+        kernels.call(
+            count, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+            entry.data_ptr(), ppos.data_ptr(), n, emeta.data_ptr(), p1.data_ptr(),
+            None if p1_exp is None else p1_exp.data_ptr(),
+            None if match is None else match.data_ptr(), p1.shape[1],
+            tile_start, *record_args(rmeta, recmap), lead, mismatches,
+            three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
+            total.data_ptr(), s,
+        )
+        anch_total = int(total.item())
+        a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
+        if anch_total:
+            kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
+                         a_idx.data_ptr(), s)
     wrapper.launches += 1
     return a_idx
 

@@ -537,6 +537,50 @@ def test_card_search_equals_cpu_search(cuda, tmp_path):
     assert _search(MerPCR(), GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
 
 
+@pytest.mark.gpu
+def test_wrapper_launches_on_the_last_device(cuda, tmp_path):
+    """A tile on the last card launches there while another card is
+    current (``kernels.on_device``)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", n - 1)
+    eng, cfg, tiles = _tiles(tmp_path, dev)
+    tb = eng._table
+    tile, _t0, n_scan, _n = tiles[0]
+    assert torch.cuda.current_device() != dev.index
+    before = front_end.launches
+    args = (tile, tb.qbloom_s, tb.gq, cfg.wordsize, cfg.lead, cfg.tile_len, n_scan)
+    w, c = front_end(*args)
+    torch.cuda.synchronize(dev)
+    wp, cp = front_end_plain(*args)
+    assert front_end.launches == before + 1 and w.device == dev
+    assert torch.equal(w, wp) and torch.equal(c, cp) and int(c) > 0
+
+
+@pytest.mark.gpu
+def test_card_mesh_search_equals_cpu_search(cuda, tmp_path):
+    """Two and three shards on one card, and a shard on every card: the
+    CPU search's bytes, every wrapper launched, none more than once per
+    global tile."""
+    from merpcr_tpu_torch.parallel import make_mesh
+
+    sts, fa = _corpus(tmp_path)
+    want = _search(MerPCR(device="cpu"), sts, fa)
+    assert want.count("\n") > 0
+    for mesh in ((cuda,) * 2, (cuda,) * 3, None):
+        counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+        eng = MerPCR(device=cuda).use_mesh(make_mesh(mesh))
+        eng._tile_len_override = 1 << 15
+        assert _search(eng, sts, fa) == want
+        (scan,) = eng.last_scans
+        n_global = scan.shards * -(-scan.tiles // scan.shards)
+        launched = [f.launches - c0 for f, c0 in
+                    zip((front_end, expand, verify_p1, margin_p2), counts)]
+        assert launched[0] == launched[1] == n_global, (mesh, launched)
+        assert all(0 < k <= n_global for k in launched), (mesh, launched)
+
+
 def _raw_tiles(tmp_path, device, **params):
     """(engine on ``device``, raw cfg, per-tile argument tuples) of the
     corpus record rendered as RNA with junk bytes (the raw-byte path)."""
