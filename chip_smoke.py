@@ -5,6 +5,12 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--mbp 47] [--nsts 1000] [--planted 200]
 
+``--package-root DIR`` runs the ``merpcr_tpu_torch`` of another checkout
+(for example a parent commit unpacked with ``git archive``) through the
+same phases and measurements, for an A/B on one card: run parent, this
+tree, this tree, parent in one command. The device-operation gate below
+holds only for this checkout's package.
+
 Phases (each prints one JSON line; any failure exits non-zero, and the
 closing device line is printed only when every phase passed):
 
@@ -136,7 +142,10 @@ search), the W = 12, 13, 14, 16 kernels strict and loose (phase 7) and the
 the launches of the warm RNA -N 0 search), each with the launches of its
 own warm search. ``device_ms`` pools several profiler traces, since the profiler
 loses events (``profiled_ms``): ``device_events_lost`` is their share,
-and a ``device_ms`` of null a reading with too few left. The line before
+and a ``device_ms`` of null a reading with too few left. ``device_ops``
+is the device operations (kernels, copies, fills) of one call from the same
+traces; the run fails if an expand wrapper issues more than 2 or a
+verify_p1 wrapper more than 1. The line before
 the last is nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -173,6 +182,11 @@ SOURCE_OF = {"front_end_loose": "front_end", "front_end_raw": "front_end",
              "verify_p1_raw": "verify_p1", "margin_p2_raw": "margin_p2"}
 GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
+# device operations per call that the redesigned wrappers may issue: one
+# launch, and for expand a second when the pairs pass its buffer
+DEVICE_OPS_MAX = {"expand": 2, "expand_loose": 2, "expand_raw": 2,
+                  "verify_p1": 1, "verify_p1_raw": 1}
 
 
 def check(cond, msg: str) -> None:
@@ -391,9 +405,12 @@ def device_time(fn) -> dict:
 
 
 def profiled_ms(fn, reps: int) -> tuple:
-    """(device ms per call of ``fn``, share of events lost) from
-    torch.profiler. The profiler drops events: often the first few of a
-    trace, now and then a long stretch or every event of one name. So
+    """(device ms per call of ``fn``, share of events lost, device
+    operations per call, {event name: device ms per call}) from
+    torch.profiler; the operations are the kernels, copies and fills that
+    one call issues, m per event name. The profiler drops events: often
+    the first few of a trace, now and then a long stretch or every event
+    of one name. So
     two or three traces of ``reps`` + 1 calls are pooled: an event name
     comes m times per call, m the most any trace shows, and costs m
     times its mean over the pooled events, which a loss does not move. The
@@ -411,11 +428,14 @@ def profiled_ms(fn, reps: int) -> tuple:
         for k, (t, c) in d.items():
             t0, c0, m0 = pooled.get(k, (0.0, 0, 0))
             pooled[k] = (t0 + t, c0 + c, max(m0, -(-c // n)))
-    want = len(traces) * n * sum(m for _, _, m in pooled.values())
+    ops = sum(m for _, _, m in pooled.values())
+    want = len(traces) * n * ops
     lost = 1 - sum(c for _, c, _ in pooled.values()) / want if want else 1.0
     if not pooled or any(c < reps for _, c, _ in pooled.values()):
-        return None, lost
-    return sum(t / c * m for t, c, m in pooled.values()) * 1e3, lost
+        return None, lost, ops, {}
+    split = {k.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0][:60]:
+             t / c * m * 1e3 for k, (t, c, m) in pooled.items()}
+    return sum(split.values()), lost, ops, split
 
 
 def max_abs_err(got, want) -> int:
@@ -529,19 +549,21 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         err = max_abs_err(out_of(got), out_of(want))
         ms = cuda_ms(lambda: kernel(*args), reps)
         plain_ms = cuda_ms(lambda: plain(*args), max(2, reps // 5))
-        device_ms, lost = profiled_ms(lambda: kernel(*args), reps)  # None: void
+        device_ms, lost, ops, split = profiled_ms(lambda: kernel(*args), reps)  # None: void
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
             "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
             "source": f"merpcr_tpu_torch/csrc/{SOURCE_OF.get(name, name)}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
             "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
-            "device_events_lost": lost,
+            "device_events_lost": lost, "device_ops": ops, "device_split": split,
             "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         }
         if err:
             raise RuntimeError(f"{name}[{variant}]: kernel differs from plain by {err}")
+        check(PKG != ROOT or ops <= DEVICE_OPS_MAX.get(name, ops),
+              f"{name}[{variant}]: {ops} device operations per call")
         return got
 
     # K1 / K8: plane units of the scan span + the distinct table words
@@ -709,7 +731,7 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
           "kernels": [{k: r[k] for k in ("name", "equal", "kernel_ms", "device_ms",
-                                         "device_events_lost", "plain_ms",
+                                         "device_events_lost", "device_ops", "plain_ms",
                                          "max_abs_err", "bound_ms")}
                       for r in res.values()]})
     return res
@@ -1252,7 +1274,7 @@ def two_process_search(sts: str, fa: str, want: str) -> dict:
                "MASTER_PORT": str(port)}
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "merpcr_tpu_torch", sts, fa, "--multihost", "-Q", "0"],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            cwd=PKG, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     t0 = time.perf_counter()
     try:
         res = [p.communicate(timeout=300) for p in procs]
@@ -1374,7 +1396,13 @@ def main() -> int:
     ap.add_argument("--mbp", type=float, default=47.0)
     ap.add_argument("--nsts", type=int, default=1000)
     ap.add_argument("--planted", type=int, default=200)
+    ap.add_argument("--package-root", default=ROOT,
+                    help="run the merpcr_tpu_torch of this checkout (an A/B "
+                         "against another commit), measured by this script")
     args = ap.parse_args()
+    global PKG
+    PKG = os.path.abspath(args.package_root)
+    sys.path.insert(0, PKG)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1481,7 +1509,7 @@ def main() -> int:
         check(api == GOLDEN_LINE + "\n", f"golden API output {api!r}")
         cli = subprocess.run(
             [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa],
-            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            cwd=PKG, capture_output=True, text=True, timeout=300,
         )
         check(cli.returncode == 0 and cli.stdout == GOLDEN_LINE + "\n",
               f"golden CLI rc={cli.returncode} out={cli.stdout!r} "
@@ -1491,7 +1519,7 @@ def main() -> int:
         api_i, _, _ = search_bytes(gi, gi.load_fasta_file(g_fa))
         cli_i = subprocess.run(
             [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-I", "1"],
-            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            cwd=PKG, capture_output=True, text=True, timeout=300,
         )
         check(cli_i.returncode == 0 and cli_i.stdout == api_i and GOLDEN_LINE in api_i,
               f"golden -I 1: CLI rc={cli_i.returncode} out={cli_i.stdout!r} "
@@ -1501,7 +1529,7 @@ def main() -> int:
         api_2, _, _ = search_bytes(g2, g2.load_fasta_file(g_fa))
         cli_2 = subprocess.run(
             [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-N", "2"],
-            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            cwd=PKG, capture_output=True, text=True, timeout=300,
         )
         check(cli_2.returncode == 0 and cli_2.stdout == api_2 and GOLDEN_LINE in api_2
               and not g2.last_scans[0][0].strict,
@@ -1512,7 +1540,7 @@ def main() -> int:
         api_w, _, _ = search_bytes(gw, gw.load_fasta_file(g_fa))
         cli_w = subprocess.run(
             [sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa, "-W", "13", "-M", "300"],
-            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            cwd=PKG, capture_output=True, text=True, timeout=300,
         )
         check(cli_w.returncode == 0 and cli_w.stdout == api_w and GOLDEN_LINE in api_w
               and gw.last_scans[0][0].stride == 2,

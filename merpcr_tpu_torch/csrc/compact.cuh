@@ -1,13 +1,23 @@
 // Order-preserving compaction shared by the expand, verify_p1 and
 // margin_p2 kernels.
 //
-// Every compaction here is reduce-then-scan: a count pass writes one sum
-// per block, one single-block kernel turns the block sums into exclusive
-// block offsets (and the total), and a write pass places each thread's
-// items at its block offset plus its exclusive offset inside the block.
-// Output order therefore follows the item index exactly, run after run.
-// Slot claims by atomicAdd would make the order depend on scheduling, and
-// the emitted hit order (pair_order, rank) is part of the output contract.
+// Output order follows the item index exactly, run after run. Slot claims
+// by atomicAdd would make the order depend on scheduling, and the emitted
+// hit order (pair_order, rank) is part of the output contract. Two schemes:
+//
+// * reduce-then-scan (margin_p2): a count pass writes one sum per block,
+//   one single-block kernel turns the block sums into exclusive block
+//   offsets (and the total), and a write pass places each thread's items
+//   at its block offset plus its exclusive offset inside the block;
+// * single pass (expand, verify_p1): decoupled look-back (Merrill and
+//   Garland, "Single-pass Parallel Prefix Scan with Decoupled Look-back",
+//   NVIDIA 2016). A block takes its tile from an atomic ticket, so every
+//   tile it waits on belongs to a block that already runs (forward
+//   progress); it publishes its tile's sum, walks back over the published
+//   sums of earlier tiles until it meets an inclusive prefix, and publishes
+//   its own inclusive prefix. The tile statuses carry the launch's sequence
+//   number, so no launch has to clear them; the ticket counters are put
+//   back to 0 by the launch that used them.
 #pragma once
 
 #include <cstdint>
@@ -74,20 +84,6 @@ static inline cudaError_t launch_scan_sums(const int* in, int n, int* excl,
   return cudaGetLastError();
 }
 
-// Write pass of a flag compaction: out[k] = i for the k-th set flag, in
-// ascending i. `blk_off` holds the exclusive block offsets of the counts
-// that the count pass wrote with the same kBlock decomposition.
-__global__ void compact_flags_kernel(const uint8_t* __restrict__ flags, int n,
-                                     const int* __restrict__ blk_off,
-                                     int* __restrict__ out) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int f = (i < n && flags[i]) ? 1 : 0;
-  int unused;
-  const int e = block_exclusive_scan(f, warp_sums, &unused);
-  if (f) out[blk_off[blockIdx.x] + e] = i;
-}
-
 static inline int n_blocks(long long n) {
   return static_cast<int>((n + kBlock - 1) / kBlock);
 }
@@ -101,6 +97,71 @@ __device__ __forceinline__ uint32_t nibble_at(const uint8_t* __restrict__ plane,
   if (p < 0 || p >= n_pos) return 0xFFu;
   const uint32_t b = plane[p >> 1];
   return (p & 1) ? (b >> 4) : (b & 15u);
+}
+
+// Shared state of the single-pass scans of one device (ops/kernels.py
+// ScanState): ticket[0] hands out tiles, ticket[1] collects a sum in any
+// order (expand's lanes); the launch's last tile puts both back to 0.
+// status[t] = value | kInclusive | seq << 33 once tile t has published
+// (value: the tile's sum, or with kInclusive the sum of tiles 0..t); an
+// entry with another seq is not published yet. seq runs 1 .. 2^31 - 1,
+// and the buffer starts zeroed, so no stale entry ever matches.
+struct ScanState {
+  unsigned int* ticket;
+  unsigned long long* status;
+  unsigned int seq;
+};
+
+constexpr unsigned long long kInclusive = 1ull << 32;
+
+__device__ __forceinline__ void publish(const ScanState& s, unsigned int t,
+                                        unsigned int v, bool inclusive) {
+  volatile unsigned long long* st = s.status;
+  st[t] = static_cast<unsigned long long>(v) | (inclusive ? kInclusive : 0ull) |
+          (static_cast<unsigned long long>(s.seq) << 33);
+}
+
+// The next tile of this launch (thread 0 of a block calls it).
+__device__ __forceinline__ unsigned int take_tile(const ScanState& s) {
+  return atomicAdd(s.ticket, 1u);
+}
+
+// Exclusive prefix of tile t whose own sum is `agg` (the same in every
+// lane), by decoupled look-back; publishes tile t's inclusive prefix. The
+// 32 lanes of one warp call it: each pass reads the statuses of the 32
+// tiles before the window's end, waits until all are published, and stops
+// at the nearest inclusive one (before tile 0 counts as an inclusive 0).
+__device__ __forceinline__ unsigned int look_back(const ScanState& s,
+                                                  unsigned int t,
+                                                  unsigned int agg) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) publish(s, 0, agg, true);
+    return 0;
+  }
+  if (lane == 0) publish(s, t, agg, false);
+  volatile unsigned long long* st = s.status;
+  unsigned int excl = 0;
+  long long end = static_cast<long long>(t) - 1;  // the window's newest tile
+  while (true) {
+    const long long j = end - lane;
+    unsigned long long v = 0;
+    bool ready = true, inclusive = true;
+    if (j >= 0) {
+      v = st[j];
+      ready = static_cast<unsigned int>(v >> 33) == s.seq;
+      inclusive = (v & kInclusive) != 0;
+    }
+    if (!__all_sync(0xffffffffu, ready)) continue;  // a tile not yet published
+    const unsigned int incl = __ballot_sync(0xffffffffu, inclusive);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    excl += __reduce_add_sync(0xffffffffu,
+                              j >= 0 && lane <= stop ? static_cast<unsigned int>(v) : 0u);
+    if (incl) break;
+    end -= 32;
+  }
+  if (lane == 0) publish(s, t, excl + agg, true);
+  return excl;
 }
 
 }  // namespace mp

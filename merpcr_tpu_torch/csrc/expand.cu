@@ -21,17 +21,17 @@
 // the sorted unique keys uhash and then ustart at W >= 13.
 //
 // The loose mode (mode 1) is the loose branch of the same stages
-// (scan.py:775-795, :863-875), behind the K8 front end: one thread per
-// stride group q = P*r + p, whose registers are unit r's shifted right by
+// (scan.py:775-795, :863-875), behind the K8 front end: an item is a
+// stride group q = P*r + p (in the group order of the front end's words), whose registers are unit r's shifted right by
 // stride*p bases; `stride` phases at scan positions stride*q + d; a clean
 // span keeps ptab's phase bits within the valid ones, a dirty span (or any
 // span without a ptab) all valid phases; no t16 and no bloom.
 //
 // The raw mode (mode 2, K9b) is the unpacked branch (scan.py:680-719,
-// :965-977) behind the raw-byte front end (K9a): one thread per flag word
-// of a plane with one byte per position (32 positions, bit d = position
-// 32w + d); each flagged position recomputes its W-mer from its W bytes and
-// expands its one bucket. There is no position stage there, so pos_total
+// :965-977) behind the raw-byte front end (K9a): an item is a flag word of a
+// plane with one byte per position (32 positions, bit d = position 32w +
+// d), each set bit its own lane; a lane hashes its W bytes and expands its
+// one bucket. There is no position stage there, so pos_total
 // stays 0 as in the JAX totals.
 //
 // Pairs come out in (item, phase, bucket slot) order, so pair j here is
@@ -39,17 +39,25 @@
 // pos_total counts phase bits before the t16 filter, pair_total bucket
 // slots after it, as the JAX totals do.
 //
-// Bound on the card: memory, and little of it. One thread per item reads
-// its flag word; only flagged units (a few per 10^4) read their three plane
-// words and make one ptab gather per group, one t16 gather and one bucket
-// lookup per phase (a row gather, two gathers, or ~log2(U) dependent
-// gathers of the search); with the dirty-span filter armed, one
-// 4-byte gather into the bloom per clean phase of a dirty span
-// (L2-resident; only the phases the filter decides are looked up, not all
-// eight as in the JAX stage). Reduce-then-scan with recompute: the
-// count pass keeps nothing per unit, the write pass recomputes the unit's
-// phases and writes at block offset + block-exclusive offset, so no buffer
-// is sized before its total is known and the order is exact.
+// Bound on the card: launch latency and chains of dependent gathers, not
+// bytes. Only flagged items (a few per 10^4 units on a clean genome, a
+// third of them on a dirty or raw one) gather from ptab, the K10 bloom,
+// t16 and the CSR, and a bucket lookup is a row gather, two gathers, or
+// ~log2(U) dependent gathers of the binary search. So the design does
+// each lookup once, spreads the chains over threads, and makes one launch
+// per call (expand_kernel): a block takes a tile of 64 to 256 flag words
+// (about 256 tiles per call), lists its items in order in shared memory, works out each
+// item's phase bits on a thread of its own, writes one lane per (item,
+// phase), looks each lane up on a thread of its own (the phases of one
+// item side by side), and takes its pair base from a single-pass look-back
+// scan (compact.cuh); it writes its pairs into the caller's buffers of
+// `cap` pairs, and the last
+// tile writes (pos_total, pair_total) into pinned host memory, the call's
+// one host read. Only when pair_total passes cap does a second launch
+// (expand_overflow_kernel) write the pairs from the stored lanes: no
+// bucket is looked up twice. The lane buffers are scratch from the
+// wrapper, 12 bytes per scan position of the tile (a tile's lanes are
+// among its scan positions, so each tile of flag words owns a region).
 
 #include "compact.cuh"
 #include "units.cuh"
@@ -186,127 +194,199 @@ __device__ __forceinline__ int2 phase_bucket(const mp::UnitRegs& g, int d,
   return bucket_of(t.csr, mp::window_bases(g.A, g.B, d, W));
 }
 
-// The three modes of an item (the `mode` argument of the C entries).
+// The three modes of an item (the `mode` argument of the C entries). An
+// item is a strict-flagged u32 unit (8 phases), in the loose mode a
+// loose-flagged stride group q = P*r + p (`stride` phases, scan.py:775-795,
+// :863-875; no t16, no K10), or in the raw mode a flag word of a raw-byte
+// plane (K9b, scan.py:965-977: 32 positions, the word's bits are its
+// phases). Lane (item i, phase d) is scan position ppos = i * n_phases + d.
 enum Mode { kStrict = 0, kLoose = 1, kRaw = 2 };
 
-// An item is a strict-flagged u32 unit (8 phases), in the loose mode a
-// loose-flagged stride group (`stride` phases, scan.py:775-795, :863-875;
-// no t16, no K10), or in the raw mode a nonzero flag word of a raw-byte
-// plane (K9b, scan.py:965-977: 32 positions, the word's bits are its
-// phases). Its registers hold the window that starts at its first scan
-// position (raw: `bytes` points at its first position's byte), and its
-// phase bits say which phases expand.
 template <int kMode>
-struct Item {
-  mp::UnitRegs g;
-  uint32_t nb;
-  const uint8_t* bytes;
-
-  static __device__ __forceinline__ int n_phases(const Tables& t) {
-    return kMode == kStrict ? 8 : kMode == kLoose ? t.stride : 32;
-  }
-
-  // Is item i flagged: its bit of the flag words, or (raw) its word.
-  static __device__ __forceinline__ bool flagged(const uint32_t* __restrict__ words,
-                                                 int i) {
-    if (kMode == kRaw) return words[i] != 0u;
-    return (words[i >> 5] >> (i & 31)) & 1u;
-  }
-
-  __device__ __forceinline__ void load(const uint32_t* __restrict__ units,
-                                       const uint32_t* __restrict__ words,
-                                       int i, int W, int n_scan,
-                                       const Tables& t) {
-    if (kMode == kRaw) {
-      bytes = reinterpret_cast<const uint8_t*>(units) + 32ll * i;
-      nb = words[i];
-    } else if (kMode == kLoose) {
-      g = mp::load_group(units, i, t.stride);
-      const uint32_t nbv =
-          valid_phases(g, t.stride, static_cast<long long>(t.stride) * i, W, n_scan);
-      nb = t.ptab ? span_phases(g.A, g.Aa, nbv, nbv, W, t) : nbv;
-    } else {
-      g = mp::load_unit(units, i);
-      nb = unit_phases(g, i, W, n_scan, t);
-    }
-  }
-
-  // Bucket (start, count) of phase d. Raw: the front end flagged only
-  // clean windows, so the position's W-mer hashes.
-  __device__ __forceinline__ int2 bucket(int d, int W, const Tables& t) const {
-    if (kMode == kRaw) {
-      uint32_t h;
-      return mp::raw_hash(bytes + d, W, &h) ? bucket_of(t.csr, h) : make_int2(0, 0);
-    }
-    return phase_bucket(g, d, W, t);
-  }
-
-  // Positions the JAX totals count: the raw path has no position stage
-  // (pos_total is 0 there, scan.py:967).
-  __device__ __forceinline__ int n_positions() const {
-    return kMode == kRaw ? 0 : __popc(nb);
-  }
-
-  __device__ __forceinline__ int n_pairs(int W, const Tables& t) const {
-    int n = 0;
-    for (uint32_t m = nb; m; m &= m - 1u) n += bucket(__ffs(m) - 1, W, t).y;
-    return n;
-  }
-};
-
-template <int kMode>
-__global__ void expand_count_kernel(const uint32_t* __restrict__ units,
-                                    const uint32_t* __restrict__ words,
-                                    Tables t, int W, int n_items, int n_scan,
-                                    int* __restrict__ pos_total,
-                                    int* __restrict__ blk_pairs) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  int n_pos = 0, n_pairs = 0;
-  if (i < n_items && Item<kMode>::flagged(words, i)) {
-    Item<kMode> it;
-    it.load(units, words, i, W, n_scan, t);
-    n_pos = it.n_positions();
-    n_pairs = it.n_pairs(W, t);
-  }
-  int blk;
-  mp::block_exclusive_scan(n_pos, warp_sums, &blk);
-  if (threadIdx.x == 0 && blk) atomicAdd(pos_total, blk);
-  mp::block_exclusive_scan(n_pairs, warp_sums, &blk);
-  if (threadIdx.x == 0) blk_pairs[blockIdx.x] = blk;
+__device__ __forceinline__ int n_phases(const Tables& t) {
+  return kMode == kStrict ? 8 : kMode == kLoose ? t.stride : 32;
 }
 
+// Phase bits of flagged unit or stride group i (not the raw mode, whose
+// phase bits are its flag word).
 template <int kMode>
-__global__ void expand_write_kernel(const uint32_t* __restrict__ units,
-                                    const uint32_t* __restrict__ words,
-                                    Tables t, int W, int n_items, int n_scan,
-                                    const int* __restrict__ blk_off,
-                                    int* __restrict__ entry,
-                                    int* __restrict__ ppos) {
-  __shared__ int warp_sums[32];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  Item<kMode> it;
-  it.g = {0, 0, 0, 0};
-  it.nb = 0;
-  it.bytes = nullptr;
-  int n_pairs = 0;
-  if (i < n_items && Item<kMode>::flagged(words, i)) {
-    it.load(units, words, i, W, n_scan, t);
-    n_pairs = it.n_pairs(W, t);
+__device__ __forceinline__ uint32_t item_phases(const uint32_t* __restrict__ units,
+                                                int i, int W, int n_scan,
+                                                const Tables& t) {
+  if (kMode == kLoose) {
+    const mp::UnitRegs g = mp::load_group(units, i, t.stride);
+    const uint32_t nbv =
+        valid_phases(g, t.stride, static_cast<long long>(t.stride) * i, W, n_scan);
+    return t.ptab ? span_phases(g.A, g.Aa, nbv, nbv, W, t) : nbv;
   }
-  int unused;
-  int out = mp::block_exclusive_scan(n_pairs, warp_sums, &unused);
-  if (!n_pairs) return;
-  out += blk_off[blockIdx.x];
-  const int n_phases = Item<kMode>::n_phases(t);
-  for (uint32_t m = it.nb; m; m &= m - 1u) {  // phases in ascending order
-    const int d = __ffs(m) - 1;
-    const int2 sc = it.bucket(d, W, t);
-    for (int s = 0; s < sc.y; ++s, ++out) {
-      entry[out] = min(max(sc.x + s, 0), t.n_entries - 1);
-      ppos[out] = i * n_phases + d;
+  return unit_phases(mp::load_unit(units, i), i, W, n_scan, t);
+}
+
+// Bucket (start, count) of the lane at scan position p: its window's t16
+// test (strict) and bucket lookup. Raw: the front end flagged only clean
+// windows, so the position's W-mer hashes.
+template <int kMode>
+__device__ __forceinline__ int2 lane_bucket(const uint32_t* __restrict__ units,
+                                            int p, int W, const Tables& t) {
+  if (kMode == kRaw) {
+    uint32_t h;
+    return mp::raw_hash(reinterpret_cast<const uint8_t*>(units) + p, W, &h)
+               ? bucket_of(t.csr, h)
+               : make_int2(0, 0);
+  }
+  if (kMode == kLoose)
+    return phase_bucket(mp::load_group(units, p / t.stride, t.stride), p % t.stride, W, t);
+  return phase_bucket(mp::load_unit(units, p >> 3), p & 7, W, t);
+}
+
+// Flag words per tile (one block each): about 256 tiles per call, at 64
+// to 256 words (a power of two). Fewer, wider tiles serialise a dirty
+// tile's items (up to a third of the units are flagged) over few blocks;
+// more, narrower ones lengthen the look-back and add waves of blocks.
+constexpr int kMaxTileWords = mp::kBlock;
+__host__ __device__ inline int tile_words(int n_words) {
+  int w = 64;
+  while (w < kMaxTileWords && w * 256 < n_words) w *= 2;
+  return w;
+}
+
+// Scan positions of one tile: the bound of its lanes, and the length of
+// its region of the lane buffers.
+__host__ __device__ inline int region_len(int words, int mode, int n_phases) {
+  return words * 32 * (mode == kRaw ? 1 : n_phases);
+}
+
+// The pairs of a tile's lanes, from each lane's bucket start and pair
+// offset: pair `base + o` of the call is (entry clamped into the table,
+// the lane's scan position). Pairs at or past `cap` are not written.
+__device__ __forceinline__ void write_pairs(const int* lp, const int* ls,
+                                            const int* lo, int n_lanes,
+                                            int n_pairs, int base,
+                                            int n_entries, int* entry,
+                                            int* ppos, int cap) {
+  for (int l = threadIdx.x; l < n_lanes; l += blockDim.x) {
+    const int first = lo[l];
+    const int last = l + 1 < n_lanes ? lo[l + 1] : n_pairs;
+    const int start = ls[l], p = lp[l];
+    for (int o = first; o < last && base + o < cap; ++o) {
+      entry[base + o] = min(max(start + (o - first), 0), n_entries - 1);
+      ppos[base + o] = p;
     }
   }
+}
+
+// One launch per call. A block takes a tile of tile_words(n_words) flag
+// words from the ticket and, inside the block:
+//   1. lists the tile's items (set flag bits) in order in shared memory;
+//   2. works out each item's phase bits once, one item per thread (ptab and
+//      K10 bloom gathers), and writes one lane (the scan position of an
+//      (item, phase)) per phase bit, in (item, phase) order, into the
+//      tile's own region of the lane buffers (raw: the bits are the lanes);
+//   3. makes each lane's t16 test and bucket lookup once, one lane per
+//      thread, so the phases of one item look up side by side, and stores
+//      the lane's bucket start and its pair offset within the tile;
+//   4. takes the tile's pair base from the single-pass look-back scan
+//      (compact.cuh), adds its lanes to the lane sum, and
+//   5. writes its pairs, if they fit the caller's buffers of `cap` pairs.
+// The last tile writes (pos_total, pair_total) into the caller's pinned
+// host words and puts the counters back to 0. blk[tile] keeps (lanes, pair
+// base) for expand_overflow_kernel.
+template <int kMode>
+__global__ void __launch_bounds__(mp::kBlock)
+expand_kernel(const uint32_t* __restrict__ units,
+              const uint32_t* __restrict__ words, Tables t, int W,
+              int n_words, int n_scan, mp::ScanState ss,
+              int* __restrict__ lane_ppos, int* __restrict__ lane_start,
+              int* __restrict__ lane_off, int2* __restrict__ blk,
+              int* __restrict__ entry, int* __restrict__ ppos, int cap,
+              int* __restrict__ totals) {
+  __shared__ int warp_sums[32];
+  const int n_tw = tile_words(n_words);
+  __shared__ int items[kMode == kRaw ? 1 : kMaxTileWords * 32];
+  __shared__ unsigned int tile_sh;
+  __shared__ int base_sh;
+  if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
+  __syncthreads();
+  const int tile = static_cast<int>(tile_sh);
+  const int P = n_phases<kMode>(t);
+  const long long region = static_cast<long long>(tile) * region_len(n_tw, kMode, P);
+  int* lp = lane_ppos + region;
+  int* ls = lane_start + region;
+  int* lo = lane_off + region;
+  const int w = tile * n_tw + threadIdx.x;
+  const uint32_t bits = static_cast<int>(threadIdx.x) < n_tw && w < n_words ? words[w] : 0u;
+  int n_bits;
+  int o = mp::block_exclusive_scan(__popc(bits), warp_sums, &n_bits);
+  int n_lanes;
+  if (kMode == kRaw) {
+    for (uint32_t m = bits; m; m &= m - 1u) lp[o++] = 32 * w + __ffs(m) - 1;
+    n_lanes = n_bits;
+  } else {
+    for (uint32_t m = bits; m; m &= m - 1u) items[o++] = 32 * w + __ffs(m) - 1;
+    __syncthreads();
+    n_lanes = 0;
+    for (int k0 = 0; k0 < n_bits; k0 += mp::kBlock) {
+      const int k = k0 + threadIdx.x;
+      const uint32_t nb = k < n_bits ? item_phases<kMode>(units, items[k], W, n_scan, t) : 0u;
+      int chunk;
+      int l = n_lanes + mp::block_exclusive_scan(__popc(nb), warp_sums, &chunk);
+      for (uint32_t f = nb; f; f &= f - 1u) lp[l++] = items[k] * P + __ffs(f) - 1;
+      n_lanes += chunk;
+    }
+  }
+  __syncthreads();  // the tile's lanes are written
+  int n_pairs = 0;
+  for (int l0 = 0; l0 < n_lanes; l0 += mp::kBlock) {
+    const int l = l0 + threadIdx.x;
+    int count = 0;
+    if (l < n_lanes) {
+      const int2 sc = lane_bucket<kMode>(units, lp[l], W, t);
+      ls[l] = sc.x;
+      count = sc.y;
+    }
+    int chunk;
+    const int off = n_pairs + mp::block_exclusive_scan(count, warp_sums, &chunk);
+    if (l < n_lanes) lo[l] = off;
+    n_pairs += chunk;
+  }
+  if (threadIdx.x < 32) {  // warp 0 looks back
+    if (threadIdx.x == 0 && n_lanes) {
+      atomicAdd(ss.ticket + 1, static_cast<unsigned int>(n_lanes));
+      __threadfence();  // the lane sum holds this tile before it publishes
+    }
+    __syncwarp();
+    const unsigned int base = mp::look_back(ss, tile, static_cast<unsigned int>(n_pairs));
+    if (threadIdx.x == 0) {
+      base_sh = static_cast<int>(base);
+      blk[tile] = make_int2(n_lanes, static_cast<int>(base));
+      if (tile == static_cast<int>(gridDim.x) - 1) {  // every tile has published
+        __threadfence();
+        const unsigned int lanes = atomicExch(ss.ticket + 1, 0u);
+        totals[0] = kMode == kRaw ? 0 : static_cast<int>(lanes);  // raw: no position stage
+        totals[1] = static_cast<int>(base) + n_pairs;
+        ss.ticket[0] = 0u;
+      }
+    }
+  }
+  __syncthreads();
+  write_pairs(lp, ls, lo, n_lanes, n_pairs, base_sh, t.n_entries, entry, ppos, cap);
+}
+
+// The pairs of every tile, when pair_total passed the capacity of
+// expand_kernel's buffers: one block per tile, from the stored lanes.
+__global__ void __launch_bounds__(mp::kBlock)
+expand_overflow_kernel(const int* __restrict__ lane_ppos,
+                       const int* __restrict__ lane_start,
+                       const int* __restrict__ lane_off,
+                       const int2* __restrict__ blk, int region,
+                       int pair_total, int n_entries, int* __restrict__ entry,
+                       int* __restrict__ ppos) {
+  const int tile = blockIdx.x;
+  const long long first = static_cast<long long>(tile) * region;
+  const int2 b = blk[tile];
+  const int end = tile + 1 < static_cast<int>(gridDim.x) ? blk[tile + 1].y : pair_total;
+  write_pairs(lane_ppos + first, lane_start + first, lane_off + first, b.x,
+              end - b.y, b.y, n_entries, entry, ppos, pair_total);
 }
 
 Tables make_tables(const void* ptab, int pf_bits, const void* t16,
@@ -326,21 +406,12 @@ Tables make_tables(const void* ptab, int pf_bits, const void* t16,
 }
 
 template <int kMode>
-cudaError_t launch_count(int nb, cudaStream_t s, const uint32_t* u,
-                         const uint32_t* w, const Tables& t, int W,
-                         int n_items, int n_scan, int* tot, int* blk_pairs) {
-  expand_count_kernel<kMode><<<nb, mp::kBlock, 0, s>>>(u, w, t, W, n_items,
-                                                       n_scan, tot, blk_pairs);
-  return cudaGetLastError();
-}
-
-template <int kMode>
-cudaError_t launch_write(int nb, cudaStream_t s, const uint32_t* u,
-                         const uint32_t* w, const Tables& t, int W,
-                         int n_items, int n_scan, const int* off, int* entry,
-                         int* ppos) {
-  expand_write_kernel<kMode><<<nb, mp::kBlock, 0, s>>>(u, w, t, W, n_items,
-                                                       n_scan, off, entry, ppos);
+cudaError_t launch(int grid, cudaStream_t s, const uint32_t* u, const uint32_t* w,
+                   const Tables& t, int W, int n_words, int n_scan,
+                   const mp::ScanState& ss, int* lp, int* ls, int* lo, int2* blk,
+                   int* entry, int* ppos, int cap, int* totals) {
+  expand_kernel<kMode><<<grid, mp::kBlock, 0, s>>>(u, w, t, W, n_words, n_scan, ss, lp, ls,
+                                                   lo, blk, entry, ppos, cap, totals);
   return cudaGetLastError();
 }
 
@@ -348,64 +419,71 @@ cudaError_t launch_write(int nb, cudaStream_t s, const uint32_t* u,
 
 extern "C" {
 
-// Count pass + block-sum scan. mode 0 (strict): n_items = tile_len / 8
-// units; 1 (loose): tile_len / stride groups; 2 (raw): tile_len / 32 flag
-// words of 32 positions, `units` then being the raw byte plane offset to the first scan position
-// (W - 1 readable bytes past the last). blk_pairs/blk_off hold
-// n_blocks(n_items) ints; totals is int[2] = (pos_total, pair_total),
-// zeroed by the caller. ptab null: no exact group table (W >= 14, and the
-// raw mode). t16 may be null when t16_bits is 0, bloom null to leave K10
-// off (the loose and raw modes read neither).
-// csr_kind 0: csr_a = bsc rows; 1: csr_a = bstart; 2: csr_a = uhash
-// (n_keys of them), csr_b = ustart.
-int mp_expand_count(const void* units, const void* words, const void* ptab,
-                    int pf_bits, const void* t16, int t16_bits, int csr_kind,
-                    const void* csr_a, const void* csr_b, int n_keys,
-                    int n_entries, const void* bloom, int bloom_shift, int W,
-                    int stride, int n_items, int n_scan, int mode,
-                    void* blk_pairs, void* blk_off, void* totals,
-                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Tables t = make_tables(ptab, pf_bits, t16, t16_bits, csr_kind, csr_a,
-                               csr_b, n_keys, n_entries, bloom, bloom_shift,
-                               stride);
-  const int nb = mp::n_blocks(n_items);
-  int* tot = static_cast<int*>(totals);
-  const uint32_t* u = static_cast<const uint32_t*>(units);
-  const uint32_t* w = static_cast<const uint32_t*>(words);
-  int* bp = static_cast<int*>(blk_pairs);
-  const cudaError_t e =
-      mode == kRaw ? launch_count<kRaw>(nb, s, u, w, t, W, n_items, n_scan, tot, bp)
-      : mode == kLoose ? launch_count<kLoose>(nb, s, u, w, t, W, n_items, n_scan, tot, bp)
-                       : launch_count<kStrict>(nb, s, u, w, t, W, n_items, n_scan, tot, bp);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(mp::launch_scan_sums(
-      static_cast<const int*>(blk_pairs), nb, static_cast<int*>(blk_off),
-      tot + 1, s));
+// Tiles of flag words (blocks) of one expansion.
+int mp_expand_tiles(int n_words) {
+  return (n_words + tile_words(n_words) - 1) / tile_words(n_words);
 }
 
-// Write pass: entry/ppos hold pair_total ints each.
-int mp_expand_write(const void* units, const void* words, const void* ptab,
-                    int pf_bits, const void* t16, int t16_bits, int csr_kind,
-                    const void* csr_a, const void* csr_b, int n_keys,
-                    int n_entries, const void* bloom, int bloom_shift, int W,
-                    int stride, int n_items, int n_scan, int mode,
-                    const void* blk_off, void* entry, void* ppos,
-                    void* stream) {
+// The expansion, one launch. mode 0 (strict): n_words = tile_len / 256
+// flag words of one bit per unit; 1 (loose): tile_len / (32 * stride)
+// words of one bit per stride group; 2 (raw): tile_len / 32 flag words of
+// 32 positions, `units` then being the raw byte plane offset to the first
+// scan position (W - 1 readable bytes past the last). ptab null: no exact
+// group table (W >= 14, and the raw mode). t16 may be null when t16_bits
+// is 0, bloom null to leave K10 off (the loose and raw modes read
+// neither). csr_kind 0: csr_a = bsc rows; 1: csr_a = bstart; 2: csr_a =
+// uhash (n_keys of them), csr_b = ustart. ticket/status/seq: the device's
+// scan state (compact.cuh ScanState), status holding
+// mp_expand_tiles(n_words) entries. lane_ppos, lane_start and lane_off
+// hold tile_len ints each, blk mp_expand_tiles(n_words) int2; entry/ppos hold cap ints each. totals: two ints
+// that the kernel writes, (pos_total, pair_total), host-mapped pinned
+// memory in the wrapper. If pair_total > cap, mp_expand_overflow writes
+// the pairs.
+int mp_expand(const void* units, const void* words, const void* ptab,
+              int pf_bits, const void* t16, int t16_bits, int csr_kind,
+              const void* csr_a, const void* csr_b, int n_keys, int n_entries,
+              const void* bloom, int bloom_shift, int W, int stride,
+              int n_words, int n_scan, int mode, void* ticket, void* status,
+              int seq, void* lane_ppos, void* lane_start, void* lane_off,
+              void* blk, void* entry, void* ppos, int cap, void* totals,
+              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tables t = make_tables(ptab, pf_bits, t16, t16_bits, csr_kind, csr_a,
                                csr_b, n_keys, n_entries, bloom, bloom_shift,
                                stride);
-  const int nb = mp::n_blocks(n_items);
   const uint32_t* u = static_cast<const uint32_t*>(units);
   const uint32_t* w = static_cast<const uint32_t*>(words);
-  const int* off = static_cast<const int*>(blk_off);
+  const mp::ScanState ss = {static_cast<unsigned int*>(ticket),
+                            static_cast<unsigned long long*>(status),
+                            static_cast<unsigned int>(seq)};
+  int* lp = static_cast<int*>(lane_ppos);
+  int* ls = static_cast<int*>(lane_start);
+  int* lo = static_cast<int*>(lane_off);
+  int2* b = static_cast<int2*>(blk);
   int* en = static_cast<int*>(entry);
   int* pp = static_cast<int*>(ppos);
+  int* tot = static_cast<int*>(totals);
+  const int g = mp_expand_tiles(n_words);
   return static_cast<int>(
-      mode == kRaw ? launch_write<kRaw>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp)
-      : mode == kLoose ? launch_write<kLoose>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp)
-                       : launch_write<kStrict>(nb, s, u, w, t, W, n_items, n_scan, off, en, pp));
+      mode == kRaw ? launch<kRaw>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot)
+      : mode == kLoose ? launch<kLoose>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot)
+                       : launch<kStrict>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot));
+}
+
+// The pairs when pair_total passed cap: entry/ppos hold pair_total ints
+// each; the lane buffers and blk as mp_expand left them.
+int mp_expand_overflow(const void* lane_ppos, const void* lane_start,
+                       const void* lane_off, const void* blk, int n_words,
+                       int mode, int stride, int pair_total, int n_entries,
+                       void* entry, void* ppos, void* stream) {
+  const int phases = mode == kStrict ? 8 : stride;
+  expand_overflow_kernel<<<mp_expand_tiles(n_words), mp::kBlock, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(lane_ppos), static_cast<const int*>(lane_start),
+      static_cast<const int*>(lane_off), static_cast<const int2*>(blk),
+      region_len(tile_words(n_words), mode, phases), pair_total, n_entries, static_cast<int*>(entry),
+      static_cast<int*>(ppos));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* mp_error_string(int code) {

@@ -13,12 +13,21 @@
 // with the primer bytes, case-insensitively at -I 0 and through the
 // reference's 256 x 256 match table at -I 1; everything else is the same.
 //
-// Bound on the card: memory latency of small gathers. A pair reads one
-// 32-byte emeta row, at most 16 plane bytes and one primer row; pairs are
-// few (hundreds per 2^23-base tile), so the kernel is launch-bound. One
-// thread per pair, then the shared order-preserving compaction
-// (compact.cuh) over one flag byte per pair. The record lookup adds two
-// dependent 4-byte gathers per pair (recmap, then rmeta).
+// Bound on the card: launch latency. A pair reads one 32-byte emeta row, a
+// few plane words and one primer row, and pairs are few (hundreds per
+// 2^23-base tile). So the whole call is one launch: one thread per pair,
+// and the passing pairs are compacted in pair order in the same launch by
+// the single-pass look-back scan of compact.cuh; the last tile writes
+// anch_total straight into the caller's pinned host word.
+//
+// The compare at -I 0 on a nibble plane (the main path) takes 16 bases
+// per step, as the JAX stage's 16-byte row gathers do: the genome window
+// as 64-bit words of nibbles (funnel-shifted to the window's start), XOR
+// the primer codes packed the same way from 8-byte loads of the row,
+// an OR-fold to one bit per mismatching nibble, __popcll under the
+// length mask; the last-X protection and the positions outside the plane
+// are masks over the same nibbles. -I 1 (an expansion-set test per base)
+// and the byte modes compare site by site (records.cuh site_match).
 
 #include "compact.cuh"
 #include "records.cuh"
@@ -41,6 +50,72 @@ struct Verify1 {
   int three_prime;  // protected 3' bases (-X)
 };
 
+constexpr uint64_t kNibOnes = 0x1111111111111111ull;  // bit 0 of each nibble
+
+// Bit 0 of nibbles a .. b-1 (clamped to 0 .. 16).
+__device__ __forceinline__ uint64_t nib_range(long long a, long long b) {
+  const auto below = [](long long n) -> uint64_t {
+    if (n <= 0) return 0ull;
+    return n >= 16 ? kNibOnes : kNibOnes & ((1ull << (4 * n)) - 1ull);
+  };
+  return below(b) & ~below(a);
+}
+
+// The low nibbles of 8 bytes packed into 32 bits (byte k -> nibble k).
+__device__ __forceinline__ uint64_t pack_nibbles(uint64_t bytes) {
+  uint64_t v = bytes & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v >> 4)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v >> 8)) & 0x0000FFFF0000FFFFull;
+  return (v | (v >> 16)) & 0x00000000FFFFFFFFull;
+}
+
+// Primer bases 16c .. 16c+15 of row pc (p1_max bytes, 8-byte aligned) as
+// (code & 15 nibbles, code >> 4 nibbles): a code >= 16 (U, or no letter)
+// equals no genome nibble. Bytes past the row read as 0.
+__device__ __forceinline__ void primer_word(const uint8_t* pc, int c, int p1_max,
+                                            uint64_t* lo, uint64_t* hi) {
+  const unsigned long long* row = reinterpret_cast<const unsigned long long*>(pc);
+  const uint64_t b0 = __ldg(row + 2 * c);
+  const uint64_t b1 = 16 * c + 8 < p1_max ? __ldg(row + 2 * c + 1) : 0ull;
+  *lo = pack_nibbles(b0) | (pack_nibbles(b1) << 32);
+  *hi = pack_nibbles(b0 >> 4) | (pack_nibbles(b1 >> 4) << 32);
+}
+
+// -I 0 on a nibble plane, 16 bases per step: does the window of l1 bases at
+// tile position kl match row pc within the budget and the protection?
+__device__ __forceinline__ bool p1_words_ok(long long kl, int l1,
+                                            const uint8_t* pc,
+                                            const Verify1& v) {
+  // the plane as 64-bit words from the 8-byte boundary at or below it
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(v.plane) & 7u);
+  const uint64_t* words = reinterpret_cast<const uint64_t*>(v.plane - mis);
+  const long long q_max = (v.n_pos - 1 + 2 * mis) >> 4;  // last word in the plane
+  const auto word = [&](long long q) -> uint64_t {
+    return (q < 0 || q > q_max) ? 0ull : words[q];
+  };
+  int mism = 0;
+  for (int c = 0; 16 * c < l1; ++c) {
+    const long long s = kl + 16 * c;  // tile position of nibble 0
+    const long long a = s + 2 * mis;  // ... in the aligned words
+    const long long q = a >= 0 ? a >> 4 : -((15 - a) >> 4);  // floor(a / 16)
+    const int r = static_cast<int>(a - 16 * q);
+    const uint64_t w0 = word(q);
+    const uint64_t g = r ? (w0 >> (4 * r)) | (word(q + 1) << (64 - 4 * r)) : w0;
+    uint64_t p_lo, p_hi;
+    primer_word(pc, c, v.p1_max, &p_lo, &p_hi);
+    uint64_t x = (g ^ p_lo) | p_hi;  // nonzero nibble: mismatch
+    x |= x >> 2;
+    x |= x >> 1;
+    const uint64_t out = kNibOnes & ~nib_range(-s, v.n_pos - s);  // off the plane
+    const uint64_t mm = ((x & kNibOnes) | out) & nib_range(0, l1 - 16 * c);
+    // '+': the last X bases admit no mismatch
+    if (mm & nib_range(l1 - v.three_prime - 16 * c, l1 - 16 * c)) return false;
+    mism += __popcll(mm);
+    if (mism > v.nmm) return false;
+  }
+  return true;
+}
+
 __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
   const int* em = v.emeta + 8LL * e;
   const int hoff = em[0], l1 = em[1];
@@ -50,6 +125,7 @@ __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
   const long long kl = static_cast<long long>(pos) - hoff + v.lead;
   const long long row = static_cast<long long>(e) * v.p1_max;
   const uint8_t* pc = v.p1_codes + row;
+  if (!v.raw && !v.p1_exp) return p1_words_ok(kl, l1, pc, v);
   const uint32_t* px = v.p1_exp ? v.p1_exp + row : nullptr;
   int mism = 0;
   for (int i = 0; i < l1; ++i) {
@@ -61,36 +137,58 @@ __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
   return mism <= v.nmm;
 }
 
-__global__ void verify_p1_count_kernel(const int* __restrict__ entry,
-                                       const int* __restrict__ ppos, int n,
-                                       Verify1 v, uint8_t* __restrict__ ok,
-                                       int* __restrict__ blk_cnt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool pass = i < n && p1_ok(entry[i], ppos[i], v);
-  if (i < n) ok[i] = pass;
-  const int c = __syncthreads_count(pass);
-  if (threadIdx.x == 0) blk_cnt[blockIdx.x] = c;
+// One thread per pair of a ticketed tile; the passing pair indices go to
+// a_idx in pair order. The last tile writes anch_total and puts the ticket
+// back to 0.
+__global__ void verify_p1_kernel(const int* __restrict__ entry,
+                                 const int* __restrict__ ppos, int n,
+                                 Verify1 v, mp::ScanState ss,
+                                 int* __restrict__ a_idx,
+                                 int* __restrict__ anch_total) {
+  __shared__ int warp_sums[32];
+  __shared__ unsigned int tile_sh, excl_sh;
+  if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
+  __syncthreads();
+  const unsigned int tile = tile_sh;
+  const int i = static_cast<int>(tile) * mp::kBlock + threadIdx.x;
+  const int pass = (i < n && p1_ok(entry[i], ppos[i], v)) ? 1 : 0;
+  int agg;
+  const int local = mp::block_exclusive_scan(pass, warp_sums, &agg);
+  if (threadIdx.x < 32) {  // warp 0 looks back
+    const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
+    if (threadIdx.x == 0) {
+      excl_sh = excl;
+      if (tile == gridDim.x - 1) {  // every ticket is taken
+        *anch_total = static_cast<int>(excl) + agg;
+        ss.ticket[0] = 0u;
+      }
+    }
+  }
+  __syncthreads();
+  if (pass) a_idx[excl_sh + local] = i;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Count pass + block-sum scan: ok holds n bytes, blk_cnt/blk_off hold
-// n_blocks(n) ints, anch_total one int. raw 0: a nibble plane of n_pos
-// positions, p1_codes and (-I 1) p1_exp; raw 1: a byte plane of n_pos
-// bytes, p1_codes holding the primer bytes and (-I 1) match the 65,536-byte
-// match table. p1_exp/match null: -I 0. recmap null: the plane holds
-// record 0 alone.
-int mp_verify_p1_count(const void* plane, long long n_pos, int raw,
-                       const void* entry, const void* ppos, int n,
-                       const void* emeta, const void* p1_codes,
-                       const void* p1_exp, const void* match, int p1_max,
-                       long long tile_start, const void* rmeta,
-                       const void* recmap, long long n_map, int lead,
-                       int nmm, int three_prime, void* ok, void* blk_cnt,
-                       void* blk_off, void* anch_total, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// One launch: a_idx holds n ints (the anchors' pair indices, ascending, in
+// its first *anch_total entries); anch_total is one int that the kernel
+// writes, host-mapped pinned memory in the wrapper. raw 0: a nibble plane
+// of n_pos positions, p1_codes (rows of p1_max bytes, p1_max a multiple of
+// 8, 8-byte aligned) and (-I 1) p1_exp; raw 1: a byte plane of n_pos
+// bytes, p1_codes holding the primer bytes and (-I 1) match the
+// 65,536-byte match table. p1_exp/match null: -I 0. recmap null: the plane
+// holds record 0 alone. ticket/status/seq: the device's scan state
+// (compact.cuh ScanState), status holding n_blocks(n) entries.
+int mp_verify_p1(const void* plane, long long n_pos, int raw,
+                 const void* entry, const void* ppos, int n,
+                 const void* emeta, const void* p1_codes, const void* p1_exp,
+                 const void* match, int p1_max, long long tile_start,
+                 const void* rmeta, const void* recmap, long long n_map,
+                 int lead, int nmm, int three_prime, void* ticket,
+                 void* status, int seq, void* a_idx, void* anch_total,
+                 void* stream) {
   const Verify1 v = {static_cast<const uint8_t*>(plane), n_pos, raw != 0,
                      static_cast<const int*>(emeta),
                      static_cast<const uint8_t*>(p1_codes),
@@ -99,24 +197,13 @@ int mp_verify_p1_count(const void* plane, long long n_pos, int raw,
                      mp::Records{static_cast<const int*>(rmeta),
                                  static_cast<const int*>(recmap), n_map},
                      lead, nmm, three_prime};
-  const int nb = mp::n_blocks(n);
-  verify_p1_count_kernel<<<nb, mp::kBlock, 0, s>>>(
-      static_cast<const int*>(entry), static_cast<const int*>(ppos), n, v,
-      static_cast<uint8_t*>(ok), static_cast<int*>(blk_cnt));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(mp::launch_scan_sums(
-      static_cast<const int*>(blk_cnt), nb, static_cast<int*>(blk_off),
-      static_cast<int*>(anch_total), s));
-}
-
-// Write pass: a_idx holds anch_total ints (pair indices, ascending).
-int mp_verify_p1_write(const void* ok, int n, const void* blk_off,
-                       void* a_idx, void* stream) {
-  mp::compact_flags_kernel<<<mp::n_blocks(n), mp::kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(ok), n, static_cast<const int*>(blk_off),
-      static_cast<int*>(a_idx));
+  const mp::ScanState ss = {static_cast<unsigned int*>(ticket),
+                            static_cast<unsigned long long*>(status),
+                            static_cast<unsigned int>(seq)};
+  verify_p1_kernel<<<mp::n_blocks(n), mp::kBlock, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(entry), static_cast<const int*>(ppos), n, v, ss,
+      static_cast<int*>(a_idx), static_cast<int*>(anch_total));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -44,12 +44,20 @@ behind K9a: each flagged position of a raw-byte plane (one byte per
 position) looks up the bucket of its W-mer; there is no phase stage, so
 ``pos_total`` is 0, as in the JAX totals of that path.
 
-Kernel: ``csrc/expand.cu``, reduce-then-scan with recompute (count pass,
-one single-block scan of the block sums, write pass), in a unit mode, a
-group mode and a raw mode (one item per flag word). Its output buffers are
-sized from the count pass, which costs one host read of ``pair_total`` per
-tile. On the card it is bound by memory latency: only flagged items (a few
-per 10^3-10^4) gather from ``ptab``, ``t16`` and the CSR. ``expand_plain``,
+Kernel: ``csrc/expand.cu``, one launch per call in a unit mode, a group
+mode and a raw mode (one item per flag word): each block takes a tile of
+64 to 256 flag words (about 256 tiles per call), lists its items in
+shared memory, works out each item's phase bits once (one item per
+thread), writes one lane per (item, phase),
+makes each lane's t16 test and bucket lookup once (one lane per thread)
+and takes its pair base from a single-pass look-back scan; it writes the
+pairs into buffers of ``tile_len / 16`` pairs and the totals into pinned
+memory, so the one host read is a stream synchronise. Past that capacity
+a second launch writes the pairs from the stored lanes into buffers of
+exactly ``pair_total`` entries. The lane buffers are scratch of 12 bytes
+per scan position of the tile. On the card it is bound by launch latency
+and dependent gathers: only flagged items (a few per 10^3-10^4 on a clean
+genome) gather from ``ptab``, ``t16`` and the CSR. ``expand_plain``,
 ``expand_loose_plain`` and ``expand_raw_plain`` are the same functions in
 plain PyTorch; the wrappers use them only for CPU tensors.
 """
@@ -67,6 +75,9 @@ from .units import (M32, group_regs, kernel_route, mask_bases, mul32,
 CSR_ROWS, CSR_STARTS, CSR_SEARCH = 0, 1, 2
 # item modes of the kernel's C entries: units, stride groups, raw positions
 STRICT, LOOSE, RAW = 0, 1, 2
+# the one-launch path writes up to tile_len / PAIRS_PER_CAP pairs (at least
+# 1024); more take a second launch
+PAIRS_PER_CAP = 16
 
 
 def _csr_kind(csr) -> int:
@@ -253,10 +264,12 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
             csr, n_entries: int, wordsize: int, lead: int, tile_len: int,
             n_scan: int, bloom, bloom_bits: int, stride: int,
             exact_group: bool):
-    """Count pass, block-sum scan, one host read of the totals, write pass
-    into buffers of exactly pair_total entries. ``mode``: STRICT (units),
-    LOOSE (stride groups) or RAW (flag words of a byte plane, 32
-    positions each; no ptab, t16 or bloom)."""
+    """One launch of ``csrc/expand.cu`` and one host read of (pos_total,
+    pair_total); the pairs are the first pair_total entries of buffers of
+    ``cap`` pairs, or, past ``cap``, a second launch writes them into
+    buffers of exactly pair_total entries. ``mode``: STRICT (units), LOOSE
+    (stride groups) or RAW (flag words of a byte plane, 32 positions each;
+    no ptab, t16 or bloom)."""
     kind = _csr_kind(csr)
     keys, *rest = _csr_tensors(csr)
     for t, name in ((words, "words"), (keys, "csr"), *((t, "ustart") for t in rest)):
@@ -290,31 +303,47 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     if words.numel() * 32 != flag_bits or tile.numel() < n_bytes:
         raise ValueError("words/tile do not match tile_len")
     dev = tile.device
-    n_blk = -(-n_items // 256)
-    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-    totals = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_words = words.numel()
     P, I = kernels.P, kernels.I
-    args = (tile.data_ptr() + first, words.data_ptr(),
+    tiles = kernels.function("expand", "mp_expand_tiles", [I])
+    n_tiles = tiles(n_words)  # tiles of flag words, one block each
+    # a tile's lanes are among its scan positions: tile_len bounds them all
+    lanes = torch.empty(3 * tile_len + 2 * n_tiles, dtype=torch.int32, device=dev)
+    lane_ppos, lane_start, lane_off = (lanes[k * tile_len : (k + 1) * tile_len]
+                                       for k in range(3))
+    blk = lanes[3 * tile_len :]  # (lanes, pair base) per tile
+    cap = max(1024, tile_len // PAIRS_PER_CAP)
+    entry = torch.empty(cap, dtype=torch.int32, device=dev)
+    ppos = torch.empty(cap, dtype=torch.int32, device=dev)
+    fn = kernels.function(
+        "expand", "mp_expand",
+        [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I,
+         P, P, I, P, P, P, P, P, P, I, P, P])
+    with kernels.on_device(tile):
+        s = kernels.stream(tile)
+        st = kernels.scan_state(tile)
+        seq = st.tag(n_tiles)
+        kernels.call(
+            fn, tile.data_ptr() + first, words.data_ptr(),
             ptab.data_ptr() if exact_group else None, pf_bits,
             None if t16 is None else t16.data_ptr(), t16_bits,
             kind, keys.data_ptr(), rest[0].data_ptr() if rest else None,
             keys.numel() if kind == CSR_SEARCH else 0, n_entries,
             None if bloom is None else bloom.data_ptr(),
-            2 * wordsize - bloom_bits, wordsize, stride, n_items, n_scan, mode)
-    sig = [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I]
-    count = kernels.function("expand", "mp_expand_count", sig + [P, P, P, P])
-    write = kernels.function("expand", "mp_expand_write", sig + [P, P, P, P])
-    with kernels.on_device(tile):
-        s = kernels.stream(tile)
-        blk_sums, blk_off = blk[:n_blk], blk[n_blk:]
-        kernels.call(count, *args, blk_sums.data_ptr(), blk_off.data_ptr(),
-                     totals.data_ptr(), s)
-        pos_total, pair_total = (int(v) for v in totals.tolist())
+            2 * wordsize - bloom_bits, wordsize, stride, n_words, n_scan, mode,
+            st.ticket.data_ptr(), st.status.data_ptr(), seq, lane_ppos.data_ptr(),
+            lane_start.data_ptr(), lane_off.data_ptr(), blk.data_ptr(),
+            entry.data_ptr(), ppos.data_ptr(), cap, st.host.data_ptr(), s)
+        pos_total, pair_total = st.read(2)
+        if pair_total <= cap:
+            return entry[:pair_total], ppos[:pair_total], pos_total, pair_total
         entry = torch.empty(pair_total, dtype=torch.int32, device=dev)
         ppos = torch.empty(pair_total, dtype=torch.int32, device=dev)
-        if pair_total:
-            kernels.call(write, *args, blk_off.data_ptr(), entry.data_ptr(),
-                         ppos.data_ptr(), s)
+        overflow = kernels.function("expand", "mp_expand_overflow",
+                                    [P, P, P, P, I, I, I, I, I, P, P, P])
+        kernels.call(overflow, lane_ppos.data_ptr(), lane_start.data_ptr(),
+                     lane_off.data_ptr(), blk.data_ptr(), n_words, mode, stride,
+                     pair_total, n_entries, entry.data_ptr(), ppos.data_ptr(), s)
     return entry, ppos, pos_total, pair_total
 
 

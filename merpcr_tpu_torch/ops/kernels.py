@@ -145,6 +145,55 @@ def on_device(t: torch.Tensor):
     return torch.cuda.device(t.device)
 
 
+class ScanState:
+    """The single-pass scans' state on one device (``csrc/compact.cuh``
+    ``ScanState``), kept across calls: ``ticket`` int32[2] (the tile
+    ticket, and a sum collected in any order; every launch puts both back
+    to 0), ``status`` int64[capacity] (one tagged word per tile;
+    a launch's tag is its sequence number, so stale words never match and
+    no call has to clear them), and ``host`` int32[2] of pinned host memory
+    that a kernel writes its totals into, so the wrapper's one host read is
+    a stream synchronise and no copy. ``ticket`` and ``status`` are zeroed
+    once, when they are made or grown."""
+
+    SEQ_MAX = (1 << 31) - 1  # a tag has 31 bits (compact.cuh)
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ticket = torch.zeros(2, dtype=torch.int32, device=device)
+        self.status = torch.zeros(1024, dtype=torch.int64, device=device)
+        self.host = torch.empty(2, dtype=torch.int32).pin_memory()
+        self.seq = 0
+
+    def tag(self, n_tiles: int) -> int:
+        """A fresh sequence number for a launch over ``n_tiles`` tiles (the
+        status buffer grows to hold them)."""
+        if n_tiles > self.status.numel() or self.seq == self.SEQ_MAX:
+            size = max(self.status.numel(), 1 << max(n_tiles - 1, 1).bit_length())
+            self.status = torch.zeros(size, dtype=torch.int64, device=self.device)
+            self.seq = 0
+        self.seq += 1
+        return self.seq
+
+    def read(self, count: int) -> list:
+        """The first ``count`` host words, once the stream's kernels are
+        done: the call's one host read."""
+        torch.cuda.current_stream(self.device).synchronize()
+        return self.host[:count].tolist()
+
+
+_STATES: dict = {}
+
+
+def scan_state(t: torch.Tensor) -> ScanState:
+    """The scan state of ``t``'s CUDA device."""
+    with _LOCK:
+        st = _STATES.get(t.device)
+        if st is None:
+            st = _STATES[t.device] = ScanState(t.device)
+    return st
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 - C type aliases read like the signatures
 LL = ctypes.c_longlong

@@ -13,8 +13,13 @@ pair order, are the anchors; ``a_idx`` holds their pair indices, and
 ``anch_total`` is its length.
 
 The JAX stage gathers whole 16-byte rows and clamps them into the plane;
-here each pair reads exactly its primer's nibbles, guarded at the plane's
-edges.
+the kernel compares 16 bases per step at -I 0 on a nibble plane (64-bit
+genome words funnel-shifted to the window, XOR the primer codes packed in
+registers from 8-byte loads of the ``p1_codes`` row, an OR-fold and a
+popcount under the length mask; the last-X protection and the positions
+outside the plane, which mismatch, are masks over the same nibbles), and
+site by site at -I 1 and on raw planes. ``verify_words_model`` in
+``tests/test_torch_verify_words.py`` is that arithmetic in numpy.
 
 ``verify_p1_raw`` is its byte mode, K9c (``scan.py:1026-1031``), for
 raw-byte planes (one byte per position): genome bytes against the
@@ -23,10 +28,13 @@ reference's 256 x 256 ``match`` table at -I 1. A byte read outside the
 plane is -1, which equals no byte (the JAX stage clamps instead; no
 in-bounds window reaches the plane's edge).
 
-Kernel: ``csrc/verify_p1.cu`` (one thread per pair, then the
-order-preserving compaction of ``csrc/compact.cuh``; one host read of
-``anch_total`` sizes ``a_idx``). On the card it is launch-bound: pairs
-number in the hundreds per 2^23-base tile of a clean genome.
+Kernel: ``csrc/verify_p1.cu``, one launch per call: one thread per pair,
+and the passing pair indices compacted in pair order in the same launch by
+a single-pass look-back scan (``csrc/compact.cuh``) into a buffer of one
+entry per pair; the kernel writes ``anch_total`` into pinned host memory,
+so the one host read is a stream synchronise. On the card it is
+launch-bound: pairs number in the hundreds per 2^23-base tile of a clean
+genome.
 ``verify_p1_plain`` and ``verify_p1_raw_plain`` are the same functions in
 plain PyTorch; the wrappers use them only for CPU tensors.
 """
@@ -84,9 +92,11 @@ def verify_p1_raw_plain(tile, entry, ppos, emeta, p1_bytes, match,
 def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
             tile_start: int, rmeta, recmap, lead: int, mismatches: int,
             three_prime: int):
-    """Count pass, block-sum scan, one host read of anch_total, write
-    pass; ``wrapper.launches`` counts the launch (none without pairs).
-    ``p1``: primer codes (nibble plane) or bytes (``raw``)."""
+    """One kernel launch into an ``a_idx`` buffer of n entries, then the one
+    host read of ``anch_total`` (a pinned word the kernel writes); returns
+    the buffer's first ``anch_total`` entries. ``wrapper.launches`` counts
+    the launch (none without pairs). ``p1``: primer codes (nibble plane) or
+    bytes (``raw``)."""
     require(tile, torch.uint8, "tile")
     for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
         require(t, torch.int32, name)
@@ -95,39 +105,35 @@ def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
     check_records(rmeta, recmap)
     if entry.shape != ppos.shape:
         raise ValueError("entry and ppos differ in length")
+    if not raw and p1_exp is None and (p1.shape[1] % 8 or p1.data_ptr() % 8):
+        # the word compare reads the primer rows 8 bytes at a time
+        raise ValueError(f"p1_codes rows of {p1.shape[1]} bytes at offset "
+                         f"{p1.data_ptr() % 8} are not 8-byte words")
     dev = tile.device
     n = entry.numel()
     if n == 0:  # nothing to launch over
         return torch.empty(0, dtype=torch.int32, device=dev)
-    n_blk = -(-n // 256)
-    ok = torch.empty(n, dtype=torch.uint8, device=dev)
-    blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-    total = torch.zeros(1, dtype=torch.int32, device=dev)
+    a_idx = torch.empty(n, dtype=torch.int32, device=dev)
     P, I, LL = kernels.P, kernels.I, kernels.LL
-    count = kernels.function(
-        "verify_p1", "mp_verify_p1_count",
-        [P, LL, I, P, P, I, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, P, P, P],
+    fn = kernels.function(
+        "verify_p1", "mp_verify_p1",
+        [P, LL, I, P, P, I, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, I, P, P, P],
     )
-    write = kernels.function("verify_p1", "mp_verify_p1_write", [P, I, P, P, P])
     with kernels.on_device(tile):
-        s = kernels.stream(tile)
-        blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
+        st = kernels.scan_state(tile)
+        seq = st.tag(-(-n // 256))
         kernels.call(
-            count, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+            fn, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
             entry.data_ptr(), ppos.data_ptr(), n, emeta.data_ptr(), p1.data_ptr(),
             None if p1_exp is None else p1_exp.data_ptr(),
             None if match is None else match.data_ptr(), p1.shape[1],
             tile_start, *record_args(rmeta, recmap), lead, mismatches,
-            three_prime, ok.data_ptr(), blk_cnt.data_ptr(), blk_off.data_ptr(),
-            total.data_ptr(), s,
+            three_prime, st.ticket.data_ptr(), st.status.data_ptr(), seq,
+            a_idx.data_ptr(), st.host.data_ptr(), kernels.stream(tile),
         )
-        anch_total = int(total.item())
-        a_idx = torch.empty(anch_total, dtype=torch.int32, device=dev)
-        if anch_total:
-            kernels.call(write, ok.data_ptr(), n, blk_off.data_ptr(),
-                         a_idx.data_ptr(), s)
+        (anch_total,) = st.read(1)
     wrapper.launches += 1
-    return a_idx
+    return a_idx[:anch_total]
 
 
 def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,

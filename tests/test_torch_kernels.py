@@ -668,3 +668,184 @@ def test_card_raw_search_equals_cpu_search(cuda, tmp_path, mismatches):
     on_card = _search_records(MerPCR(device=cuda, **params), asm_sts, recs)
     assert [f.launches - c0 for f, c0 in zip(RAW_WRAPPERS, counts)][:2] == [58, 58]
     assert on_card == _search_records(MerPCR(device="cpu", **params), asm_sts, recs)
+
+
+# ---------------------------------------------------------------- redesign edges
+def _verify_cases():
+    from .test_torch_verify_words import CASES, _case
+
+    return CASES, _case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["16", "17", "32", "33", "mixed"])
+def test_verify_p1_edges_equal_plain(cuda, case):
+    """verify_p1 (one launch, single-pass compaction, the word compare at
+    -I 0) and verify_p1_raw against their plain versions on synthetic
+    planes: primers of 16, 17, 32 and 33 bases, -X 0 to past l1, -N 0-3,
+    windows across both plane edges (the lead halo included), a plane that
+    starts off an 8-byte boundary, -I 1, raw planes at -I 0 and -I 1, and
+    1, 255, 256, 257 pairs and 40,961 (161 tiles of the scan)."""
+    from merpcr_tpu_torch.ops.encoding import NIB_ALPHABET, iupac_exp_masks, match_matrix
+
+    cases, make = _verify_cases()
+    lens, p1_max = cases[case]
+    _rng, tile, entry, ppos, emeta, codes, lead = make(7 + len(case), lens, p1_max)
+    _, exp_primer = iupac_exp_masks()
+    letters = np.frombuffer(NIB_ALPHABET.encode() + b"U*", dtype=np.uint8)
+    nib = np.stack([tile & 15, tile >> 4], axis=1).reshape(-1)
+    raw_tile = letters[nib].copy()
+    raw_tile[1::7] |= 0x20  # lowercase
+    raw_tile[np.flatnonzero(raw_tile == ord("T"))[::3]] = ord("U")
+    raw_tile[5::97] = ord("-")
+    p1_bytes = letters[codes].copy()
+    p1_bytes[codes == 17] = 0
+    rmeta = torch.tensor([[0, 1 << 20]], dtype=torch.int32, device=cuda)
+    e_all, p_all = (torch.from_numpy(a).to(cuda) for a in (entry, ppos))
+    reps = -(-40_961 // len(entry))
+    pair_sets = [(e_all[:n], p_all[:n]) for n in (1, 255, 256, 257, len(entry))]
+    pair_sets.append((e_all.repeat(reps)[:40_961], p_all.repeat(reps)[:40_961]))
+    em = torch.from_numpy(emeta).to(cuda)
+    c = torch.from_numpy(codes).to(cuda)
+    x_exp = torch.from_numpy(exp_primer[codes].view(np.int32)).to(cuda)
+    b = torch.from_numpy(p1_bytes).to(cuda)
+    anchors = 0
+    for mis in (0, 3):
+        buf = torch.zeros(tile.size + 16, dtype=torch.uint8, device=cuda)
+        t = buf[mis : mis + tile.size]
+        t.copy_(torch.from_numpy(tile))
+        rbuf = torch.zeros(raw_tile.size + 16, dtype=torch.uint8, device=cuda)
+        rt = rbuf[mis : mis + raw_tile.size]
+        rt.copy_(torch.from_numpy(raw_tile))
+        for e, p in pair_sets:
+            for nmm, x in ((0, 0), (1, 1), (2, max(lens)), (3, max(lens) + 7), (3, 3)):
+                args = (e, p, em)
+                rest = (10_000, rmeta, None, lead, nmm, x)
+                for p1x in (None, x_exp):
+                    got = verify_p1(t, *args, c, p1x, *rest)
+                    assert torch.equal(got, verify_p1_plain(t, *args, c, p1x, *rest)), (nmm, x)
+                    anchors += got.numel()
+                for m in (None, torch.from_numpy(match_matrix(True).reshape(-1)).to(cuda)):
+                    got = verify_p1_raw(rt, *args, b, m, *rest)
+                    assert torch.equal(got, verify_p1_raw_plain(rt, *args, b, m, *rest))
+    torch.cuda.synchronize()
+    assert anchors > 0
+
+
+def _first_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    """``words`` with only its first ``k`` set bits kept."""
+    w = words.cpu().numpy().view(np.uint32)
+    bits = np.unpackbits(w.view(np.uint8), bitorder="little")
+    keep = np.flatnonzero(bits)[:k]
+    out = np.zeros_like(bits)
+    out[keep] = 1
+    return torch.from_numpy(np.packbits(out, bitorder="little").view(np.int32)).to(words.device)
+
+
+@pytest.mark.gpu
+def test_expand_edges_equal_plain(cuda, tmp_path):
+    """expand, expand_loose and expand_raw (one launch, two when the pairs
+    pass its buffer; each lookup made once) against their plain versions: a tile with no
+    flagged unit, saturated tiles (all flag bits set, and a W = 3 set
+    whose loose front end flags every stride group), raw lane counts 1, 255, 256,
+    257 and 769, pair counts 1, 255, 256 and 257, and a bucket of 300 entries
+    (the largest of its table)."""
+    eng, cfg, tiles = _tiles(tmp_path, cuda)
+    tb = eng._table
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    tile, _t0, n_scan, _n = tiles[1]
+    n_e = tb.emeta.shape[0]
+
+    def both(kernel, plain, args):
+        got, want = kernel(*args), plain(*args)
+        _assert_same(got, want)
+        return got
+
+    w, _ = front_end(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
+    for words in (torch.zeros_like(w), torch.full_like(w, -1), w):
+        out = both(expand, expand_plain, (tile, words, tb.ptab, tb.pf_bits, tb.t16,
+                                          tb.t16_bits, tb.bsc, n_e, W, lead, L, n_scan, 4, True))
+        assert (out[2] == 0) == (not bool(words.any()))
+    wl = torch.zeros(L // 128, dtype=torch.int32, device=cuda)
+    for words in (wl, torch.full_like(wl, -1)):
+        out = both(expand_loose, expand_loose_plain, (tile, words, tb.ptab, tb.pf_bits, tb.bsc,
+                                                      n_e, W, lead, L, n_scan, 4, True))
+        assert (out[2] == 0) == (not bool(words.any()))
+    # W = 3: the loose front end flags every stride group (many tiles of
+    # both scans, ~2 x 10^5 pairs); strict with every unit flagged
+    e3, c3, t3 = _tiles(tmp_path, cuda, wordsize=3)
+    tb3 = e3._table
+    tile3, _t, n3, _n = t3[0]
+    w3, c = front_end_loose(tile3, tb3.qbloom, tb3.q_bits, 3, c3.lead, c3.tile_len, n3,
+                            c3.stride, c3.qbloom_bits)
+    assert int(c) == c3.tile_len // c3.stride
+    out = both(expand_loose, expand_loose_plain, (tile3, w3, tb3.ptab, tb3.pf_bits, tb3.csr,
+                                                  tb3.emeta.shape[0], 3, c3.lead, c3.tile_len,
+                                                  n3, c3.stride, c3.exact_group))
+    assert out[2] == c3.tile_len and out[3] > 256 * 256  # past the buffer: two launches
+    out = both(expand, expand_plain, (tile3, torch.full_like(w, -1), tb3.ptab, tb3.pf_bits,
+                                      tb3.t16, tb3.t16_bits, tb3.csr, tb3.emeta.shape[0], 3,
+                                      c3.lead, c3.tile_len, n3, c3.stride, c3.exact_group))
+    assert out[2] == c3.tile_len
+    # raw, W = 5 (dense buckets): the lanes are the flag bits of clean windows
+    from merpcr_tpu_torch.ops.units import raw_hashes
+
+    re, rc, rtiles = _raw_tiles(tmp_path, cuda, wordsize=5)
+    rtile, _t, rn, _n = rtiles[1]
+    L5 = rc.tile_len
+    rargs = (re._table.csr, re._table.emeta.shape[0], 5, rc.lead, L5, rn)
+    _h, amb = raw_hashes(rtile, torch.arange(L5, device=cuda) + rc.lead, 5)
+    clean = (~amb & (torch.arange(L5, device=cuda) < rn)).to(torch.uint8).cpu().numpy()
+
+    def flag_words(flags):
+        return torch.from_numpy(np.packbits(flags, bitorder="little").view(np.int32)).to(cuda)
+
+    for k in (1, 255, 256, 257, 769):
+        flags = clean.copy()
+        flags[np.flatnonzero(flags)[k:]] = 0
+        out = both(expand_raw, expand_raw_plain, (rtile, flag_words(flags), *rargs))
+        assert out[2] == 0
+    # pair counts: flag positions whose buckets add up to exactly n pairs
+    _e, ppos_all, _p, _q = expand_raw_plain(rtile, flag_words(clean), *rargs)
+    per_pos = torch.bincount(ppos_all.long().cpu(), minlength=L5).numpy()
+    for n_pairs in (1, 255, 256, 257):
+        flags, left = np.zeros(L5, dtype=np.uint8), n_pairs
+        for pos in np.argsort(-per_pos, kind="stable"):
+            if 0 < per_pos[pos] <= left:
+                flags[pos], left = 1, left - per_pos[pos]
+        assert left == 0
+        assert both(expand_raw, expand_raw_plain, (rtile, flag_words(flags), *rargs))[3] == n_pairs
+    # a bucket of 300 entries: 300 STS share primer 1, planted in the genome
+    rng = np.random.default_rng(11)
+    p1 = rng.choice(ACGT, size=20).tobytes().decode()
+    seq = rng.choice(ACGT, size=70_000)
+    for pos in (1_000, 33_000, 52_345):
+        seq[pos : pos + 20] = np.frombuffer(p1.encode(), dtype=np.uint8)
+    sts = tmp_path / "big.sts"
+    sts.write_text("".join(f"B{i}\t{p1}\t{rng.choice(ACGT, size=22).tobytes().decode()}\t150\n"
+                           for i in range(300)))
+    fa = tmp_path / "big.fa"
+    fa.write_text(">big\n" + seq.tobytes().decode() + "\n")
+    eb = MerPCR(device=cuda)
+    assert eb.load_sts_file(str(sts))
+    from merpcr_tpu_torch.io.fasta import record_packed
+
+    rec = eb.load_fasta_file(str(fa))[0]
+    cb = eb._base_config(1 << 15)
+    total = len(rec.sequence) - 10
+    plane = torch.from_numpy(eb._plane(record_packed(rec), cb.lead + 3 * cb.tile_len + cb.tail,
+                                       cb.lead, packed=True)).to(cuda)
+    biggest = int(eb._table.bsc[:, 1].max())
+    assert biggest >= 300 and cb.strict
+    seen = 0
+    for t in range(-(-total // cb.tile_len)):
+        bt = plane[t * cb.tile_len // 2 : t * cb.tile_len // 2 + cb.tile_buf_in]
+        bn = min(cb.tile_len, total - t * cb.tile_len)
+        tbb = eb._table
+        bw, _ = front_end(bt, tbb.qbloom_s, tbb.gq, 11, cb.lead, cb.tile_len, bn)
+        out = both(expand, expand_plain, (bt, bw, tbb.ptab, tbb.pf_bits, tbb.t16, tbb.t16_bits,
+                                          tbb.bsc, tbb.emeta.shape[0], 11, cb.lead, cb.tile_len,
+                                          bn, 4, True))
+        seen = max(seen, int(torch.bincount(out[1].long().cpu()).max()) if out[3] else 0)
+    torch.cuda.synchronize()
+    assert seen == biggest
