@@ -62,9 +62,9 @@ closing device line is printed only when every phase passed):
              device="cpu"; the path's kernels against their plain versions
              on one real tile at that -M (phase margin_kernels), and at
              -M 10000 margin_p2 once more with the tile's anchors repeated
-             until the launch must be cut into chunks (margin_p2 counts
-             one launch per chunk: one per tile on the searches, the
-             expected number of chunks here)
+             until their rows pass the kernel's row buffer: a second
+             launch, rows equal to the plain version's (margin_p2 counts
+             each launch: one per tile on the searches, two here)
 9. raw      records outside the 16-letter alphabet (the raw-byte path,
              K9): the record rendered as RNA (every T a U, the reverse-
              strand plants too) and passed through the API as a
@@ -144,8 +144,11 @@ own warm search. ``device_ms`` pools several profiler traces, since the profiler
 loses events (``profiled_ms``): ``device_events_lost`` is their share,
 and a ``device_ms`` of null a reading with too few left. ``device_ops``
 is the device operations (kernels, copies, fills) of one call from the same
-traces; the run fails if an expand wrapper issues more than 2 or a
-verify_p1 wrapper more than 1. The line before
+traces; the run fails if an expand wrapper issues more than 2, or
+front_end, a verify_p1 or a margin_p2 wrapper more than 1. The
+breakdowns of strict searches also read the strict front end's device time
+over the tile scan without and with a persisting L2 access-policy window
+over its table (set on the stream through the CUDA driver API). The line before
 the last is nvidia-smi's name and power limit; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -184,9 +187,11 @@ GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
 # device operations per call that the redesigned wrappers may issue: one
-# launch, and for expand a second when the pairs pass its buffer
-DEVICE_OPS_MAX = {"expand": 2, "expand_loose": 2, "expand_raw": 2,
-                  "verify_p1": 1, "verify_p1_raw": 1}
+# launch, and for expand a second when the pairs pass its buffer (margin_p2
+# takes a second only past its row buffer, which no measured tile reaches:
+# phase 8 checks that case on its own)
+DEVICE_OPS_MAX = {"front_end": 1, "expand": 2, "expand_loose": 2, "expand_raw": 2,
+                  "verify_p1": 1, "verify_p1_raw": 1, "margin_p2": 1, "margin_p2_raw": 1}
 
 
 def check(cond, msg: str) -> None:
@@ -500,19 +505,20 @@ def stream_tile(eng, recs):
 
 
 def phase_kernels(eng, laid, card: str, phase: str, variant: str,
-                  chunk_check: bool = False) -> dict:
+                  buffer_check: bool = False) -> dict:
     """Each kernel of the config's path and its plain version on one real
     tile of ``laid`` (``record_tile``/``stream_tile``), with the config's
     front end (strict over the N=0 or N=1 tables, or loose), word-size
-    tier, filters and the engine's runtime -M/-N/-X. With ``chunk_check``
+    tier, filters and the engine's runtime -M/-N/-X. With ``buffer_check``
     margin_p2 runs once more on the tile's anchors repeated until their
-    (anchor, rank) items pass the launch bound, so that the wrapper must cut
-    the launch into chunks. Returns {wrapper name: kernel entry}."""
+    rows pass the kernel's row buffer, so that the wrapper must launch
+    twice. Returns {wrapper name: kernel entry}."""
     from merpcr_tpu_torch.ops.expand import (expand, expand_loose, expand_loose_plain,
                                              expand_plain, expand_raw, expand_raw_plain)
     from merpcr_tpu_torch.ops.front_end import (GOLD, front_end, front_end_loose,
                                                 front_end_loose_plain, front_end_plain,
                                                 front_end_raw, front_end_raw_plain)
+    from merpcr_tpu_torch.ops import margin_p2 as margin_mod
     from merpcr_tpu_torch.ops.margin_p2 import (margin_p2, margin_p2_plain, margin_p2_raw,
                                                 margin_p2_raw_plain)
     from merpcr_tpu_torch.ops.units import (group_regs, mask_bases, mul32, raw_hashes,
@@ -681,31 +687,27 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         "merpcr_tpu/ops/scan.py:1201" if margin > 128 else "merpcr_tpu/ops/scan.py:1047",
         lambda o: (o,),
     )
-    chunked = None
-    if chunk_check:
-        from merpcr_tpu_torch.ops.margin_p2 import MAX_ITEMS
-
-        n_ranks = 2 * margin + 1
-        reps = MAX_ITEMS // (n_ranks * anch) + 2
+    past_buffer = None
+    if buffer_check and hasattr(margin_mod, "ROW_CAP"):  # (an A/B parent may lack it)
+        row_cap = margin_mod.ROW_CAP
+        reps = row_cap // max(1, rows.shape[0]) + 2
         many = (tile, a_idx.repeat(reps), *m_args[2:])
-        check(many[1].numel() * n_ranks > MAX_ITEMS, "the repeated anchors fit one launch")
+        check(reps * rows.shape[0] > row_cap, "the repeated anchors' rows fit the buffer")
         torch.cuda.synchronize()
         c_0 = margin_p2.launches
         t_0 = time.perf_counter()
         got = margin_p2(*many)
         torch.cuda.synchronize()
         t_k = time.perf_counter() - t_0
-        n_chunks = margin_p2.launches - c_0  # the wrapper counts one per chunk
-        per_chunk = max(1, MAX_ITEMS // n_ranks)
-        check(n_chunks == -(-many[1].numel() // per_chunk) and n_chunks > 1,
-              f"{variant}: {n_chunks} chunk launches for {many[1].numel()} anchors")
+        n_launch = margin_p2.launches - c_0
+        check(n_launch == 2, f"{variant}: {n_launch} margin_p2 launches past the row buffer")
         want = margin_p2_plain(*many)
         check(got.shape[0] == reps * rows.shape[0] and torch.equal(got, want),
-              f"{variant}: chunked margin_p2 differs from plain")
-        chunked = {"anchors": many[1].numel(), "items": many[1].numel() * n_ranks,
-                   "launch_bound_items": MAX_ITEMS, "chunks": n_chunks,
-                   "rows": int(got.shape[0]),
-                   "wrapper_s": t_k, "equal": True}
+              f"{variant}: margin_p2 past its row buffer differs from plain")
+        past_buffer = {"anchors": many[1].numel(),
+                       "items": many[1].numel() * (2 * margin + 1), "row_buffer": row_cap,
+                       "launches": n_launch, "rows": int(got.shape[0]), "wrapper_s": t_k,
+                       "equal": True}
     iupac_only = {}
     if cfg.iupac:
         # anchors and hits that only the expansion-set match admits: without
@@ -727,7 +729,7 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
           "dirty_bloom": cfg.dirty_bloom, "iupac": cfg.iupac,
           "stream": cfg.stream, "packed": cfg.packed, "iupac_only": iupac_only,
           "wordsize": W, "stride": cfg.stride, "exact_group": cfg.exact_group,
-          "margin": margin, "chunked_margin": chunked, "pos_without_bloom": unpruned,
+          "margin": margin, "margin_past_buffer": past_buffer, "pos_without_bloom": unpruned,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
           "kernels": [{k: r[k] for k in ("name", "equal", "kernel_ms", "device_ms",
@@ -789,7 +791,58 @@ def breakdown(eng, recs) -> dict:
             "device_s": v[0], "count": v[1]}
         for k, v in dev.items()
     }
+    if cfg.strict:
+        out["front_end_l2_window_ms"] = l2_window_ms(
+            eng._table.qbloom_s1 if cfg.strict_n == 1 else eng._table.qbloom_s, scan)
     return out
+
+
+def set_l2_window(ptr: int, n_bytes: int) -> None:
+    """Set (n_bytes > 0) or clear the persisting L2 access-policy window of
+    the current CUDA stream over n_bytes at ptr, through the CUDA driver API
+    (cuCtxSetLimit, cuStreamSetAttribute); clearing also gives the L2
+    set-aside back, so later phases see the whole cache."""
+    import ctypes
+
+    class Window(ctypes.Structure):  # CUaccessPolicyWindow
+        _fields_ = [("base_ptr", ctypes.c_void_p), ("num_bytes", ctypes.c_size_t),
+                    ("hit_ratio", ctypes.c_float), ("hit_prop", ctypes.c_int),
+                    ("miss_prop", ctypes.c_int)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    if not n_bytes:
+        cu.cuCtxResetPersistingL2Cache()
+    rc = cu.cuCtxSetLimit(ctypes.c_int(6), ctypes.c_size_t(n_bytes))  # persisting L2 bytes
+    check(rc == 0, f"cuCtxSetLimit: CUresult {rc}")
+    value = (ctypes.c_char * 64)()  # CUstreamAttrValue, a union
+    w = Window.from_buffer(value)
+    w.base_ptr, w.num_bytes = (ptr, n_bytes) if n_bytes else (None, 0)
+    # persisting hits, streaming misses (CU_ACCESS_PROPERTY_*); normal: cleared
+    w.hit_ratio, w.hit_prop, w.miss_prop = (1.0, 2, 1) if n_bytes else (0.0, 0, 0)
+    rc = cu.cuStreamSetAttribute(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+                                 ctypes.c_int(1), value)  # ..._ACCESS_POLICY_WINDOW
+    check(rc == 0, f"cuStreamSetAttribute: CUresult {rc}")
+
+
+def l2_window_ms(table, scan) -> dict:
+    """Device ms of the strict front end over one warm tile scan, without
+    and with a persisting L2 access-policy window over its table on the
+    stream, in turns: the window that would keep the table in L2 across
+    tiles."""
+    got = {"off": [], "on": []}
+    try:
+        for on in (False, True, True, False):
+            set_l2_window(table.data_ptr(), table.numel() * 4 if on else 0)
+            dev = device_time(scan)
+            got["on" if on else "off"].append(
+                sum(t for k, (t, _) in dev.items() if "front_end_kernel" in k) * 1e3)
+    except RuntimeError as e:  # a CUDA driver without the window
+        got["error"] = str(e)[:200]
+    try:
+        set_l2_window(0, 0)
+    except RuntimeError as e:
+        got["error_clearing"] = str(e)[:200]
+    return got
 
 
 def stream_breakdown(eng, recs) -> dict:
@@ -1048,7 +1101,7 @@ def phase_margin(MerPCR, recs, wrappers, expect, off_size, n: int, card: str,
     """The 47 Mbp record at W = 11, -N 0, at -M 1000 and -M 10000, cold
     then warm: each off-size plant present exactly when |delta| <= M; bytes
     equal to device="cpu"; the path's kernels against their plain versions
-    on one real tile, at -M 10000 also with a launch that must be chunked.
+    on one real tile, at -M 10000 also past margin_p2's row buffer.
     Returns [(kernel entries, warm launches)]."""
     out = []
     for margin in (1000, 10000):
@@ -1074,7 +1127,7 @@ def phase_margin(MerPCR, recs, wrappers, expect, off_size, n: int, card: str,
               "cpu_plain_s": t_cpu, "launches": launches, "equal_to_cpu": True})
         emit({"phase": "breakdown", "card": card, **breakdown(eng, recs)})
         kern = phase_kernels(eng, record_tile(eng, recs), card, "margin_kernels",
-                             f"M{margin}", chunk_check=margin == 10000)
+                             f"M{margin}", buffer_check=margin == 10000)
         out.append((kern, launches))
         del eng, cpu
     return out

@@ -51,9 +51,10 @@
 // phase), looks each lane up on a thread of its own (the phases of one
 // item side by side), and takes its pair base from a single-pass look-back
 // scan (compact.cuh); it writes its pairs into the caller's buffers of
-// `cap` pairs, and the last
-// tile writes (pos_total, pair_total) into pinned host memory, the call's
-// one host read. Only when pair_total passes cap does a second launch
+// `cap` pairs, and the last tile writes (pos_total, pair_total) into
+// pinned host memory, the call's one host read, and with them the strict
+// front end's flag count, which that kernel left in the scan state
+// (front_end.cu). Only when pair_total passes cap does a second launch
 // (expand_overflow_kernel) write the pairs from the stored lanes: no
 // bucket is looked up twice. The lane buffers are scratch from the
 // wrapper, 12 bytes per scan position of the tile (a tile's lanes are
@@ -362,8 +363,14 @@ expand_kernel(const uint32_t* __restrict__ units,
       if (tile == static_cast<int>(gridDim.x) - 1) {  // every tile has published
         __threadfence();
         const unsigned int lanes = atomicExch(ss.ticket + 1, 0u);
-        totals[0] = kMode == kRaw ? 0 : static_cast<int>(lanes);  // raw: no position stage
-        totals[1] = static_cast<int>(base) + n_pairs;
+        // one 16-byte store: each store to pinned host memory is a PCIe
+        // write that the kernel's end waits for. The strict front end's
+        // flag count rides along (0 after any other front end); raw planes
+        // have no position stage.
+        *reinterpret_cast<int4*>(totals) = make_int4(
+            kMode == kRaw ? 0 : static_cast<int>(lanes), static_cast<int>(base) + n_pairs,
+            static_cast<int>(ss.ticket[mp::kFlagSlot]), 0);
+        ss.ticket[mp::kFlagSlot] = 0u;
         ss.ticket[0] = 0u;
       }
     }
@@ -435,9 +442,10 @@ int mp_expand_tiles(int n_words) {
 // uhash (n_keys of them), csr_b = ustart. ticket/status/seq: the device's
 // scan state (compact.cuh ScanState), status holding
 // mp_expand_tiles(n_words) entries. lane_ppos, lane_start and lane_off
-// hold tile_len ints each, blk mp_expand_tiles(n_words) int2; entry/ppos hold cap ints each. totals: two ints
-// that the kernel writes, (pos_total, pair_total), host-mapped pinned
-// memory in the wrapper. If pair_total > cap, mp_expand_overflow writes
+// hold tile_len ints each, blk mp_expand_tiles(n_words) int2; entry/ppos hold cap ints each.
+// totals: four ints, 16-byte aligned, that the kernel writes (pos_total,
+// pair_total, the strict front end's flag count from the scan state's
+// slot, 0), host-mapped pinned memory in the wrapper. If pair_total > cap, mp_expand_overflow writes
 // the pairs.
 int mp_expand(const void* units, const void* words, const void* ptab,
               int pf_bits, const void* t16, int t16_bits, int csr_kind,

@@ -16,24 +16,40 @@
 // record-local. ops/host_scan.py:101-131 of the JAX package states the
 // same semantics in scalar form.
 //
-// The JAX stage reads a window sized by the margin cap and clamps its row
-// gathers; here each (anchor, rank) reads exactly the nibbles of its own
-// primer-2 site, and only once the clamps, bounds and rank mask have let
-// it through, so no read can leave the record. Ranks past 2*M+1 (runtime
-// -M) can never emit and are not launched. Nothing here has a static rank
-// count: at -M 10000 an anchor is 20,001 threads, and the wrapper bounds a
-// launch by passing the anchors through in chunks (a_idx offset), whose
-// rows it concatenates in chunk order, which is (anchor, rank) order.
+// Bound on the card: launch latency at small margins (anchors are real
+// primer matches, tens per 2^23-base tile), the rank compares at large
+// ones. So the whole call is one launch, and each block works on one
+// anchor, taken in ticket order (cutting an anchor's ranks over several
+// blocks measured slower: blocks of 1,024 threads fit one per SM, so the
+// extra blocks ran in waves, each paying the anchor's chain of loads):
 //
-// Bound on the card: launch latency. Anchors are real primer matches (tens
-// per 2^23-base tile); each of the anchors x (2M+1) threads reads at most
-// 16 plane bytes and one 32-byte primer row. The hit flags are compacted
-// in item order (compact.cuh), which is exactly (anchor, rank) order.
+// * the anchor's emeta row, record, clamps and bounds once per block. The
+//   rank mask and the bounds are monotone in |d|, so the live offsets are
+//   one range d = -lo .. hi (d = 0 live only when the product holds both
+//   primers), and only those ranks are visited, in rank order;
+// * the primer-2 sites of the live range, 2M + len_p2 bases at most, staged
+//   once in shared memory with coalesced loads (64-bit words of a nibble
+//   plane, bytes of a raw one); positions outside the plane read as
+//   mismatches, as in the plain version;
+// * at -I 0 on a nibble plane 16 bases per compare (nibwords.cuh, shared
+//   with verify_p1) on the staged words, the first-X protection a mask; at
+//   -I 1 and in the byte modes site by site on the staged window (at -I 1
+//   against a per-base mask of the matching genome codes, made once);
+// * hit bits kept in shared memory, the anchor's row base from the
+//   single-pass look-back scan of compact.cuh (anchor order is ticket
+//   order), and the rows written in rank order. The last anchor's block
+//   writes hit_total into the caller's pinned host word.
+//
+// Rows go into a buffer of `cap` rows that the host sizes; a hit_total
+// above it takes a second launch into a buffer of exactly hit_total rows.
 
 #include "compact.cuh"
+#include "nibwords.cuh"
 #include "records.cuh"
 
 namespace {
+
+constexpr int kMaxThreads = 1024;
 
 struct Margin {
   const uint8_t* plane;  // tile plane (packed nibbles, or raw bytes)
@@ -55,26 +71,24 @@ struct Margin {
   int three_prime;
 };
 
-struct Item {
-  int pair, e, rank, rec;
-  long long ak, pos2;  // anchor and product end (record-local)
-  bool live;  // clamps, bounds and rank mask passed
-  long long p2;  // primer-2 site (record-local)
-  long long rstart;  // record start in plane coordinates
-  int l2;
+// One anchor in the coordinates of its record. Its live offsets (clamps,
+// bounds and rank mask passed) are d = -lo .. -1, 0 when d0, and 1 .. hi.
+struct Anchor {
+  int pair, e, rec, l2, lo, hi, n_live;
+  bool d0;
+  long long ak;  // record-local anchor
+  long long base;  // record-local primer-2 site at d = 0
+  long long tbase;  // ... as a tile position
 };
 
-__device__ __forceinline__ Item item_of(long long f, const Margin& m) {
-  const int n_ranks = 2 * m.margin + 1;
-  Item it;
-  const int a = static_cast<int>(f / n_ranks);
-  it.rank = static_cast<int>(f % n_ranks);
-  it.pair = m.a_idx[a];
-  it.e = m.entry[it.pair];
-  const int* em = m.emeta + 8LL * it.e;
+__device__ __forceinline__ Anchor anchor_of(int a, const Margin& m) {
+  Anchor an;
+  an.pair = m.a_idx[a];
+  an.e = m.entry[an.pair];
+  const int* em = m.emeta + 8LL * an.e;
   const long long hoff = em[0], l1 = em[1], l2 = em[2], exp0 = em[3];
-  it.l2 = static_cast<int>(l2);
-  const long long gpos = m.tile_start + m.ppos[it.pair];
+  an.l2 = static_cast<int>(l2);
+  const long long gpos = m.tile_start + m.ppos[an.pair];
   const mp::RecordSpan r = mp::record_at(m.rec, gpos);
   const long long ak = gpos - hoff - r.start;  // record-local anchor
   const long long arl = r.len;
@@ -82,144 +96,242 @@ __device__ __forceinline__ Item item_of(long long f, const Margin& m) {
   const long long actual = arl - ak;
   const bool clamped = exp0 > actual;
   const long long exp = clamped ? actual : exp0;
-  const long long hi = clamped ? 0 : min(static_cast<long long>(m.margin), arl - ak - exp);
-  const long long lo = max(min(static_cast<long long>(m.margin), exp - l1 - l2), 0LL);
-  const int dmag = (it.rank + 1) / 2;
-  const int d = (it.rank & 1) ? -dmag : dmag;
-  const bool rmask = d == 0 || (d < 0 ? dmag <= lo : dmag <= hi);
-  const long long p2 = ak + exp - l2 + d;
-  // k + len_p1 <= p2 is checked for d <= 0 only (engine.py:546, 568)
-  const bool fits = p2 + l2 <= arl && (d > 0 || p2 >= ak + l1);
-  it.rec = r.id;
-  it.rstart = r.start;
-  it.ak = ak;
-  it.p2 = p2;
-  it.pos2 = p2 + l2 - 1;
-  it.live = room && rmask && fits;
-  return it;
+  const long long M = m.margin;
+  // d > 0: the rank mask d <= hi implies p2 + l2 <= arl; d < 0: -d <= lo
+  // implies p2 >= ak + l1 (checked for d <= 0 only, engine.py:546, 568);
+  // d = 0: always masked in, in bounds iff exp >= l1 + l2
+  an.hi = room && !clamped ? static_cast<int>(min(M, arl - ak - exp)) : 0;
+  an.lo = room ? static_cast<int>(max(min(M, exp - l1 - l2), 0LL)) : 0;
+  an.d0 = room && exp >= l1 + l2;
+  an.n_live = (an.d0 ? 1 : 0) + an.lo + an.hi;
+  an.rec = r.id;
+  an.ak = ak;
+  an.base = ak + exp - l2;
+  an.tbase = an.base + r.start - m.tile_start + m.lead;
+  return an;
 }
 
-__device__ __forceinline__ bool p2_ok(const Item& it, const Margin& m) {
-  const long long base = it.p2 + it.rstart - m.tile_start + m.lead;
-  const long long row = static_cast<long long>(it.e) * m.p2_max;
+// Live index j (0 .. n_live-1, ascending rank) -> rank, and its offset d.
+__device__ __forceinline__ int rank_of(int j, const Anchor& an, int* d) {
+  if (an.d0) {
+    if (j == 0) {
+      *d = 0;
+      return 0;
+    }
+    --j;
+  }
+  const int both = min(an.lo, an.hi);  // d = -both .. both: ranks 1 .. 2 both
+  if (j < 2 * both) {
+    const int r = j + 1, dmag = (r + 1) / 2;
+    *d = (r & 1) ? -dmag : dmag;
+    return r;
+  }
+  const int k = both + 1 + (j - 2 * both);  // one sign only past that
+  *d = an.lo > an.hi ? -k : k;
+  return an.lo > an.hi ? 2 * k - 1 : 2 * k;
+}
+
+// The staged window: tile positions w0 .. w0 + wlen - 1 (every live site),
+// as the plane's 64-bit words q0 .. q1 (nibble plane) or its bytes (raw).
+struct Window {
+  long long w0, q0, q1;
+  int mis;  // the plane's offset from the 8-byte boundary below it
+  const uint64_t* words;
+  const uint8_t* bytes;
+  const uint32_t* codes_ok;  // -I 1: bit n of [i] = genome code n matches base i
+};
+
+__device__ __forceinline__ bool p2_ok(long long s, const Anchor& an,
+                                      const Window& w, const Margin& m) {
+  const long long row = static_cast<long long>(an.e) * m.p2_max;
   const uint8_t* pc = m.p2_codes + row;
-  const uint32_t* px = m.p2_exp ? m.p2_exp + row : nullptr;
+  if (!m.raw && !m.p2_exp) {
+    const auto word = [&](long long q) -> uint64_t {
+      return (q < w.q0 || q > w.q1) ? 0ull : w.words[q - w.q0];
+    };
+    // '-': the first X bases admit no mismatch
+    return mp::window_words_ok(word, w.mis, m.n_pos, s, an.l2, pc, m.p2_max, 0,
+                               m.three_prime, m.nmm);
+  }
   int mism = 0;
-  for (int i = 0; i < it.l2; ++i) {
-    if (!mp::site_match(m.plane, base + i, m.n_pos, m.raw, i, pc, px, m.match)) {
+  for (int i = 0; i < an.l2; ++i) {
+    const long long p = s + i;
+    const bool in = p >= 0 && p < m.n_pos;
+    bool ok;
+    if (m.raw) {
+      ok = mp::byte_match(in ? static_cast<int>(w.bytes[p - w.w0]) : -1, pc[i], m.match);
+    } else {
+      ok = false;  // off the plane: a mismatch
+      if (in) {
+        const long long a = p + 2 * w.mis;
+        const uint32_t nib =
+            static_cast<uint32_t>(w.words[(a >> 4) - w.q0] >> (4 * (a & 15))) & 15u;
+        ok = (w.codes_ok[i] >> nib) & 1u;
+      }
+    }
+    if (!ok) {
       if (i < m.three_prime) return false;  // '-': first X bases
-      ++mism;
+      if (++mism > m.nmm) return false;
     }
   }
-  return mism <= m.nmm;
+  return true;
 }
 
-__global__ void margin_count_kernel(Margin m, long long n_items,
-                                    uint8_t* __restrict__ hit,
-                                    int* __restrict__ blk_cnt) {
-  const long long f = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  bool h = false;
-  if (f < n_items) {
-    const Item it = item_of(f, m);
-    h = it.live && p2_ok(it, m);
-    hit[f] = h;
-  }
-  const int c = __syncthreads_count(h);
-  if (threadIdx.x == 0) blk_cnt[blockIdx.x] = c;
-}
-
-__global__ void margin_write_kernel(Margin m, long long n_items,
-                                    const uint8_t* __restrict__ hit,
-                                    const int* __restrict__ blk_off,
-                                    int* __restrict__ rows) {
+// One block per anchor (ticket order). smem: n_win 64-bit words of window,
+// at -I 1 on a nibble plane the codes_ok mask of each primer base (p2_max
+// words; a table lookup per lane in __constant__ kExpNib would serialise
+// over the distinct codes of a warp), then the hit bits of the live ranks
+// (one 32-bit word per warp and strip).
+__global__ void __launch_bounds__(kMaxThreads)
+margin_p2_kernel(Margin m, int n_win, mp::ScanState ss, int* __restrict__ rows,
+                 int cap, int* __restrict__ hit_total) {
+  extern __shared__ uint64_t smem[];
+  uint32_t* codes_ok = reinterpret_cast<uint32_t*>(smem + n_win);
+  uint32_t* bits = codes_ok + (m.p2_max + 1) / 2 * 2;
   __shared__ int warp_sums[32];
-  const long long f = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int h = (f < n_items && hit[f]) ? 1 : 0;
-  int unused;
-  const int k = mp::block_exclusive_scan(h, warp_sums, &unused);
-  if (!h) return;
-  const Item it = item_of(f, m);
-  int* row = rows + 6LL * (blk_off[blockIdx.x] + k);
-  row[0] = static_cast<int>(it.ak);
-  row[1] = static_cast<int>(it.pos2);
-  row[2] = it.e;
-  row[3] = it.pair;
-  row[4] = it.rank;
-  row[5] = it.rec;
-}
-
-Margin make_margin(const void* plane, long long n_pos, int raw,
-                   const void* a_idx, const void* entry, const void* ppos,
-                   const void* emeta, const void* p2_codes,
-                   const void* p2_exp, const void* match, int p2_max,
-                   long long tile_start, const void* rmeta,
-                   const void* recmap, long long n_map, int lead, int margin,
-                   int nmm, int three_prime) {
-  return Margin{static_cast<const uint8_t*>(plane), n_pos, raw != 0,
-                static_cast<const int*>(a_idx), static_cast<const int*>(entry),
-                static_cast<const int*>(ppos), static_cast<const int*>(emeta),
-                static_cast<const uint8_t*>(p2_codes),
-                static_cast<const uint32_t*>(p2_exp),
-                static_cast<const uint8_t*>(match), p2_max, tile_start,
-                mp::Records{static_cast<const int*>(rmeta),
-                            static_cast<const int*>(recmap), n_map},
-                lead, margin, nmm, three_prime};
+  __shared__ unsigned int tile_sh, excl_sh;
+  if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
+  __syncthreads();
+  const unsigned int tile = tile_sh;
+  const Anchor an = anchor_of(static_cast<int>(tile), m);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int cnt = 0;
+  if (an.n_live) {
+    Window w;
+    const int dmin = an.lo ? -an.lo : (an.d0 ? 0 : 1);
+    const int dmax = an.hi ? an.hi : (an.d0 ? 0 : -1);
+    const long long wlen = dmax - dmin + an.l2;
+    w.w0 = an.tbase + dmin;
+    w.mis = static_cast<int>(reinterpret_cast<uintptr_t>(m.plane) & 7u);
+    w.words = smem;
+    w.bytes = reinterpret_cast<const uint8_t*>(smem);
+    w.codes_ok = codes_ok;
+    if (m.p2_exp && !m.raw) {
+      const uint32_t* px = m.p2_exp + static_cast<long long>(an.e) * m.p2_max;
+      for (int i = threadIdx.x; i < an.l2; i += blockDim.x) {
+        uint32_t ok = 0;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) ok |= static_cast<uint32_t>((mp::kExpNib[n] & px[i]) != 0u) << n;
+        codes_ok[i] = ok;
+      }
+    }
+    if (m.raw) {
+      uint8_t* sb = reinterpret_cast<uint8_t*>(smem);
+      for (long long i = threadIdx.x; i < wlen; i += blockDim.x) {
+        const long long p = w.w0 + i;
+        sb[i] = (p < 0 || p >= m.n_pos) ? 0 : m.plane[p];
+      }
+    } else {
+      const uint64_t* gw = reinterpret_cast<const uint64_t*>(m.plane - w.mis);
+      const long long q_max = (m.n_pos - 1 + 2 * w.mis) >> 4;  // last word in the plane
+      w.q0 = mp::floor16(w.w0 + 2 * w.mis);
+      w.q1 = mp::floor16(w.w0 + wlen - 1 + 2 * w.mis) + 1;  // the funnel's next word
+      for (long long i = threadIdx.x; i <= w.q1 - w.q0; i += blockDim.x) {
+        const long long q = w.q0 + i;
+        smem[i] = (q < 0 || q > q_max) ? 0ull : gw[q];
+      }
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < an.n_live; j0 += blockDim.x) {  // strips, in rank order
+      const int j = j0 + threadIdx.x;
+      bool hit = false;
+      if (j < an.n_live) {
+        int d;
+        rank_of(j, an, &d);
+        hit = p2_ok(an.tbase + d, an, w, m);
+      }
+      const unsigned int b = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) bits[(j0 >> 5) + warp] = b;
+      cnt += hit;
+    }
+  }
+  int agg;
+  mp::block_exclusive_scan(cnt, warp_sums, &agg);  // also publishes bits
+  if (threadIdx.x < 32) {  // warp 0 looks back
+    const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
+    if (threadIdx.x == 0) {
+      excl_sh = excl;
+      if (tile == gridDim.x - 1) {  // every ticket is taken
+        *hit_total = static_cast<int>(excl) + agg;
+        ss.ticket[0] = 0u;
+      }
+    }
+  }
+  __syncthreads();
+  if (agg == 0) return;
+  const int n_words = (an.n_live + 31) >> 5;
+  int carry = static_cast<int>(excl_sh);
+  for (int w0 = 0; w0 < n_words; w0 += blockDim.x) {
+    const int wi = w0 + threadIdx.x;
+    uint32_t b = wi < n_words ? bits[wi] : 0u;
+    int chunk;
+    int k = carry + mp::block_exclusive_scan(__popc(b), warp_sums, &chunk);
+    for (; b; b &= b - 1, ++k) {
+      if (k >= cap) break;  // past the buffer: the second launch writes it
+      int d;
+      const int r = rank_of(32 * wi + __ffs(b) - 1, an, &d);
+      int* row = rows + 6LL * k;
+      row[0] = static_cast<int>(an.ak);
+      row[1] = static_cast<int>(an.base + d + an.l2 - 1);
+      row[2] = an.e;
+      row[3] = an.pair;
+      row[4] = r;
+      row[5] = an.rec;
+    }
+    carry += chunk;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Count pass + block-sum scan over n_anch * (2 * margin + 1) items: hit
-// holds one byte per item, blk_cnt/blk_off n_blocks(items) ints, hit_total
-// one int. raw 0: a nibble plane of n_pos positions, p2_codes and (-I 1)
+// One launch over n_anch anchors (a block each): rows holds cap x 6 ints,
+// the first min(hit_total, cap) rows of the call in (anchor, rank) order;
+// hit_total is one int that the kernel writes, host-mapped pinned memory
+// in the wrapper. raw 0: a nibble plane of n_pos positions, p2_codes (rows
+// of p2_max bytes, p2_max a multiple of 8, 8-byte aligned) and (-I 1)
 // p2_exp; raw 1: a byte plane of n_pos bytes, p2_codes holding the primer
 // bytes and (-I 1) match the 65,536-byte match table. p2_exp/match null:
-// -I 0. recmap null: the plane holds record 0 alone.
-int mp_margin_count(const void* plane, long long n_pos, int raw,
-                    const void* a_idx, int n_anch, const void* entry,
-                    const void* ppos, const void* emeta, const void* p2_codes,
-                    const void* p2_exp, const void* match, int p2_max,
-                    long long tile_start,
-                    const void* rmeta, const void* recmap, long long n_map,
-                    int lead, int margin, int nmm, int three_prime, void* hit,
-                    void* blk_cnt, void* blk_off, void* hit_total,
-                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Margin m = make_margin(plane, n_pos, raw, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_exp, match, p2_max, tile_start,
-                               rmeta, recmap, n_map, lead, margin, nmm,
-                               three_prime);
-  const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
-  const int nb = mp::n_blocks(n_items);
-  margin_count_kernel<<<nb, mp::kBlock, 0, s>>>(
-      m, n_items, static_cast<uint8_t*>(hit), static_cast<int*>(blk_cnt));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(mp::launch_scan_sums(
-      static_cast<const int*>(blk_cnt), nb, static_cast<int*>(blk_off),
-      static_cast<int*>(hit_total), s));
-}
-
-// Write pass: rows holds hit_total x 6 ints.
-int mp_margin_write(const void* plane, long long n_pos, int raw,
-                    const void* a_idx, int n_anch, const void* entry,
-                    const void* ppos, const void* emeta, const void* p2_codes,
-                    const void* p2_exp, const void* match, int p2_max,
-                    long long tile_start,
-                    const void* rmeta, const void* recmap, long long n_map,
-                    int lead, int margin, int nmm, int three_prime,
-                    const void* hit,
-                    const void* blk_off, void* rows, void* stream) {
-  const Margin m = make_margin(plane, n_pos, raw, a_idx, entry, ppos, emeta,
-                               p2_codes, p2_exp, match, p2_max, tile_start,
-                               rmeta, recmap, n_map, lead, margin, nmm,
-                               three_prime);
-  const long long n_items = static_cast<long long>(n_anch) * (2 * margin + 1);
-  margin_write_kernel<<<mp::n_blocks(n_items), mp::kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      m, n_items, static_cast<const uint8_t*>(hit),
-      static_cast<const int*>(blk_off), static_cast<int*>(rows));
+// -I 0. recmap null: the plane holds record 0 alone. ticket/status/seq:
+// the device's scan state (compact.cuh ScanState), status holding n_anch
+// entries.
+int mp_margin_p2(const void* plane, long long n_pos, int raw,
+                 const void* a_idx, int n_anch, const void* entry,
+                 const void* ppos, const void* emeta, const void* p2_codes,
+                 const void* p2_exp, const void* match, int p2_max,
+                 long long tile_start, const void* rmeta, const void* recmap,
+                 long long n_map, int lead, int margin, int nmm,
+                 int three_prime, void* ticket, void* status, int seq,
+                 void* rows, int cap, void* hit_total, void* stream) {
+  const Margin m = {static_cast<const uint8_t*>(plane), n_pos, raw != 0,
+                    static_cast<const int*>(a_idx), static_cast<const int*>(entry),
+                    static_cast<const int*>(ppos), static_cast<const int*>(emeta),
+                    static_cast<const uint8_t*>(p2_codes),
+                    static_cast<const uint32_t*>(p2_exp),
+                    static_cast<const uint8_t*>(match), p2_max, tile_start,
+                    mp::Records{static_cast<const int*>(rmeta),
+                                static_cast<const int*>(recmap), n_map},
+                    lead, margin, nmm, three_prime};
+  const mp::ScanState ss = {static_cast<unsigned int*>(ticket),
+                            static_cast<unsigned long long*>(status),
+                            static_cast<unsigned int>(seq)};
+  const int n_ranks = 2 * margin + 1;
+  const int threads = n_ranks >= kMaxThreads ? kMaxThreads : (n_ranks + 31) / 32 * 32;
+  // window: every live site lies in 2M + p2_max positions
+  const long long span = 2LL * margin + p2_max;
+  const int n_win = raw ? static_cast<int>((span + 7) / 8) : static_cast<int>(span / 16 + 4);
+  const int n_bits = (n_ranks + threads - 1) / threads * (threads / 32);
+  const size_t smem = 8 * static_cast<size_t>(n_win) +
+                      4 * static_cast<size_t>((p2_max + 1) / 2 * 2 + n_bits);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        margin_p2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  margin_p2_kernel<<<n_anch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      m, n_win, ss, static_cast<int*>(rows), cap, static_cast<int*>(hit_total));
   return static_cast<int>(cudaGetLastError());
 }
 

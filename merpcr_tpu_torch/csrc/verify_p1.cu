@@ -21,15 +21,13 @@
 // anch_total straight into the caller's pinned host word.
 //
 // The compare at -I 0 on a nibble plane (the main path) takes 16 bases
-// per step, as the JAX stage's 16-byte row gathers do: the genome window
-// as 64-bit words of nibbles (funnel-shifted to the window's start), XOR
-// the primer codes packed the same way from 8-byte loads of the row,
-// an OR-fold to one bit per mismatching nibble, __popcll under the
-// length mask; the last-X protection and the positions outside the plane
-// are masks over the same nibbles. -I 1 (an expansion-set test per base)
-// and the byte modes compare site by site (records.cuh site_match).
+// per step (nibwords.cuh, shared with margin_p2: the window funnel-shifted
+// out of the plane's 64-bit words against the primer packed from 8-byte
+// loads of its row); -I 1 (an expansion-set test per base) and the byte
+// modes compare site by site (records.cuh site_match).
 
 #include "compact.cuh"
+#include "nibwords.cuh"
 #include "records.cuh"
 
 namespace {
@@ -50,39 +48,9 @@ struct Verify1 {
   int three_prime;  // protected 3' bases (-X)
 };
 
-constexpr uint64_t kNibOnes = 0x1111111111111111ull;  // bit 0 of each nibble
-
-// Bit 0 of nibbles a .. b-1 (clamped to 0 .. 16).
-__device__ __forceinline__ uint64_t nib_range(long long a, long long b) {
-  const auto below = [](long long n) -> uint64_t {
-    if (n <= 0) return 0ull;
-    return n >= 16 ? kNibOnes : kNibOnes & ((1ull << (4 * n)) - 1ull);
-  };
-  return below(b) & ~below(a);
-}
-
-// The low nibbles of 8 bytes packed into 32 bits (byte k -> nibble k).
-__device__ __forceinline__ uint64_t pack_nibbles(uint64_t bytes) {
-  uint64_t v = bytes & 0x0F0F0F0F0F0F0F0Full;
-  v = (v | (v >> 4)) & 0x00FF00FF00FF00FFull;
-  v = (v | (v >> 8)) & 0x0000FFFF0000FFFFull;
-  return (v | (v >> 16)) & 0x00000000FFFFFFFFull;
-}
-
-// Primer bases 16c .. 16c+15 of row pc (p1_max bytes, 8-byte aligned) as
-// (code & 15 nibbles, code >> 4 nibbles): a code >= 16 (U, or no letter)
-// equals no genome nibble. Bytes past the row read as 0.
-__device__ __forceinline__ void primer_word(const uint8_t* pc, int c, int p1_max,
-                                            uint64_t* lo, uint64_t* hi) {
-  const unsigned long long* row = reinterpret_cast<const unsigned long long*>(pc);
-  const uint64_t b0 = __ldg(row + 2 * c);
-  const uint64_t b1 = 16 * c + 8 < p1_max ? __ldg(row + 2 * c + 1) : 0ull;
-  *lo = pack_nibbles(b0) | (pack_nibbles(b1) << 32);
-  *hi = pack_nibbles(b0 >> 4) | (pack_nibbles(b1 >> 4) << 32);
-}
-
-// -I 0 on a nibble plane, 16 bases per step: does the window of l1 bases at
-// tile position kl match row pc within the budget and the protection?
+// -I 0 on a nibble plane, 16 bases per step (nibwords.cuh): does the
+// window of l1 bases at tile position kl match row pc within the budget
+// and the '+' strand's protection of the last X bases?
 __device__ __forceinline__ bool p1_words_ok(long long kl, int l1,
                                             const uint8_t* pc,
                                             const Verify1& v) {
@@ -93,27 +61,8 @@ __device__ __forceinline__ bool p1_words_ok(long long kl, int l1,
   const auto word = [&](long long q) -> uint64_t {
     return (q < 0 || q > q_max) ? 0ull : words[q];
   };
-  int mism = 0;
-  for (int c = 0; 16 * c < l1; ++c) {
-    const long long s = kl + 16 * c;  // tile position of nibble 0
-    const long long a = s + 2 * mis;  // ... in the aligned words
-    const long long q = a >= 0 ? a >> 4 : -((15 - a) >> 4);  // floor(a / 16)
-    const int r = static_cast<int>(a - 16 * q);
-    const uint64_t w0 = word(q);
-    const uint64_t g = r ? (w0 >> (4 * r)) | (word(q + 1) << (64 - 4 * r)) : w0;
-    uint64_t p_lo, p_hi;
-    primer_word(pc, c, v.p1_max, &p_lo, &p_hi);
-    uint64_t x = (g ^ p_lo) | p_hi;  // nonzero nibble: mismatch
-    x |= x >> 2;
-    x |= x >> 1;
-    const uint64_t out = kNibOnes & ~nib_range(-s, v.n_pos - s);  // off the plane
-    const uint64_t mm = ((x & kNibOnes) | out) & nib_range(0, l1 - 16 * c);
-    // '+': the last X bases admit no mismatch
-    if (mm & nib_range(l1 - v.three_prime - 16 * c, l1 - 16 * c)) return false;
-    mism += __popcll(mm);
-    if (mism > v.nmm) return false;
-  }
-  return true;
+  return mp::window_words_ok(word, mis, v.n_pos, kl, l1, pc, v.p1_max,
+                             l1 - v.three_prime, l1, v.nmm);
 }
 
 __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {

@@ -28,10 +28,17 @@ every other byte ambiguous), and a clean W-mer is flagged when the table's
 occupancy map ``bloom`` holds its top ``bloom_bits`` bits (exact at
 2W <= 24, a prefix filter above). One bit per position.
 
-Kernels: ``csrc/front_end.cu`` (one thread per unit, group or position,
-``__ballot_sync`` words, one atomicAdd per warp). On the card K1 and K8
-are bound by memory: the tile's plane bytes plus one 4-byte gather per unit
-or group into an 8-32 MB table. ``front_end_plain`` and
+Kernels: ``csrc/front_end.cu``. On the card K1 and K8 are bound by
+memory: the tile's plane bytes plus one 4-byte gather per unit or group
+into an 8-32 MB table. K1 is one launch per call, no fill and no copy:
+a thread takes 4 units with one 16-byte load, decodes each plane word
+once and issues its 4 table gathers back to back; eight threads assemble
+a flag word, and the block that finishes last (one 64-bit atomic per
+block carries its count and its completion) writes ``c_total`` and leaves
+the count in the device's scan state, which the tile's ``expand`` hands
+to the host with its own totals (``flag_count`` reads it there). K8 and
+K9a take one thread per group or position (``__ballot_sync`` words, one
+atomicAdd per warp into a ``c_total`` the wrapper zeroes). ``front_end_plain`` and
 ``front_end_loose_plain`` are the same functions in plain PyTorch; the
 wrappers use them only for CPU tensors. The raw kernel hashes W bytes per
 position and is bound by integer operations at W >= 8;
@@ -49,6 +56,7 @@ from .units import (M32, group_regs, kernel_route, mask_bases, mul32, raw_hashes
 _PROJ_SHIFT = 14  # 2 * PROJ_UNIT_START: the key starts at window base 7
 _PROJ_HI = 0xFF  # bases 16..19 come from the B register
 GOLD = 0x9E3779B1  # multiplier of the hashed tables (t16, mult-hash qbloom)
+HOST_WORD = 2  # the strict kernel's c_total in ``ScanState.host``, via expand
 
 
 def _dirty_smear(Aa, Ba, W: int):
@@ -110,26 +118,43 @@ def front_end(tile, qbloom_s, gq: int, wordsize: int, lead: int,
     the card, ``front_end_plain`` for CPU tensors.
 
     ``tile``: uint8 plane of the halo-padded tile (2 bases per byte);
-    ``qbloom_s``: int32 words of the strict table (2^gq bits)."""
+    ``qbloom_s``: int32 words of the strict table (2^gq bits). On the card
+    the call is one launch: the kernel writes ``c_total`` and leaves the
+    count in the device's scan state, which the tile's ``expand`` hands to
+    the host (``flag_count``)."""
     if not kernel_route(tile, qbloom_s):
         return front_end_plain(tile, qbloom_s, gq, wordsize, lead, tile_len, n_scan)
     require(tile, torch.uint8, "tile")
     require(qbloom_s, torch.int32, "qbloom_s")
     n_units = _check(tile, lead, tile_len, n_scan)
-    if (tile.data_ptr() + lead // 2) % 4:
+    units = tile.data_ptr() + lead // 2
+    if units % 4:
         raise ValueError("tile plane is not 4-byte aligned")
     words = torch.empty(n_units // 32, dtype=torch.int32, device=tile.device)
-    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    c_total = torch.empty(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
-    fn = kernels.function("front_end", "mp_front_end", [P, P, I, I, I, I, P, P, P])
+    fn = kernels.function("front_end", "mp_front_end",
+                          [P, P, I, I, I, I, I, P, P, P, P])
     with kernels.on_device(tile):
+        st = kernels.scan_state(tile)
         kernels.call(
-            fn, tile.data_ptr() + lead // 2, qbloom_s.data_ptr(), gq, wordsize,
-            n_units, n_scan, words.data_ptr(),
+            fn, units, qbloom_s.data_ptr(), gq, wordsize, n_units, n_scan,
+            int(units % 16 == 0), words.data_ptr(), st.ticket.data_ptr(),
             c_total.data_ptr(), kernels.stream(tile),
         )
     front_end.launches += 1
     return words, c_total
+
+
+def flag_count(c_total: torch.Tensor) -> int:
+    """``c_total`` of a tile's ``front_end`` as an int, once the tile's
+    ``expand`` has run. A CPU tensor gives its value; on the card that
+    ``expand`` wrote the count into the device's pinned host word with its
+    own totals, read here (no copy). The word holds the count of the
+    device's latest strict front end that an ``expand`` followed."""
+    if not c_total.is_cuda:
+        return int(c_total.item())
+    return kernels.scan_state(c_total).read(HOST_WORD + 1)[HOST_WORD]
 
 
 front_end.launches = 0

@@ -147,22 +147,29 @@ def on_device(t: torch.Tensor):
 
 class ScanState:
     """The single-pass scans' state on one device (``csrc/compact.cuh``
-    ``ScanState``), kept across calls: ``ticket`` int32[2] (the tile
-    ticket, and a sum collected in any order; every launch puts both back
-    to 0), ``status`` int64[capacity] (one tagged word per tile;
+    ``ScanState``), kept across calls: ``ticket`` int32[3] (the tile
+    ticket, and a sum collected in any order, which every launch puts back
+    to 0; then the strict front end's flag count, which ``expand``
+    clears), ``status`` int64[capacity] (one tagged word per tile;
     a launch's tag is its sequence number, so stale words never match and
-    no call has to clear them), and ``host`` int32[2] of pinned host memory
+    no call has to clear them), and ``host`` int32[4] of pinned host memory
     that a kernel writes its totals into, so the wrapper's one host read is
-    a stream synchronise and no copy. ``ticket`` and ``status`` are zeroed
-    once, when they are made or grown."""
+    a stream synchronise and no copy: words 0-1 the call's own totals
+    (``expand``, ``verify_p1``, ``margin_p2``), word 2 the strict
+    ``front_end``'s c_total, which ``expand`` writes with its totals in one
+    16-byte store (a pinned allocation is page-aligned).
+    ``ticket`` and ``status`` are zeroed once, when they are made or
+    grown."""
 
     SEQ_MAX = (1 << 31) - 1  # a tag has 31 bits (compact.cuh)
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.ticket = torch.zeros(2, dtype=torch.int32, device=device)
+        self.ticket = torch.zeros(3, dtype=torch.int32, device=device)
         self.status = torch.zeros(1024, dtype=torch.int64, device=device)
-        self.host = torch.empty(2, dtype=torch.int32).pin_memory()
+        self.host = torch.empty(4, dtype=torch.int32).pin_memory()
+        if self.host.data_ptr() % 16:  # expand stores its totals as one int4
+            raise RuntimeError("pinned totals are not 16-byte aligned")
         self.seq = 0
 
     def tag(self, n_tiles: int) -> int:

@@ -19,28 +19,31 @@ record-local; ``hit_total`` is their count.
 ``margin_p2_raw`` is its byte mode, K9c (``scan.py:1147-1152``, the
 window read ``:1179-1181``), for raw-byte planes: genome bytes against the
 primer bytes ``p2_bytes``, case-insensitively at -I 0 and through the
-reference's ``match`` table at -I 1; the clamps, bounds, rank mask and
-chunking are the same.
+reference's ``match`` table at -I 1; the clamps, bounds and rank mask
+are the same.
 
 The JAX stage reads a window sized by the margin cap and clamps its row
-gathers; here each (anchor, rank) reads exactly its own primer-2 site, and
-only after the clamps, bounds and rank mask have let it through, so no
-read leaves the record. Ranks past 2M+1 (runtime -M) can never emit and
-are not launched; the rank numbering does not depend on the cap.
+gathers; here only the sites of ranks that the clamps, bounds and rank
+mask let through are read, so no read leaves the record. Ranks past 2M+1
+(runtime -M) can never emit; the rank numbering does not depend on the cap.
 
-Where the JAX stage walks the rank axis in chunks to bound its window
-stack, here the launch is bounded: anchors go through in chunks of at
-most ``MAX_ITEMS`` (anchor, rank) items (``PLAIN_MAX_ITEMS`` in the plain
-version, whose [anchors, ranks, P2MAX] tensors are int64), at least one
-anchor each, and the chunks' rows are concatenated. Chunk order is
-(anchor, rank) order, so the rows are those of one unbounded launch. No
-number of anchors or ranks raises or drops a hit.
-
-Kernel: ``csrc/margin_p2.cu`` (one thread per (anchor, rank), the
-order-preserving compaction of ``csrc/compact.cuh``; one host read of
-``hit_total`` per chunk sizes the rows). On the card it is launch-bound at
-small margins: anchors are real primer matches, tens per 2^23-base tile;
-at -M 10000 each is 20,001 threads, most of which end at the rank mask.
+Kernel: ``csrc/margin_p2.cu``, one launch per call and one block per
+anchor: the anchor's clamps once, only its live ranks (the clamps and the
+rank mask are monotone in the offset, so they form one range), its
+primer-2 window staged once in shared memory, the compare at -I 0 on a
+nibble plane 16 bases per step (``csrc/nibwords.cuh``, shared with
+``verify_p1``; ``tests/test_torch_margin_words.py`` models it in numpy),
+site by site at -I 1 and on raw planes, and the rows compacted in
+(anchor, rank) order in the same launch by the single-pass look-back scan
+of ``csrc/compact.cuh``. The kernel writes ``hit_total`` into pinned host
+memory, so the one host read is a stream synchronise. Rows go into a
+buffer of at most ``ROW_CAP`` rows; more hits take a second launch into a
+buffer of exactly ``hit_total`` rows. The kernel keeps nothing per
+(anchor, rank) item, so a launch takes any number of anchors and ranks;
+the plain version, whose [anchors, ranks, P2MAX] temporaries are int64,
+goes through the anchors in chunks of at most ``PLAIN_MAX_ITEMS`` items
+and concatenates their rows, which chunk order keeps in (anchor, rank)
+order. No number of anchors or ranks raises or drops a hit.
 ``margin_p2_plain`` and ``margin_p2_raw_plain`` are the same functions in
 plain PyTorch; the wrappers use them only for CPU tensors.
 """
@@ -54,10 +57,11 @@ from .units import (base_matches, byte_matches, bytes_at, check_codes,
                     check_match, check_records, kernel_route, nibbles_at,
                     record_args, records_at, require)
 
-# (anchor, rank) items of one kernel launch (one flag byte each) and of one
-# pass of the plain version (a few int64[items, P2MAX] temporaries)
-MAX_ITEMS = 1 << 24
+# (anchor, rank) items of one pass of the plain version (a few
+# int64[items, P2MAX] temporaries)
 PLAIN_MAX_ITEMS = 1 << 17
+# rows of the kernel's first launch; more hits take a second launch
+ROW_CAP = 1 << 13
 
 
 def _anchor_chunks(a_idx: torch.Tensor, margin: int, max_items: int):
@@ -149,9 +153,12 @@ def _margin_rows(tile, a_idx, entry, ppos, emeta, p_max: int, matches,
 def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
             match, tile_start: int, rmeta, recmap, lead: int, margin: int,
             mismatches: int, three_prime: int):
-    """Count pass, block-sum scan, one host read of hit_total and write
-    pass per anchor chunk; ``wrapper.launches`` counts the chunks.
-    ``p2``: primer codes (nibble plane) or bytes (``raw``)."""
+    """One kernel launch (a block per anchor) into a buffer of a row per
+    (anchor, rank) item, at most ``ROW_CAP`` rows, then the one host read of
+    ``hit_total`` (a pinned word the kernel writes); past the buffer a
+    second launch into one of exactly ``hit_total`` rows. ``wrapper.launches`` counts the launches
+    (none without anchors). ``p2``: primer codes (nibble plane) or bytes
+    (``raw``)."""
     require(tile, torch.uint8, "tile")
     for t, name in ((a_idx, "a_idx"), (entry, "entry"), (ppos, "ppos"),
                     (emeta, "emeta")):
@@ -159,41 +166,41 @@ def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
     check_codes(p2, p2_exp, "p2")
     check_match(match)
     check_records(rmeta, recmap)
+    if not raw and p2_exp is None and (p2.shape[1] % 8 or p2.data_ptr() % 8):
+        # the word compare reads the primer rows 8 bytes at a time
+        raise ValueError(f"p2_codes rows of {p2.shape[1]} bytes at offset "
+                         f"{p2.data_ptr() % 8} are not 8-byte words")
     dev = tile.device
-    if a_idx.numel() == 0:  # nothing to launch over
+    n_anch = a_idx.numel()
+    if n_anch == 0:  # nothing to launch over
         return torch.empty((0, 6), dtype=torch.int32, device=dev)
     P, I, LL = kernels.P, kernels.I, kernels.LL
-    common = [P, LL, I, P, I, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I]
-    count = kernels.function("margin_p2", "mp_margin_count", common + [P, P, P, P, P])
-    write = kernels.function("margin_p2", "mp_margin_write", common + [P, P, P, P])
+    fn = kernels.function(
+        "margin_p2", "mp_margin_p2",
+        [P, LL, I, P, I, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I, P, P, I, P, I, P, P])
+    args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
+            a_idx.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
+            emeta.data_ptr(), p2.data_ptr(),
+            None if p2_exp is None else p2_exp.data_ptr(),
+            None if match is None else match.data_ptr(), p2.shape[1],
+            tile_start, *record_args(rmeta, recmap), lead, margin,
+            mismatches, three_prime)
     with kernels.on_device(tile):
-        s = kernels.stream(tile)
-        out = []
-        for chunk in _anchor_chunks(a_idx, margin, MAX_ITEMS):
-            n_anch = chunk.numel()
-            n_items = n_anch * (2 * margin + 1)
-            n_blk = -(-n_items // 256)
-            hit = torch.empty(n_items, dtype=torch.uint8, device=dev)
-            blk = torch.empty(2 * n_blk, dtype=torch.int32, device=dev)
-            total = torch.zeros(1, dtype=torch.int32, device=dev)
-            args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
-                    chunk.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
-                    emeta.data_ptr(), p2.data_ptr(),
-                    None if p2_exp is None else p2_exp.data_ptr(),
-                    None if match is None else match.data_ptr(), p2.shape[1],
-                    tile_start, *record_args(rmeta, recmap), lead, margin,
-                    mismatches, three_prime)
-            blk_cnt, blk_off = blk[:n_blk], blk[n_blk:]
-            kernels.call(count, *args, hit.data_ptr(), blk_cnt.data_ptr(),
-                         blk_off.data_ptr(), total.data_ptr(), s)
-            wrapper.launches += 1  # one per chunk launched
-            hit_total = int(total.item())
-            rows = torch.empty((hit_total, 6), dtype=torch.int32, device=dev)
-            if hit_total:
-                kernels.call(write, *args, hit.data_ptr(), blk_off.data_ptr(),
-                             rows.data_ptr(), s)
-            out.append(rows)
-    return torch.cat(out) if len(out) > 1 else out[0]
+        st = kernels.scan_state(tile)
+
+        def launch(cap: int):
+            rows = torch.empty((cap, 6), dtype=torch.int32, device=dev)
+            seq = st.tag(n_anch)
+            kernels.call(fn, *args, st.ticket.data_ptr(), st.status.data_ptr(), seq,
+                         rows.data_ptr(), cap, st.host.data_ptr(), kernels.stream(tile))
+            wrapper.launches += 1
+            (hit_total,) = st.read(1)
+            return rows, hit_total
+
+        rows, hit_total = launch(min(n_anch * (2 * margin + 1), ROW_CAP))
+        if hit_total > rows.shape[0]:
+            rows, _ = launch(hit_total)
+    return rows[:hit_total]
 
 
 def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,

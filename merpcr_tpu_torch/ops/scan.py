@@ -63,7 +63,7 @@ from typing import List, NamedTuple
 import torch
 
 from .expand import expand, expand_loose, expand_raw
-from .front_end import front_end, front_end_loose, front_end_raw
+from .front_end import flag_count, front_end, front_end_loose, front_end_raw
 from .margin_p2 import margin_p2, margin_p2_raw
 from .table import Table
 from .verify_p1 import verify_p1, verify_p1_raw
@@ -268,8 +268,9 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     rows = margin_p2(tile, a_idx, entry, ppos, table.emeta, table.p2_codes,
                      p2_exp, tile_start, rmeta, recmap, lead, margin, nmm, x)
     cols = rows.unbind(dim=1)
-    return ScanOut(int(c_total.item()), pos_total, pair_total,
-                   a_idx.numel(), rows.shape[0], *cols)
+    # the strict kernel's c_total came to the host with expand's totals
+    c = flag_count(c_total) if cfg.strict else int(c_total.item())
+    return ScanOut(c, pos_total, pair_total, a_idx.numel(), rows.shape[0], *cols)
 
 
 def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,

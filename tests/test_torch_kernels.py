@@ -406,8 +406,8 @@ def test_card_wordsize_search_equals_cpu_search(cuda, tmp_path, wordsize, margin
 @pytest.mark.gpu
 @pytest.mark.parametrize("margin", [129, 2000, 10000])
 def test_margin_kernel_equals_plain_and_chunks(cuda, tmp_path, monkeypatch, margin):
-    """K13: margins above 128 against the plain version, and a launch
-    bounded to a few anchors at a time equal to the unbounded one."""
+    """K13: margins above 128 against the plain version, and a first row
+    buffer of one row: past it the second launch writes the same rows."""
     eng, cfg, tiles = _tiles(tmp_path, cuda, margin=margin)
     tb = eng._table
     hits = anchors = 0
@@ -420,10 +420,11 @@ def test_margin_kernel_equals_plain_and_chunks(cuda, tmp_path, monkeypatch, marg
         h = margin_p2(*margs)
         assert torch.equal(h, margin_p2_plain(*margs))
         with monkeypatch.context() as mp:
-            mp.setattr(margin_mod, "MAX_ITEMS", 2 * (2 * margin + 1))
+            mp.setattr(margin_mod, "ROW_CAP", 1)
             c0 = margin_p2.launches
             assert torch.equal(h, margin_p2(*margs))
-            assert margin_p2.launches - c0 == -(-a.numel() // 2)  # one per chunk
+            # none without anchors, a second launch past the buffer
+            assert margin_p2.launches - c0 == min(a.numel(), 1) + (h.shape[0] > 1)
         anchors += a.numel()
         hits += h.shape[0]
     assert hits > 0 and anchors > 8
@@ -849,3 +850,126 @@ def test_expand_edges_equal_plain(cuda, tmp_path):
         seen = max(seen, int(torch.bincount(out[1].long().cpu()).max()) if out[3] else 0)
     torch.cuda.synchronize()
     assert seen == biggest
+
+
+def _margin_cases():
+    from .test_torch_margin_words import CASES, _case
+
+    return CASES, _case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("margin", [0, 50, 1000, 10000])
+@pytest.mark.parametrize("case", ["11", "16", "17", "32", "mixed"])
+def test_margin_p2_edges_equal_plain(cuda, monkeypatch, case, margin):
+    """margin_p2 and margin_p2_raw (one launch, a block per anchor, the
+    staged window, the word compare at -I 0) against their plain versions
+    on synthetic planes: primer-2 lengths 5 to 33, -M 0, 50, 1000, 10000,
+    -N 0-3 with -X 0 to past l2, windows across both plane edges, a plane
+    off an 8-byte boundary, a record that ends inside the plane (records
+    shorter than the window), a stream plane (K14), -I 1, the byte mode at
+    -I 0 and -I 1, and rows past the buffer (two launches)."""
+    from merpcr_tpu_torch.ops.encoding import NIB_ALPHABET, iupac_exp_masks, match_matrix
+
+    cases, make = _margin_cases()
+    lens, p2_max = cases[case]
+    _rng, tile, entry, ppos, emeta, codes, lead = make(3 + len(case) + margin, lens, p2_max,
+                                                       margin, 64)
+    _, exp_primer = iupac_exp_masks()
+    letters = np.frombuffer(NIB_ALPHABET.encode() + b"U*", dtype=np.uint8)
+    nib = np.stack([tile & 15, tile >> 4], axis=1).reshape(-1)
+    raw_tile = letters[nib].copy()
+    raw_tile[1::7] |= 0x20  # lowercase
+    raw_tile[np.flatnonzero(raw_tile == ord("T"))[::3]] = ord("U")
+    raw_tile[5::97] = ord("-")
+    p2_bytes = letters[codes].copy()
+    p2_bytes[codes == 17] = 0
+    a_idx = torch.arange(len(entry), dtype=torch.int32, device=cuda)
+    e, p, em = (torch.from_numpy(x).to(cuda) for x in (entry, ppos, emeta))
+    c = torch.from_numpy(codes).to(cuda)
+    x_exp = torch.from_numpy(exp_primer[codes].view(np.int32)).to(cuda)
+    b = torch.from_numpy(p2_bytes).to(cuda)
+    match = torch.from_numpy(match_matrix(True).reshape(-1)).to(cuda)
+    starts = np.arange(0, 2 * tile.size + 8192, 512)
+    stream = np.stack([starts, np.full_like(starts, 500)], axis=1).astype(np.int32)
+    planes = (  # (rmeta, recmap, tile_start)
+        (np.array([[0, 1 << 20]], dtype=np.int32), None, 10_000),
+        (np.array([[0, 10_000 + 2 * tile.size - 300 - lead]], dtype=np.int32), None, 10_000),
+        (stream, torch.from_numpy(np.repeat(np.arange(len(starts), dtype=np.int32), 64)), 4096),
+    )
+    top = max(lens)
+    hits = 0
+    for mis in (0, 3):
+        buf = torch.zeros(tile.size + 16, dtype=torch.uint8, device=cuda)
+        t = buf[mis : mis + tile.size]
+        t.copy_(torch.from_numpy(tile))
+        rbuf = torch.zeros(raw_tile.size + 16, dtype=torch.uint8, device=cuda)
+        rt = rbuf[mis : mis + raw_tile.size]
+        rt.copy_(torch.from_numpy(raw_tile))
+        for rm_np, rc, t0 in planes:
+            rm = torch.from_numpy(rm_np).to(cuda)
+            rc = None if rc is None else rc.to(cuda)
+            for nmm, x in ((0, 0), (1, 1), (2, top), (3, top + 7), (3, 3)):
+                rest = (t0, rm, rc, lead, margin, nmm, x)
+                for p2x in (None, x_exp):
+                    got = margin_p2(t, a_idx, e, p, em, c, p2x, *rest)
+                    assert torch.equal(got, margin_p2_plain(t, a_idx, e, p, em, c, p2x, *rest))
+                    hits += got.shape[0]
+                for m in (None, match):
+                    got = margin_p2_raw(rt, a_idx, e, p, em, b, m, *rest)
+                    assert torch.equal(got, margin_p2_raw_plain(rt, a_idx, e, p, em, b, m, *rest))
+        rest = (10_000, torch.from_numpy(planes[0][0]).to(cuda), None, lead, margin, 3, 0)
+        want = margin_p2_plain(t, a_idx, e, p, em, c, None, *rest)
+        with monkeypatch.context() as mp:
+            mp.setattr(margin_mod, "ROW_CAP", 3)
+            for f, args in ((margin_p2, (t, a_idx, e, p, em, c, None)),
+                            (margin_p2_raw, (rt, a_idx, e, p, em, b, match))):
+                c0 = f.launches
+                got = f(*args, *rest)
+                assert f.launches - c0 == 1 + (got.shape[0] > 3)
+                if f is margin_p2:
+                    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert hits > 0 and want.shape[0] > 3
+
+
+@pytest.mark.gpu
+def test_front_end_edges_equal_plain(cuda, tmp_path):
+    """front_end (one launch: 4 units a thread, the last block's c_total, no
+    fill) against front_end_plain over qbloom_s and qbloom_s1: n_scan at 0,
+    inside a thread's 4 units and at the tile's end, a tile whose last warp
+    is partly live (tile_len 768: 24 threads), dirty keys (2 % ambiguity
+    letters), a plane off a 16-byte boundary (scalar loads), and
+    ``flag_count`` reading the count that the next ``expand`` hands to the
+    host."""
+    from merpcr_tpu_torch.ops import front_end as front_mod
+
+    eng, cfg, tiles = _tiles(tmp_path, cuda, mismatches=1)
+    assert cfg.strict_n == 1
+    tb = eng._table
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    tile = tiles[1][0]
+    rng = np.random.default_rng(4)
+    nib = np.stack([(tile.cpu().numpy() & 15), tile.cpu().numpy() >> 4], axis=1).reshape(-1)
+    dirty = rng.random(nib.size) < 0.02
+    nib[dirty] = rng.integers(4, 16, int(dirty.sum()))
+    dirty_tile = torch.from_numpy((nib[0::2] | (nib[1::2] << 4)).astype(np.uint8)).to(cuda)
+    buf = torch.zeros(tile.numel() + 16, dtype=torch.uint8, device=cuda)
+    off = buf[4 : 4 + tile.numel()]  # units 4 bytes past a 16-byte boundary
+    off.copy_(dirty_tile)
+    flagged = 0
+    for t in (tile, dirty_tile, off):
+        for qb, gq in ((tb.qbloom_s, tb.gq), (tb.qbloom_s1, tb.gq1)):
+            for tl in (L, 768):
+                for n_scan in (0, 1, 7, 8, 9, 31, 33, tl - 5, tl):
+                    args = (t, qb, gq, W, lead, tl, n_scan)
+                    w, cnt = front_end(*args)
+                    wp, cp = front_end_plain(*args)
+                    assert torch.equal(w, wp) and torch.equal(cnt, cp), (tl, n_scan)
+                    flagged += int(cp)
+                # the tile's expand hands the count to the host
+                expand(t, w, tb.ptab, tb.pf_bits, tb.t16_1, tb.t16_1_bits, tb.bsc,
+                       tb.emeta.shape[0], W, lead, tl, tl, 4, True)
+                assert front_mod.flag_count(cnt) == int(cp)
+    torch.cuda.synchronize()
+    assert flagged > 0
