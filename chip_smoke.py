@@ -142,10 +142,19 @@ search), the W = 12, 13, 14, 16 kernels strict and loose (phase 7) and the
 the launches of the warm RNA -N 0 search), each with the launches of its
 own warm search. ``device_ms`` pools several profiler traces, since the profiler
 loses events (``profiled_ms``): ``device_events_lost`` is their share,
-and a ``device_ms`` of null a reading with too few left. ``device_ops``
+and a ``device_ms`` of null a reading with too few left; ``host_ms`` is
+the host's time per call (the launch, for a wrapper without a host read);
+a front end's byte bound counts its prefilter once and the full-table
+words of the items that pass it, where that is less than every item's
+table word. ``device_ops``
 is the device operations (kernels, copies, fills) of one call from the same
-traces; the run fails if an expand wrapper issues more than 2, or
-front_end, a verify_p1 or a margin_p2 wrapper more than 1. The
+traces; the run fails if an expand wrapper issues more than 2, or a front
+end, a verify_p1 or a margin_p2 wrapper more than 1. The rows of the loose
+and raw front ends also carry ``prefilter`` (of the tile's looked-up
+items, clean and in scan, the share whose prefilter bit is set, which
+gather from the full table, and the prefilter's density) and
+``fold_ms`` (device ms with the table's prefilter and with folds of 2^18
+and 2^20 bits, in turns, each call also equal to the plain version). The
 breakdowns of strict searches also read the strict front end's device time
 over the tile scan without and with a persisting L2 access-policy window
 over its table (set on the stream through the CUDA driver API). The line before
@@ -190,7 +199,8 @@ PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
 # launch, and for expand a second when the pairs pass its buffer (margin_p2
 # takes a second only past its row buffer, which no measured tile reaches:
 # phase 8 checks that case on its own)
-DEVICE_OPS_MAX = {"front_end": 1, "expand": 2, "expand_loose": 2, "expand_raw": 2,
+DEVICE_OPS_MAX = {"front_end": 1, "front_end_loose": 1, "front_end_raw": 1,
+                  "expand": 2, "expand_loose": 2, "expand_raw": 2,
                   "verify_p1": 1, "verify_p1_raw": 1, "margin_p2": 1, "margin_p2_raw": 1}
 
 
@@ -393,6 +403,20 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Host ms per call of ``fn``: the loop's time on the host clock, the
+    card synchronised before and after but not inside (for a wrapper with no
+    host read, the time to launch its kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
+
+
 def device_time(fn) -> dict:
     """{name: (device seconds, count)} of the CUDA-side events (kernels,
     copies, fills) that ``fn`` issues, from torch.profiler."""
@@ -456,6 +480,43 @@ def max_abs_err(got, want) -> int:
         else:
             err = max(err, abs(int(g) - int(w)))
     return err
+
+
+def prefilter_stats(table, pre, pre_bits: int, shift: int, keys) -> dict:
+    """How the loose or raw front end's prefilter (2^pre_bits bits at key
+    bit ``shift`` of the 2^t-bit ``table``) treats the tile's looked-up
+    ``keys`` (table indices of the valid items with clean keys): the share
+    whose prefilter bit is set (they gather from the full table), the share
+    the full table holds, the prefilter's density, and the distinct table
+    words that all keys and the passed keys touch (``bound``'s bytes)."""
+    from merpcr_tpu_torch.ops.units import u32
+
+    def bit(words, i):
+        return ((u32(words)[i >> 5] >> (i & 31)) & 1) == 1
+
+    n = keys.numel()
+    hit = bit(pre, (keys >> shift) & ((1 << pre_bits) - 1))
+    passed = int(hit.sum())
+    held = int(bit(table, keys).sum())
+    ones = int(((u32(pre)[:, None] >> torch.arange(32, device=pre.device)) & 1).sum())
+    confirm = table.numel() * 32 > 1 << pre_bits
+    return {"bits": pre_bits, "shift": shift, "table_bits": (table.numel() * 32).bit_length() - 1,
+            "confirm": confirm, "tested": n, "passed": passed,
+            "pass_share": passed / n if n else None, "table_hits": held,
+            "prefilter_density": ones / float(1 << pre_bits),
+            "words": int(torch.unique(keys >> 5).numel()),
+            "passed_words": int(torch.unique(keys[hit] >> 5).numel()) if confirm else 0}
+
+
+def table_bytes(distinct_words: int, pre_stats) -> int:
+    """The least table bytes a front end must read: 4 per distinct table
+    word its items look up; with a prefilter, where that is less, the
+    prefilter once (2^bits / 8 bytes) and 4 per distinct full-table word
+    that the items it passes gather."""
+    if pre_stats is None:
+        return 4 * distinct_words
+    return min(4 * pre_stats["words"],
+               (1 << pre_stats["bits"]) // 8 + 4 * pre_stats["passed_words"])
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple:
@@ -522,7 +583,7 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     from merpcr_tpu_torch.ops.margin_p2 import (margin_p2, margin_p2_plain, margin_p2_raw,
                                                 margin_p2_raw_plain)
     from merpcr_tpu_torch.ops.units import (group_regs, mask_bases, mul32, raw_hashes,
-                                            unit_regs, units_of)
+                                            unit_regs, units_of, valid_phases)
     from merpcr_tpu_torch.ops.verify_p1 import (verify_p1, verify_p1_plain, verify_p1_raw,
                                                 verify_p1_raw_plain)
 
@@ -550,21 +611,23 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     rec_b = 12 if cfg.stream else 0  # recmap + rmeta bytes per candidate
     res = {}
 
-    def run(name, kernel, plain, args, reps, n_bytes, n_ops, replaces, out_of):
-        got, want = kernel(*args), plain(*args)
+    def run(name, kernel, plain, args, reps, n_bytes, n_ops, replaces, out_of, kw=None):
+        kw = kw or {}
+        got, want = kernel(*args, **kw), plain(*args)
         err = max_abs_err(out_of(got), out_of(want))
-        ms = cuda_ms(lambda: kernel(*args), reps)
+        ms = cuda_ms(lambda: kernel(*args, **kw), reps)
+        call_host_ms = host_ms(lambda: kernel(*args, **kw), reps)
         plain_ms = cuda_ms(lambda: plain(*args), max(2, reps // 5))
-        device_ms, lost, ops, split = profiled_ms(lambda: kernel(*args), reps)  # None: void
+        device_ms, lost, ops, split = profiled_ms(lambda: kernel(*args, **kw), reps)  # None: void
         b_ms, b_by = bound(n_bytes, n_ops)
         res[name] = {
             "name": name if not variant else f"{name}[{variant}]", "route": "cuda",
             "source": f"merpcr_tpu_torch/csrc/{SOURCE_OF.get(name, name)}.cu",
             "replaces": replaces, "equal": err == 0, "max_abs_err": err,
-            "ms": ms, "kernel_ms": ms, "device_ms": device_ms,
+            "ms": ms, "kernel_ms": ms, "host_ms": call_host_ms, "device_ms": device_ms,
             "device_events_lost": lost, "device_ops": ops, "device_split": split,
             "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": None, "prefilter": None,
         }
         if err:
             raise RuntimeError(f"{name}[{variant}]: kernel differs from plain by {err}")
@@ -574,17 +637,24 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
 
     # K1 / K8: plane units of the scan span + the distinct table words
     # looked up
+    fe_kw, pre_stats = {}, None
     n_units = L // 8
     u = units_of(tile[: tile.numel() // 4 * 4]) if not raw else None
     if raw:  # one item per scan position, one bloom word per clean window;
-        # the least work is a rolling W-mer: code the new byte (4), shift it
-        # into the hash and mask (3), roll the ambiguity state (2), the bloom
-        # word and bit (4) and the flag into its word (1) per position
+        # the least work is a rolling W-mer: code the new byte (4: select,
+        # code-table read, shift, add), its W-mer index (2: funnel shift,
+        # mask), the prefilter bit (6: word index, read, shift, mask, place,
+        # OR) and its share of the ambiguity smear and the word (2)
         h, amb = raw_hashes(tile, torch.arange(L, device=tile.device) + lead, W)
         bk = (h >> (2 * W - tb.bloom_bits))[~amb]
         n_items, fe_name, fe, fe_plain = L, "front_end_raw", front_end_raw, front_end_raw_plain
         fe_line = "merpcr_tpu/ops/scan.py:660"
         fe_args = (tile, tb.bloom, tb.bloom_bits, W, lead, L, n_scan)
+        if hasattr(tb, "raw_prefilter"):  # (an A/B parent has none)
+            fe_kw = {"prefilter": tb.raw_prefilter}
+            tested = (h >> (2 * W - tb.bloom_bits))[~amb & (torch.arange(L, device=tile.device)
+                                                           < n_scan)]
+            pre_stats = prefilter_stats(tb.bloom, *tb.raw_prefilter, tested)
         del h, amb
     elif cfg.strict:
         s1 = cfg.strict_n == 1
@@ -598,10 +668,17 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     else:
         qb, gq = tb.qbloom, tb.q_bits
         n_items = n_units * (8 // cfg.stride)  # stride groups
-        A, _, _, _ = group_regs(u, torch.arange(n_items, device=tile.device), lead // 8,
-                                cfg.stride)
-        bk = A & mask_bases(W + cfg.stride - 1)
+        q = torch.arange(n_items, device=tile.device)
+        A, Aa, _, Ba = group_regs(u, q, lead // 8, cfg.stride)
+        m2kb = mask_bases(W + cfg.stride - 1)
+        bk = A & m2kb
         bk = (mul32(bk, GOLD) >> (32 - cfg.qbloom_bits)) if cfg.qbloom_bits else bk & ((1 << gq) - 1)
+        if hasattr(tb, "loose_prefilter"):  # (an A/B parent has none)
+            fe_kw = {"prefilter": tb.loose_prefilter}
+            looked_up = ((valid_phases(Aa, Ba, cfg.stride * q, cfg.stride, W, n_scan) != 0)
+                         & ((Aa & m2kb) == 0))
+            pre_stats = prefilter_stats(qb, *tb.loose_prefilter, bk[looked_up])
+        del A, Aa, Ba, q
         fe_name, fe, fe_plain = "front_end_loose", front_end_loose, front_end_loose_plain
         fe_line = ("merpcr_tpu/ops/scan.py:579" if cfg.stride == 4 else
                    "merpcr_tpu/ops/scan.py:605" if cfg.exact_group else
@@ -609,12 +686,41 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         fe_args = (tile, qb, gq, W, lead, L, n_scan, cfg.stride, cfg.qbloom_bits)
     distinct_words = int(torch.unique(bk >> 5).numel())
     del u, bk
+    # per item: the strict unit's decode, smear and key (70); a loose group's
+    # key (2; a mult-hash 2 more), valid phase (4), prefilter bit (8) and
+    # flag (2), and its share of the unit's decode and clean phases (16 per
+    # unit); a raw position as above (14)
+    fe_ops = (14 * n_items if raw else 70 * n_items if cfg.strict
+              else 16 * n_items + 16 * n_units)
     words, c_total = run(
         fe_name, fe, fe_plain, fe_args, 50,
-        (L + W - 1 if raw else 4 * (n_units + 2)) + 4 * distinct_words + n_items // 8 + 4,
-        (14 if raw else 70 if cfg.strict else 50) * n_items, fe_line, lambda o: o,
+        (L + W - 1 if raw else 4 * (n_units + 2)) + table_bytes(distinct_words, pre_stats)
+        + n_items // 8 + 4, fe_ops, fe_line, lambda o: o, fe_kw,
     )
     c_total = int(c_total.item())
+    if fe_kw:  # the same kernel with folds of 2^18 and 2^20 bits, in turns
+        # with the table's own (staging against passes)
+        from merpcr_tpu_torch.ops.table import fold_bits, prefilter_shift
+
+        res[fe_name]["prefilter"] = pre_stats
+        want = fe_plain(*fe_args)
+        table = fe_args[1]
+        t_bits = (table.numel() * 32).bit_length() - 1
+        variants = [(f"2^{fe_kw['prefilter'][1]}", fe_kw)]
+        for bits in (18, 20):
+            if bits < t_bits:
+                sh = 0 if raw else prefilter_shift(t_bits, W, cfg.stride,
+                                                   bool(cfg.qbloom_bits), bits)
+                pf = (fold_bits(table, sh, bits), bits, sh)
+            else:  # the table is its own prefilter
+                pf = (table, t_bits, 0)
+            variants.append((f"2^{bits}", {"prefilter": pf}))
+        folded = {name: [] for name, _ in variants}
+        for name, kw in variants * 2:
+            check(max_abs_err(fe(*fe_args, **kw), want) == 0,
+                  f"{fe_name}[{variant}]: a {name}-bit prefilter differs from plain")
+            folded[name].append(profiled_ms(lambda: fe(*fe_args, **kw), 50)[0])
+        res[fe_name]["fold_ms"] = folded
     # bucket lookup per expanded position: one 8-byte row, two starts, or
     # a binary search of ceil(log2 U) keys and two starts
     steps = max(1, int(tb.uhash.numel()).bit_length()) if W >= 13 else 0
@@ -732,9 +838,10 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
           "margin": margin, "margin_past_buffer": past_buffer, "pos_without_bloom": unpruned,
           "totals": {"c": c_total, "pos": pos_total, "pair": pair_total,
                      "anch": anch, "hit": int(rows.shape[0])},
-          "kernels": [{k: r[k] for k in ("name", "equal", "kernel_ms", "device_ms",
-                                         "device_events_lost", "device_ops", "plain_ms",
-                                         "max_abs_err", "bound_ms")}
+          "kernels": [{k: r.get(k) for k in ("name", "equal", "kernel_ms", "device_ms",
+                                             "device_events_lost", "device_ops", "plain_ms",
+                                             "max_abs_err", "bound_ms", "prefilter",
+                                             "fold_ms", "host_ms")}
                       for r in res.values()]})
     return res
 

@@ -101,10 +101,10 @@ __device__ __forceinline__ uint32_t nibble_at(const uint8_t* __restrict__ plane,
 
 // Shared state of the single-pass scans of one device (ops/kernels.py
 // ScanState): ticket[0] hands out tiles, ticket[1] collects a sum in any
-// order (expand's lanes); the launch's last tile puts both back to 0. The
-// strict front end uses the two as one 64-bit counter (its sum and its
-// finished blocks) and leaves its flag count in ticket[kFlagSlot], which
-// expand's last tile hands to the host with its totals and clears.
+// order (expand's lanes); the launch's last tile puts both back to 0. Each
+// front end uses the two as one 64-bit counter (its sum and its finished
+// blocks) and leaves its flag count in ticket[kFlagSlot], which expand's
+// last tile hands to the host with its totals and clears.
 // status[t] = value | kInclusive | seq << 33 once tile t has published
 // (value: the tile's sum, or with kInclusive the sum of tiles 0..t); an
 // entry with another seq is not published yet. seq runs 1 .. 2^31 - 1,

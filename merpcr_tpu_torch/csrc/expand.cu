@@ -364,9 +364,8 @@ expand_kernel(const uint32_t* __restrict__ units,
         __threadfence();
         const unsigned int lanes = atomicExch(ss.ticket + 1, 0u);
         // one 16-byte store: each store to pinned host memory is a PCIe
-        // write that the kernel's end waits for. The strict front end's
-        // flag count rides along (0 after any other front end); raw planes
-        // have no position stage.
+        // write that the kernel's end waits for. The tile's front-end
+        // flag count rides along; raw planes have no position stage.
         *reinterpret_cast<int4*>(totals) = make_int4(
             kMode == kRaw ? 0 : static_cast<int>(lanes), static_cast<int>(base) + n_pairs,
             static_cast<int>(ss.ticket[mp::kFlagSlot]), 0);
@@ -444,7 +443,7 @@ int mp_expand_tiles(int n_words) {
 // mp_expand_tiles(n_words) entries. lane_ppos, lane_start and lane_off
 // hold tile_len ints each, blk mp_expand_tiles(n_words) int2; entry/ppos hold cap ints each.
 // totals: four ints, 16-byte aligned, that the kernel writes (pos_total,
-// pair_total, the strict front end's flag count from the scan state's
+// pair_total, the front end's flag count from the scan state's
 // slot, 0), host-mapped pinned memory in the wrapper. If pair_total > cap, mp_expand_overflow writes
 // the pairs.
 int mp_expand(const void* units, const void* words, const void* ptab,

@@ -53,7 +53,7 @@ makes each lane's t16 test and bucket lookup once (one lane per thread)
 and takes its pair base from a single-pass look-back scan; it writes the
 pairs into buffers of ``tile_len / 16`` pairs and the totals into pinned
 memory, so the one host read is a stream synchronise (beside them the
-strict front end's flag count, which that kernel leaves in the scan state
+tile's front-end flag count, which that kernel leaves in the scan state
 for ``front_end.flag_count``). Past that capacity
 a second launch writes the pairs from the stored lanes into buffers of
 exactly ``pair_total`` entries. The lane buffers are scratch of 12 bytes

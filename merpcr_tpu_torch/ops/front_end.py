@@ -28,21 +28,23 @@ every other byte ambiguous), and a clean W-mer is flagged when the table's
 occupancy map ``bloom`` holds its top ``bloom_bits`` bits (exact at
 2W <= 24, a prefix filter above). One bit per position.
 
-Kernels: ``csrc/front_end.cu``. On the card K1 and K8 are bound by
-memory: the tile's plane bytes plus one 4-byte gather per unit or group
-into an 8-32 MB table. K1 is one launch per call, no fill and no copy:
-a thread takes 4 units with one 16-byte load, decodes each plane word
-once and issues its 4 table gathers back to back; eight threads assemble
-a flag word, and the block that finishes last (one 64-bit atomic per
-block carries its count and its completion) writes ``c_total`` and leaves
-the count in the device's scan state, which the tile's ``expand`` hands
-to the host with its own totals (``flag_count`` reads it there). K8 and
-K9a take one thread per group or position (``__ballot_sync`` words, one
-atomicAdd per warp into a ``c_total`` the wrapper zeroes). ``front_end_plain`` and
-``front_end_loose_plain`` are the same functions in plain PyTorch; the
-wrappers use them only for CPU tensors. The raw kernel hashes W bytes per
-position and is bound by integer operations at W >= 8;
-``front_end_raw_plain`` is its plain version.
+Kernels: ``csrc/front_end.cu``, one launch per call each, with no fill
+and no copy. Each item (unit, group or position) reads its plane bytes once
+and looks one key up in an 0.5-32 MB table; a random 4-byte gather there
+costs a 32-byte L2 sector, which bounds the strict kernel. K1 takes 4
+units per thread from one 16-byte load and issues its 4 table gathers back
+to back. K8 and K9a first test a prefilter, the table folded to at most
+2^19 bits (``Table.loose_prefilter``/``raw_prefilter``, ``table.fold_bits``),
+staged in shared memory by about one block per SM, and gather from the
+full table only where its bit is set
+(0.2-3 % of the items on a random genome); K8 takes 4 units per thread,
+K9a 16 positions with a rolling W-mer (one new code per position). In all
+three the block that finishes last (one 64-bit atomic per block carries
+its count and its completion) writes ``c_total`` and leaves the count in
+the device's scan state, which the tile's ``expand`` hands to the host
+with its own totals (``flag_count`` reads it there). ``front_end_plain``,
+``front_end_loose_plain`` and ``front_end_raw_plain`` are the same
+functions in plain PyTorch; the wrappers use them only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -147,11 +149,12 @@ def front_end(tile, qbloom_s, gq: int, wordsize: int, lead: int,
 
 
 def flag_count(c_total: torch.Tensor) -> int:
-    """``c_total`` of a tile's ``front_end`` as an int, once the tile's
-    ``expand`` has run. A CPU tensor gives its value; on the card that
-    ``expand`` wrote the count into the device's pinned host word with its
-    own totals, read here (no copy). The word holds the count of the
-    device's latest strict front end that an ``expand`` followed."""
+    """``c_total`` of a tile's front end (``front_end``, ``front_end_loose``
+    or ``front_end_raw``) as an int, once the tile's ``expand`` has run. A
+    CPU tensor gives its value; on the card that ``expand`` wrote the count
+    into the device's pinned host word with its own totals, read here (no
+    copy). The word holds the count of the device's latest front end that
+    an ``expand`` followed."""
     if not c_total.is_cuda:
         return int(c_total.item())
     return kernels.scan_state(c_total).read(HOST_WORD + 1)[HOST_WORD]
@@ -196,9 +199,29 @@ def front_end_loose_plain(tile, qbloom, q_bits: int, wordsize: int, lead: int,
     return to_i32(words), flag.sum().to(torch.int32).reshape(1)
 
 
+PREFILTER_MAX_BITS = 20  # a staged prefilter takes at most 128 KB of the SM's 227 KB
+
+
+def _prefilter(prefilter, t_bits: int) -> tuple:
+    """(words, bits, shift) of a kernel's prefilter: 2^bits bits (32 to
+    2^20) at key bit ``shift`` of a 2^t_bits-bit table. A prefilter as large
+    as its table is taken for the table itself, which the kernel then
+    confirms nowhere: a copy of the table is as good as the table."""
+    if prefilter is None:
+        raise ValueError("the kernel needs the table's prefilter (Table.loose_prefilter, "
+                         "Table.raw_prefilter)")
+    pre, pre_bits, pre_shift = prefilter
+    require(pre, torch.int32, "prefilter")
+    if (pre.numel() * 32 != 1 << pre_bits or not 5 <= pre_bits <= PREFILTER_MAX_BITS
+            or pre_shift < 0 or pre_shift + pre_bits > t_bits):
+        raise ValueError(f"prefilter of {pre.numel()} words is no 2^{pre_bits}-bit window "
+                         f"at bit {pre_shift} of a 2^{t_bits}-bit table")
+    return pre, pre_bits, pre_shift
+
+
 def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
                     tile_len: int, n_scan: int, stride: int,
-                    qbloom_bits: int):
+                    qbloom_bits: int, prefilter=None):
     """K8: flag words and c_total of one tile's loose front end, the CUDA
     kernel for tensors on the card, ``front_end_loose_plain`` for CPU
     tensors.
@@ -207,7 +230,11 @@ def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
     the span values of ``stride`` positions when ``qbloom_bits`` is 0,
     else the mult-hash bloom (then q_bits == qbloom_bits). Returns (words
     int32[tile_len/(32*stride)], c_total int32[1]), one bit per group in
-    group order."""
+    group order. ``prefilter``: (words, bits, shift) of ``qbloom`` folded
+    by ``table.fold_bits`` (``Table.loose_prefilter``), which the kernel
+    stages in shared memory: required on the card, unused by the plain
+    version. The call is one launch; ``flag_count`` reads the count after
+    the tile's ``expand``."""
     if not kernel_route(tile, qbloom):
         return front_end_loose_plain(tile, qbloom, q_bits, wordsize, lead,
                                      tile_len, n_scan, stride, qbloom_bits)
@@ -219,19 +246,23 @@ def front_end_loose(tile, qbloom, q_bits: int, wordsize: int, lead: int,
     if (qbloom.numel() * 32 != 1 << q_bits or qbloom_bits not in (0, q_bits)
             or q_bits > 2 * min(16, wordsize + stride - 1)):
         raise ValueError(f"qbloom of {qbloom.numel()} words is not 2^{q_bits} key bits")
-    if (tile.data_ptr() + lead // 2) % 4:
+    pre, pre_bits, pre_shift = _prefilter(prefilter, q_bits)
+    kernel_route(tile, pre)
+    units = tile.data_ptr() + lead // 2
+    if units % 4:
         raise ValueError("tile plane is not 4-byte aligned")
     n_groups = n_units * (8 // stride)
     words = torch.empty(n_groups // 32, dtype=torch.int32, device=tile.device)
-    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    c_total = torch.empty(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
     fn = kernels.function("front_end", "mp_front_end_loose",
-                          [P, P, I, I, I, I, I, I, P, P, P])
+                          [P, P, I, I, I, I, I, I, I, P, I, I, P, P, P, P])
     with kernels.on_device(tile):
+        st = kernels.scan_state(tile)
         kernels.call(
-            fn, tile.data_ptr() + lead // 2, qbloom.data_ptr(), q_bits, qbloom_bits,
-            wordsize, stride, n_groups, n_scan, words.data_ptr(), c_total.data_ptr(),
-            kernels.stream(tile),
+            fn, units, qbloom.data_ptr(), q_bits, qbloom_bits, wordsize, stride,
+            n_groups, n_scan, int(units % 16 == 0), pre.data_ptr(), pre_bits, pre_shift,
+            words.data_ptr(), st.ticket.data_ptr(), c_total.data_ptr(), kernels.stream(tile),
         )
     front_end_loose.launches += 1
     return words, c_total
@@ -272,29 +303,38 @@ def front_end_raw_plain(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
 
 
 def front_end_raw(tile, bloom, bloom_bits: int, wordsize: int, lead: int,
-                  tile_len: int, n_scan: int):
+                  tile_len: int, n_scan: int, prefilter=None):
     """K9a: flag words and c_total of a raw-byte tile (one byte per
     position), the CUDA kernel for tensors on the card,
     ``front_end_raw_plain`` for CPU tensors.
 
     ``bloom``: int32 words of the table's W-mer occupancy map (2^bloom_bits
     bits, ``Table.bloom``). Returns (words int32[tile_len/32], c_total
-    int32[1]), one bit per scan position."""
+    int32[1]), one bit per scan position. ``prefilter``: the bloom's low
+    bits (``Table.raw_prefilter``, shift 0), as in ``front_end_loose``;
+    the call is one launch."""
     if not kernel_route(tile, bloom):
         return front_end_raw_plain(tile, bloom, bloom_bits, wordsize, lead,
                                    tile_len, n_scan)
     require(tile, torch.uint8, "tile")
     require(bloom, torch.int32, "bloom")
     _check_raw(tile, bloom, bloom_bits, wordsize, lead, tile_len, n_scan)
+    pre, pre_bits, pre_shift = _prefilter(prefilter, bloom_bits)
+    kernel_route(tile, pre)
+    if pre_shift:
+        raise ValueError("the raw prefilter is the bloom's low bits (shift 0)")
+    plane = tile.data_ptr() + lead
     words = torch.empty(tile_len // 32, dtype=torch.int32, device=tile.device)
-    c_total = torch.zeros(1, dtype=torch.int32, device=tile.device)
+    c_total = torch.empty(1, dtype=torch.int32, device=tile.device)
     P, I = kernels.P, kernels.I
-    fn = kernels.function("front_end", "mp_front_end_raw", [P, P, I, I, I, I, P, P, P])
+    fn = kernels.function("front_end", "mp_front_end_raw",
+                          [P, P, I, I, I, I, I, P, I, P, P, P, P])
     with kernels.on_device(tile):
+        st = kernels.scan_state(tile)
         kernels.call(
-            fn, tile.data_ptr() + lead, bloom.data_ptr(), 2 * wordsize - bloom_bits,
-            wordsize, tile_len, n_scan, words.data_ptr(), c_total.data_ptr(),
-            kernels.stream(tile),
+            fn, plane, bloom.data_ptr(), 2 * wordsize - bloom_bits, wordsize, tile_len,
+            n_scan, int(plane % 16 == 0), pre.data_ptr(), pre_bits, words.data_ptr(),
+            st.ticket.data_ptr(), c_total.data_ptr(), kernels.stream(tile),
         )
     front_end_raw.launches += 1
     return words, c_total

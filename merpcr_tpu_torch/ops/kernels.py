@@ -149,14 +149,14 @@ class ScanState:
     """The single-pass scans' state on one device (``csrc/compact.cuh``
     ``ScanState``), kept across calls: ``ticket`` int32[3] (the tile
     ticket, and a sum collected in any order, which every launch puts back
-    to 0; then the strict front end's flag count, which ``expand``
+    to 0; then the latest front end's flag count, which ``expand``
     clears), ``status`` int64[capacity] (one tagged word per tile;
     a launch's tag is its sequence number, so stale words never match and
     no call has to clear them), and ``host`` int32[4] of pinned host memory
     that a kernel writes its totals into, so the wrapper's one host read is
     a stream synchronise and no copy: words 0-1 the call's own totals
-    (``expand``, ``verify_p1``, ``margin_p2``), word 2 the strict
-    ``front_end``'s c_total, which ``expand`` writes with its totals in one
+    (``expand``, ``verify_p1``, ``margin_p2``), word 2 the front
+    end's c_total, which ``expand`` writes with its totals in one
     16-byte store (a pinned allocation is page-aligned).
     ``ticket`` and ``status`` are zeroed once, when they are made or
     grown."""

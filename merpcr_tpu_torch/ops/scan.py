@@ -243,7 +243,7 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     if not cfg.strict:
         words, c_total = front_end_loose(tile, table.qbloom, table.q_bits, W,
                                          lead, L, n_scan, cfg.stride,
-                                         cfg.qbloom_bits)
+                                         cfg.qbloom_bits, table.loose_prefilter)
         entry, ppos, pos_total, pair_total = expand_loose(
             tile, words, table.ptab, table.pf_bits, table.csr, n_entries, W,
             lead, L, n_scan, cfg.stride, cfg.exact_group)
@@ -267,10 +267,9 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
                       tile_start, rmeta, recmap, lead, nmm, x)
     rows = margin_p2(tile, a_idx, entry, ppos, table.emeta, table.p2_codes,
                      p2_exp, tile_start, rmeta, recmap, lead, margin, nmm, x)
-    cols = rows.unbind(dim=1)
-    # the strict kernel's c_total came to the host with expand's totals
-    c = flag_count(c_total) if cfg.strict else int(c_total.item())
-    return ScanOut(c, pos_total, pair_total, a_idx.numel(), rows.shape[0], *cols)
+    # the front end's c_total came to the host with expand's totals
+    return ScanOut(flag_count(c_total), pos_total, pair_total, a_idx.numel(),
+                   rows.shape[0], *rows.unbind(dim=1))
 
 
 def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
@@ -282,7 +281,7 @@ def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     margin, nmm, x = (int(v) for v in rt)
     W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
     words, c_total = front_end_raw(tile, table.bloom, table.bloom_bits, W,
-                                   lead, L, n_scan)
+                                   lead, L, n_scan, table.raw_prefilter)
     entry, ppos, pos_total, pair_total = expand_raw(
         tile, words, table.csr, table.emeta.shape[0], W, lead, L, n_scan)
     match = table.match if cfg.iupac else None
@@ -290,7 +289,7 @@ def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
                           tile_start, rmeta, None, lead, nmm, x)
     rows = margin_p2_raw(tile, a_idx, entry, ppos, table.emeta, table.p2_bytes,
                          match, tile_start, rmeta, None, lead, margin, nmm, x)
-    return ScanOut(int(c_total.item()), pos_total, pair_total, a_idx.numel(),
+    return ScanOut(flag_count(c_total), pos_total, pair_total, a_idx.numel(),
                    rows.shape[0], *rows.unbind(dim=1))
 
 

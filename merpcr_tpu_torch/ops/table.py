@@ -24,7 +24,10 @@ output formatting.
 ``table_from_numpy`` carries the fields the scan reads onto a torch device
 (``Table``). The compiler is the same construction as the JAX package's
 ``merpcr_tpu.ops.table``, field for field, so both packages scan identical
-tables.
+tables. ``Table`` also gives the port's own prefilters of the loose and
+raw front ends (``fold_bits``): ``qbloom`` and ``bloom`` folded to at most
+2^19 bits, small enough for one SM's shared memory, so that a clear
+prefilter bit spares the kernel its gather from the full table.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from .encoding import (
     match_matrix,
     nib_match_matrix,
 )
+from .units import to_i32, u32
 
 MAX_BLOOM_BITS = 24  # 2^24 bits = 2 MB; exact for W <= 12
 GTAB_CAP_BITS = 1 << 30  # exact group-table cap: 2^30 bits = 128 MB HBM
@@ -973,6 +977,36 @@ class Table(NamedTuple):
     p1_bytes: torch.Tensor  # uint8[E, P1MAX]
     p2_bytes: torch.Tensor  # uint8[E, P2MAX]
     match: torch.Tensor  # uint8[65536]
+    # the port's prefilters of the loose and raw front ends (``fold_bits``):
+    # bit j of the loose one is set iff qbloom holds a bit b with (b >>
+    # qpre_shift) & (2^qpre_bits - 1) == j; the raw one is bloom folded to
+    # its low bpre_bits bits. A table of at most 2^PREFILTER_BITS bits is its
+    # own prefilter. Each is folded on its table's device at its first use
+    # and kept in ``folds`` (id of the table tensor -> (tensor, fold)): a
+    # strict search never folds, and a copy of the Table on another device
+    # (which shares ``folds``) folds its own tensor there.
+    qpre_bits: int
+    qpre_shift: int
+    bpre_bits: int
+    folds: dict
+
+    @property
+    def loose_prefilter(self) -> tuple:
+        """(words, bits, shift) of ``front_end_loose``'s prefilter."""
+        pre = self._fold(self.qbloom, self.qpre_shift, self.qpre_bits)
+        return pre, self.qpre_bits, self.qpre_shift
+
+    @property
+    def raw_prefilter(self) -> tuple:
+        """(words, bits, shift) of ``front_end_raw``'s prefilter."""
+        return self._fold(self.bloom, 0, self.bpre_bits), self.bpre_bits, 0
+
+    def _fold(self, words: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
+        # the entry holds ``words``, so its id is not reused while it is kept
+        got = self.folds.get(id(words))
+        if got is None:
+            got = self.folds[id(words)] = (words, fold_bits(words, shift, bits))
+        return got[1]
 
     @property
     def csr(self):
@@ -990,6 +1024,57 @@ def _bits_of(n: int) -> int:
     return n.bit_length() - 1
 
 
+PREFILTER_BITS = 19  # 2^19 bits = 64 KB of one SM's shared memory
+
+
+def fold_bits(words: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
+    """A bit table folded to 2^``bits`` bits: bit j of the result is set
+    iff some set bit b of ``words`` (int32 words of 2^n bits, n >= shift +
+    bits) has (b >> shift) & (2^bits - 1) == j. A key whose result bit is
+    clear therefore has its table bit clear. ``words`` itself when it has
+    2^bits bits. Torch ops on the table's device."""
+    n = _bits_of(words.numel() * 32)
+    if n == bits:
+        return words
+    if shift + bits > n or bits < 5:
+        raise ValueError(f"no window [{shift}, {shift + bits}) in a table of 2^{n} bits")
+    w = u32(words).view(1 << (n - shift - bits), -1)
+    while w.shape[0] > 1:  # bits above the window: OR the halves together
+        w = w[: w.shape[0] // 2] | w[w.shape[0] // 2 :]
+    w = w.view(-1)  # 2^(shift + bits) bits; a result bit per 2^shift of them
+    if shift >= 5:  # a result bit covers whole words
+        hit = (w.view(1 << bits, -1) != 0).any(dim=1).to(torch.int64).view(-1, 32)
+        return to_i32((hit << torch.arange(32, device=w.device)).sum(dim=1))
+    g = 1 << shift
+    for k in range(shift):  # bit g*i of a word: the OR of its group i
+        w = w | (w >> (1 << k))
+    width, space = 1, g  # gather bits 0, g, 2g, .. of each word into its low 32/g
+    w = w & _ones(width, space)
+    while space < 32:
+        w = (w | (w >> (space - width))) & _ones(2 * width, 2 * space)
+        width, space = 2 * width, 2 * space
+    w = w.view(-1, g) << (torch.arange(g, device=w.device) * (32 // g))
+    return to_i32(w.sum(dim=1))
+
+
+def _ones(width: int, space: int) -> int:
+    """32-bit mask of the low ``width`` bits of every ``space`` bits."""
+    return sum(((1 << width) - 1) << i for i in range(0, 32, space))
+
+
+def prefilter_shift(q_bits: int, wordsize: int, stride: int, hashed: bool,
+                    bits: int = PREFILTER_BITS) -> int:
+    """Low key bit of ``qbloom``'s prefilter window. A mult-hash index is
+    mixed in every bit: its low bits. An exact span key's low and high bases
+    belong to only some phases' W-mers, so the window is centred on the
+    bases that every phase keys (bases stride-1 .. W-1), whole bases, inside
+    the table's q_bits; ``bits`` is the prefilter's size."""
+    if hashed or q_bits <= bits:
+        return 0
+    centre = wordsize + stride - 1  # in bits: the middle of those bases
+    return min(max((centre - bits // 2) & ~1, 0), q_bits - bits)
+
+
 def table_from_numpy(host, meta: TableMeta, device) -> Table:
     """Carry a compiled table onto ``device``.
 
@@ -999,7 +1084,9 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
     table. Only the fields the scan reads move; ``p1_exp`` and ``p2_exp``
     are real only for a table compiled with ``iupac_mode``, and
     ``qbloom_s1``/``t16_1`` only once ``build_strict1`` armed them; they
-    stay the dummies otherwise, as in the JAX table."""
+    stay the dummies otherwise, as in the JAX table. The front ends'
+    prefilters are only sized here; ``Table.loose_prefilter`` and
+    ``raw_prefilter`` fold them on first use."""
 
     def words(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)
@@ -1012,6 +1099,7 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         return _bits_of(int(np.asarray(a).shape[0]) * 32)
 
     ptab = np.asarray(host.ptab)
+    q_bits = bits(host.qbloom)
     return Table(
         qbloom_s=words(host.qbloom_s),
         ptab=words(ptab),
@@ -1030,7 +1118,7 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         pf_bits=_bits_of(int(ptab.shape[0]) * 32 // meta.stride),
         t16_bits=int(meta.t16_bits),
         bloom_bits=int(meta.bloom_bits),
-        q_bits=bits(host.qbloom),
+        q_bits=q_bits,
         strict1=bool(meta.strict1),
         gq1=bits(host.qbloom_s1),
         t16_1_bits=int(meta.t16_1_bits),
@@ -1044,4 +1132,9 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         p1_bytes=ints(host.p1_bytes, np.uint8),
         p2_bytes=ints(host.p2_bytes, np.uint8),
         match=ints(host.match, np.uint8),
+        qpre_bits=min(q_bits, PREFILTER_BITS),
+        qpre_shift=prefilter_shift(q_bits, int(meta.wordsize), int(meta.stride),
+                                   not meta.exact_group),
+        bpre_bits=min(bits(host.bloom), PREFILTER_BITS),
+        folds={},
     )

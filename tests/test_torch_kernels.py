@@ -316,7 +316,7 @@ def test_mismatch_kernels_equal_plain_versions(cuda, tmp_path, mismatches):
             kernel, plain = expand, expand_plain
         else:
             fe_args = (tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, 4, 0)
-            w, c = front_end_loose(*fe_args)
+            w, c = front_end_loose(*fe_args, tb.loose_prefilter)
             wp, cp = front_end_loose_plain(*fe_args)
             args = (tile, w, tb.ptab, tb.pf_bits, tb.bsc, tb.emeta.shape[0], W, lead,
                     L, n_scan, 4, True)
@@ -351,10 +351,11 @@ def _front_and_expand(cfg, tb, tile, n_scan, kernel: bool, bloom=None):
                  tb.emeta.shape[0], W, lead, L, n_scan, cfg.stride,
                  cfg.exact_group, bloom, tb.bloom_bits)
     else:
-        fe, ex = ((front_end_loose, expand_loose) if kernel
-                  else (front_end_loose_plain, expand_loose_plain))
-        w, c = fe(tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, cfg.stride,
-                  cfg.qbloom_bits)
+        args = (tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, cfg.stride, cfg.qbloom_bits)
+        if kernel:
+            (w, c), ex = front_end_loose(*args, tb.loose_prefilter), expand_loose
+        else:
+            (w, c), ex = front_end_loose_plain(*args), expand_loose_plain
         out = ex(tile, w, tb.ptab, tb.pf_bits, tb.csr, tb.emeta.shape[0], W,
                  lead, L, n_scan, cfg.stride, cfg.exact_group)
     return (w, c, *out)
@@ -620,7 +621,7 @@ def test_raw_kernels_equal_plain_versions(cuda, tmp_path, wordsize, iupac, margi
     hits = 0
     for tile, t0, n_scan, n in tiles:
         fe_args = (tile, tb.bloom, tb.bloom_bits, W, lead, L, n_scan)
-        w, c = front_end_raw(*fe_args)
+        w, c = front_end_raw(*fe_args, tb.raw_prefilter)
         _assert_same((w, c), front_end_raw_plain(*fe_args))
         args = (tile, w, tb.csr, tb.emeta.shape[0], W, lead, L, n_scan)
         e, p, pt, qt = expand_raw(*args)
@@ -778,7 +779,7 @@ def test_expand_edges_equal_plain(cuda, tmp_path):
     tb3 = e3._table
     tile3, _t, n3, _n = t3[0]
     w3, c = front_end_loose(tile3, tb3.qbloom, tb3.q_bits, 3, c3.lead, c3.tile_len, n3,
-                            c3.stride, c3.qbloom_bits)
+                            c3.stride, c3.qbloom_bits, tb3.loose_prefilter)
     assert int(c) == c3.tile_len // c3.stride
     out = both(expand_loose, expand_loose_plain, (tile3, w3, tb3.ptab, tb3.pf_bits, tb3.csr,
                                                   tb3.emeta.shape[0], 3, c3.lead, c3.tile_len,
@@ -973,3 +974,135 @@ def test_front_end_edges_equal_plain(cuda, tmp_path):
                 assert front_mod.flag_count(cnt) == int(cp)
     torch.cuda.synchronize()
     assert flagged > 0
+
+
+def _with_dirt(tile: torch.Tensor, rng, share: float, codes=(4, 16)) -> torch.Tensor:
+    """A nibble plane with a share ``share`` of its codes replaced by codes
+    in [codes[0], codes[1]) (4..15: ambiguity letters)."""
+    p = tile.cpu().numpy()
+    nib = np.stack([p & 15, p >> 4], axis=1).reshape(-1)
+    m = rng.random(nib.size) < share
+    nib[m] = rng.integers(codes[0], codes[1], int(m.sum()))
+    return torch.from_numpy((nib[0::2] | (nib[1::2] << 4)).astype(np.uint8)).to(tile.device)
+
+
+def _off_boundary(tile: torch.Tensor, by: int) -> torch.Tensor:
+    """``tile`` copied ``by`` bytes past a 16-byte boundary (scalar loads)."""
+    buf = torch.zeros(tile.numel() + 32, dtype=torch.uint8, device=tile.device)
+    off = buf[by : by + tile.numel()]
+    off.copy_(tile)
+    return off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wordsize", [3, 8, 11, 12, 13, 14, 16])
+def test_front_end_loose_edges_equal_plain(cuda, tmp_path, wordsize):
+    """front_end_loose (one launch: 4 units a thread, a prefilter, the last
+    block's c_total, no fill) against front_end_loose_plain: the table's
+    prefilter, a copy of the table as its own prefilter where it has at most
+    2^20 bits (as on a replica), a 2^12-bit fold (many confirming gathers),
+    an all-ones prefilter and an all-ones table; n_scan at 0, inside a
+    thread's units, mid-word and at the tile's end; a tile whose last warp
+    is partly live (tile_len 768); 3 % dirty codes (dirty key spans), an
+    all-dirty tile and a plane off a 16-byte boundary. ``flag_count`` after
+    ``expand_loose`` reads each count, and a strict tile that follows a
+    loose one on the same device reads its own."""
+    from merpcr_tpu_torch.ops import front_end as front_mod
+    from merpcr_tpu_torch.ops.table import fold_bits
+
+    eng, cfg, tiles = _tiles(tmp_path, cuda, wordsize=wordsize, mismatches=2)
+    assert not cfg.strict
+    tb = eng._table
+    W, lead, L, S = cfg.wordsize, cfg.lead, cfg.tile_len, cfg.stride
+    rng = np.random.default_rng(wordsize)
+    tile = tiles[1][0]
+    dirty = _with_dirt(tile, rng, 0.03)
+    variants = (tile, dirty, _with_dirt(tile, rng, 1.0), _off_boundary(dirty, 4))
+    pre, pre_bits, pre_shift = tb.loose_prefilter
+    prefilters = [tb.loose_prefilter]
+    if tb.q_bits <= 20:  # (a prefilter as large as the table is the table)
+        prefilters.append((tb.qbloom.clone(), tb.q_bits, 0))
+    if pre_bits < tb.q_bits:
+        prefilters.append((torch.full_like(pre, -1), pre_bits, pre_shift))
+    if tb.q_bits > 12:
+        sh = tb.q_bits - 14
+        prefilters.append((fold_bits(tb.qbloom, sh, 12), 12, sh))
+    full = torch.full_like(tb.qbloom, -1)
+    tables = ((tb.qbloom, prefilters),
+              (full, [(fold_bits(full, pre_shift, pre_bits), pre_bits, pre_shift)]))
+    flagged = 0
+    for qb, pfs in tables:
+        for t in variants:
+            for tl in (L, 768):
+                for n_scan in (0, 1, 7, 8, 9, 31, 33, tl // 2 + 13, tl - 5, tl):
+                    args = (t, qb, tb.q_bits, W, lead, tl, n_scan, S, cfg.qbloom_bits)
+                    wp, cp = front_end_loose_plain(*args)
+                    for pf in pfs:
+                        w, cnt = front_end_loose(*args, prefilter=pf)
+                        assert torch.equal(w, wp) and torch.equal(cnt, cp), (tl, n_scan, pf[1:])
+                    flagged += int(cp)
+                # the tile's expand hands the last count to the host
+                expand_loose(t, w, tb.ptab, tb.pf_bits, tb.csr, tb.emeta.shape[0], W, lead,
+                             tl, tl, S, cfg.exact_group)
+                assert front_mod.flag_count(cnt) == int(cp)
+    assert flagged > 0
+    # a strict tile after the loose one reads its own count
+    if eng._meta.strict:
+        ws, cs = front_end(tile, tb.qbloom_s, tb.gq, W, lead, L, L)
+        expand(tile, ws, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.csr, tb.emeta.shape[0],
+               W, lead, L, L, S, cfg.exact_group)
+        assert front_mod.flag_count(cs) == int(front_end_plain(tile, tb.qbloom_s, tb.gq, W,
+                                                               lead, L, L)[1])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wordsize", [3, 7, 11, 12, 13, 16])
+def test_front_end_raw_edges_equal_plain(cuda, tmp_path, wordsize):
+    """front_end_raw (one launch: 16 positions a thread with a rolling
+    W-mer, a prefilter, the last block's c_total, no fill) against
+    front_end_raw_plain: the table's prefilter, a copy of the bloom as its
+    own prefilter where it has at most 2^20 bits, a 2^10-bit fold, an
+    all-ones prefilter and an all-ones bloom; n_scan at 0, 1, inside a thread's run, mid-word and at the
+    tile's end; tile_len 768; ambiguous bytes at both ends of windows and
+    at the tile's ends, an all-junk tile and a plane off a 16-byte
+    boundary. ``flag_count`` after ``expand_raw`` reads each count."""
+    from merpcr_tpu_torch.ops import front_end as front_mod
+    from merpcr_tpu_torch.ops.table import fold_bits
+
+    eng, cfg, tiles = _raw_tiles(tmp_path, cuda, wordsize=wordsize)
+    tb = eng._table
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    tile = tiles[1][0]
+    edged = tile.clone()
+    for pos in range(lead, lead + L - W - 8, 301):  # a window's first and last byte
+        edged[pos] = ord("N")
+        edged[pos + W + 7] = ord("-")
+    edged[lead] = edged[lead + L - 1] = edged[lead + 767] = ord("*")
+    junk = torch.full_like(tile, ord("-"))
+    variants = (tile, edged, junk, _off_boundary(edged, 4))
+    pre, pre_bits, _ = tb.raw_prefilter
+    prefilters = [tb.raw_prefilter]
+    if tb.bloom_bits <= 20:
+        prefilters.append((tb.bloom.clone(), tb.bloom_bits, 0))
+    if pre_bits < tb.bloom_bits:
+        prefilters.append((torch.full_like(pre, -1), pre_bits, 0))
+    if tb.bloom_bits > 10:
+        prefilters.append((fold_bits(tb.bloom, 0, 10), 10, 0))
+    full = torch.full_like(tb.bloom, -1)
+    tables = ((tb.bloom, prefilters), (full, [(fold_bits(full, 0, pre_bits), pre_bits, 0)]))
+    flagged = 0
+    for bl, pfs in tables:
+        for t in variants:
+            for tl in (L, 768):
+                for n_scan in (0, 1, 15, 16, 17, 31, 33, tl // 2 + 13, tl - 5, tl):
+                    args = (t, bl, tb.bloom_bits, W, lead, tl, n_scan)
+                    wp, cp = front_end_raw_plain(*args)
+                    for pf in pfs:
+                        w, cnt = front_end_raw(*args, prefilter=pf)
+                        assert torch.equal(w, wp) and torch.equal(cnt, cp), (tl, n_scan, pf[1:])
+                    flagged += int(cp)
+                expand_raw(t, w, tb.csr, tb.emeta.shape[0], W, lead, tl, tl)
+                assert front_mod.flag_count(cnt) == int(cp)
+    assert flagged > 0
+    torch.cuda.synchronize()
