@@ -128,6 +128,39 @@ closing device line is printed only when every phase passed):
              seconds per shard count, the gather's milliseconds (whole,
              and its row collective alone) and bytes from rank 0's log,
              and its bound at this host's memcpy rate
+14. host_path the host fast path (``ops/host_scan.py``) and its gate,
+             one line: (a) the golden files on the default gate through
+             ``MerPCR()`` and ``python -m merpcr_tpu_torch``: the golden
+             line, no launch of any wrapper, no device table; (b) the same
+             at MERPCR_TPU_HOST_MAX=0: the golden line, the four kernels
+             launched; (c) start-up in cold processes on the host clock:
+             the golden CLI under (a) and (b), and each step of both paths
+             (``import torch``, ``resolve_device``, STS load and table
+             compile, CUDA context, table upload, kernel library load,
+             first search), then prefixes of the record (0.25, 0.5, 1 and
+             2 Mbp) cold and warm on the host path (a fresh engine each),
+             on the card's device path, and on the default gate on that
+             warm engine, which holds the table on the card and so takes
+             the kernels: bytes equal, every exact plant inside the prefix
+             present; (d) two floods, the JAX flood test's shared-W-mer
+             corpus (past 20,000 candidates, -N 2) and a tandem-primer
+             repeat tract (past 400,000 window work, -M 300):
+             ``host_scan_record`` returns None, the default gate scans the
+             record on the kernels (launches read around it) with the bytes
+             of MERPCR_TPU_HOST_MAX=0 and of device="cpu"; pair and row
+             totals per tile against ``expand``'s and ``margin_p2``'s
+             buffers (the repeat tract's rows take margin_p2's second
+             launch); (e) a warm 47 Mbp -N 0 search under MERPCR_TPU_TRACE:
+             one Chrome trace holding kernel events of the four kernels,
+             the untraced bytes, warm s traced and untraced; then the
+             golden CLI cold and traced under (a) and (b), which pays the
+             profiler's first start in its process. Under
+             ``--package-root`` a package without ``ops/host_scan.py``
+             gets a line saying the phase did not run
+
+Phases 1-13 run at MERPCR_TPU_HOST_MAX=0 (set by this script, inherited
+by the processes it starts), so their inputs never take the host path;
+phase 14 sets the gate itself.
 
 The second-to-last JSON line lists every kernel with its launches on the
 main path, error against its plain version, times and bound: the record
@@ -168,6 +201,7 @@ import argparse
 import io
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -197,8 +231,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
 # device operations per call that the redesigned wrappers may issue: one
 # launch, and for expand a second when the pairs pass its buffer (margin_p2
-# takes a second only past its row buffer, which no measured tile reaches:
-# phase 8 checks that case on its own)
+# takes a second only past its row buffer, which no tile timed here
+# reaches: phase 8 checks that case on its own, and phase 14's window
+# flood reaches it in a search)
 DEVICE_OPS_MAX = {"front_end": 1, "front_end_loose": 1, "front_end_raw": 1,
                   "expand": 2, "expand_loose": 2, "expand_raw": 2,
                   "verify_p1": 1, "verify_p1_raw": 1, "margin_p2": 1, "margin_p2_raw": 1}
@@ -1550,6 +1585,390 @@ def phase_sharded(MerPCR, recs, wrappers, sts: str, fa: str, want_n0: str,
     return summary
 
 
+# ---------------------------------------------------------------- host path
+BASES = "ACGT"
+
+
+def gen_shared_wmer_sts(rng, n_sts: int, wordsize: int = 11, n_buckets: int = 1) -> tuple:
+    """``tools/workloads.py``'s ``gen_shared_wmer_sts`` (no extended
+    entries), copied draw for draw: STS whose primer1s all start with one
+    of ``n_buckets`` shared W-mers. Returns (STS text, the shared W-mers)."""
+    shared = ["".join(rng.choices(BASES, k=wordsize)) for _ in range(n_buckets)]
+    lines = []
+    p1s = []
+    for i in range(n_sts):
+        s = shared[i % len(shared)]
+        ln = rng.randrange(18, 26)
+        rng.random()  # the original's draw for an extended entry (none here)
+        p1s.append(s + "".join(rng.choices(BASES, k=ln - len(s))))
+    for i, p1 in enumerate(p1s):
+        p2 = "".join(rng.choices(BASES, k=rng.randrange(18, 26)))
+        size = rng.randrange(max(100, len(p1) + len(p2)), 400)
+        lines.append(f"SHW{i}\t{p1}\t{p2}\t{size}")
+    return "\n".join(lines) + "\n", shared
+
+
+def gen_tandem_tract(rng, n: int, unit: str, tract_frac: float) -> str:
+    """``tools/workloads.py``'s ``gen_tandem_tract``, copied draw for draw:
+    random bases with one tract of ``unit`` in tandem over ~``tract_frac``
+    of them."""
+    g = rng.choices(BASES, k=n)
+    ln = int(n * tract_frac)
+    start = rng.randrange(0, max(1, n - ln))
+    g[start : start + ln] = (unit * (ln // len(unit) + 1))[:ln]
+    return "".join(g)
+
+
+def flood_corpus(tmp: str, flood: str) -> tuple:
+    """(sts, fa, engine parameters) of a corpus past one host-path cap, the
+    same as ``tests/test_torch_kernels.py::flood_corpus``: "candidates",
+    the JAX flood test's corpus (800 STS sharing one W-mer, a 15 kb genome
+    with a 20 % tandem tract of it, -N 2 -M 50: past 20,000 candidates);
+    "window", a 20-base tandem repeat over 16 kb of a 20 kb record and one
+    STS whose primers are both the unit (product 200, -M 300): under 1,000
+    candidates, but the anchors' window work passes 400,000 and their rows
+    pass margin_p2's 8,192-row buffer."""
+    if flood == "candidates":
+        rng = random.Random(99)
+        sts_text, shared = gen_shared_wmer_sts(rng, 800, n_buckets=1)
+        genome = gen_tandem_tract(rng, 15_000, shared[0], tract_frac=0.2)
+        params = {"mismatches": 2, "margin": 50}
+    else:
+        rng = random.Random(7)
+        unit = "".join(rng.choices(BASES, k=20))
+        genome = gen_tandem_tract(rng, 20_000, unit, tract_frac=0.8)
+        sts_text = f"TAND\t{unit}\t{unit}\t200\n"
+        params = {"margin": 300}
+    sts = os.path.join(tmp, f"{flood}.sts")
+    with open(sts, "w") as fh:
+        fh.write(sts_text)
+    fa = write_fasta(os.path.join(tmp, f"{flood}.fa"),
+                     [("wk", np.frombuffer(genome.encode(), dtype=np.uint8))])
+    return sts, fa, params
+
+
+# one cold process: each start-up step on the host clock (argv: package
+# root, STS, FASTA); the device path's steps run at MERPCR_TPU_HOST_MAX=0
+STARTUP = r"""
+import sys, time
+t0 = time.perf_counter()
+import torch
+steps = {"import_torch_s": time.perf_counter() - t0}
+sys.path.insert(0, sys.argv[1])
+import ctypes, io, json, os
+from contextlib import redirect_stdout
+t = time.perf_counter()
+from merpcr_tpu_torch import MerPCR
+from merpcr_tpu_torch.engine import resolve_device
+from merpcr_tpu_torch.ops import kernels
+steps["import_package_s"] = time.perf_counter() - t
+device_path = os.environ.get("MERPCR_TPU_HOST_MAX") == "0"
+
+def step(name, fn, on_card=False):
+    t = time.perf_counter()
+    out = fn()
+    if on_card:  # a step that queues device work ends when the card is done
+        torch.cuda.synchronize()
+    steps[name] = time.perf_counter() - t
+    return out
+
+dev = step("resolve_device_s", lambda: resolve_device(None))
+eng = MerPCR(device=dev)
+step("sts_load_and_table_compile_s", lambda: eng.load_sts_file(sys.argv[2]))
+recs = step("fasta_load_s", lambda: eng.load_fasta_file(sys.argv[3]))
+if device_path:
+    step("cuda_context_s", lambda: torch.zeros(1, device=dev), True)
+    step("table_upload_s", lambda: eng._table, True)
+    step("kernel_library_load_s",
+         lambda: (kernels.build(), [ctypes.CDLL(kernels.lib_path(s)) for s in kernels.SOURCES]))
+buf = io.StringIO()
+
+def search():
+    with redirect_stdout(buf):
+        eng.search(recs)
+
+step("first_search_s", search, device_path)
+steps["total_s"] = time.perf_counter() - t0
+print(json.dumps({"steps": steps, "out": buf.getvalue(), "tables": len(eng._tables),
+                  "scans": len(eng.last_scans)}))
+"""
+
+CROSSOVER_MBP = (0.25, 0.5, 1.0, 2.0)
+
+
+def set_gate(value) -> None:
+    """MERPCR_TPU_HOST_MAX for this process and the ones it starts (None:
+    unset, the engine's default of 2,000,000 bases)."""
+    if value is None:
+        os.environ.pop("MERPCR_TPU_HOST_MAX", None)
+    else:
+        os.environ["MERPCR_TPU_HOST_MAX"] = str(value)
+
+
+def cold_cli(g_sts: str, g_fa: str) -> tuple:
+    """(stdout, host s) of ``python -m merpcr_tpu_torch`` on the golden
+    files in a fresh process, under this process's gate."""
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "merpcr_tpu_torch", g_sts, g_fa],
+                         cwd=PKG, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(cli.returncode == 0, f"golden CLI rc={cli.returncode} err={cli.stderr[-2000:]}")
+    return cli.stdout, seconds
+
+
+def cold_startup(g_sts: str, g_fa: str) -> dict:
+    """The STARTUP script's steps in a fresh process, under this process's
+    gate."""
+    r = subprocess.run([sys.executable, "-c", STARTUP, PKG, g_sts, g_fa], cwd=PKG,
+                       capture_output=True, text=True, timeout=300)
+    check(r.returncode == 0, f"start-up script rc={r.returncode} err={r.stderr[-2000:]}")
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    check(got["out"] == GOLDEN_LINE + "\n", f"start-up script printed {got['out']!r}")
+    return got
+
+
+def traced_kernels(trace_dir: str) -> dict:
+    """{kernel name: events} of the kernel events in the one Chrome trace
+    that ``MERPCR_TPU_TRACE`` left in ``trace_dir``."""
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"trace directory holds {files}")
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        events = json.load(fh)["traceEvents"]
+    found = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "").replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            found[name] = found.get(name, 0) + 1
+    return found
+
+
+def plane_totals(eng, rec) -> tuple:
+    """(tile_len, [(pair_total, anch_total, hit_total) per tile]) of one
+    record's record-path scan on the card, as its search ran it."""
+    from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
+    from merpcr_tpu_torch.ops.scan import record_rmeta, scan_stream
+
+    seq, packed = record_seq_bytes(rec), record_packed(rec)
+    n = len(seq)
+    total = n - eng.wordsize + 1
+    cfg = eng._base_config(eng._pick_tile_len(total), packed=packed is not None)
+    n_tiles = -(-total // cfg.tile_len)
+    plane = eng._plane(seq if packed is None else packed,
+                       cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                       packed=packed is not None)
+    outs = scan_stream(cfg, eng._table, torch.from_numpy(plane).to(eng.device), total, n,
+                       record_rmeta(n, eng.device), None, eng._runtime_params(), n_tiles)
+    return cfg.tile_len, [(o.pair_total, o.anch_total, o.hit_total) for o in outs]
+
+
+def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: int,
+                    card: str, build_s: float, tmp: str) -> dict:
+    """Phase 14: the host fast path and its gate on the card. (a) the
+    golden files on the default gate through the API and the CLI: the
+    golden line, no launch, no device table; (b) the same at
+    MERPCR_TPU_HOST_MAX=0: the golden line, the four kernels launched; (c)
+    start-up in cold processes on the host clock (the golden CLI under (a)
+    and (b), and each step of both paths), then warm s of prefixes of the
+    47 Mbp record on the host path (fresh engines), on the card's device
+    path, and on the default gate on the warm engine (the kernels: its
+    table is on the card), bytes equal, every plant inside the prefix
+    present; (d) a candidate flood
+    and a window-work flood: host_scan_record returns None, the default
+    gate falls back to the kernels with the bytes of the device path and
+    of device="cpu"; the window flood's rows pass margin_p2's row buffer
+    (its second launch), and whether expand passed its pair buffer; (e) a
+    warm 47 Mbp -N 0 search under MERPCR_TPU_TRACE: one trace holding the
+    four kernels, the untraced bytes; the golden CLI cold and traced under
+    (a) and (b). Returns the phase line."""
+    from merpcr_tpu_torch.io.fasta import record_seq_bytes
+    from merpcr_tpu_torch.models import FASTARecord
+    from merpcr_tpu_torch.ops.expand import PAIRS_PER_CAP
+    from merpcr_tpu_torch.ops.host_scan import host_scan_record
+    from merpcr_tpu_torch.ops.margin_p2 import ROW_CAP
+
+    four = WRAPPERS
+    data = os.path.join(ROOT, "tests", "data")
+    g_sts, g_fa = os.path.join(data, "test.sts"), os.path.join(data, "test.fa")
+    line = {"phase": "host_path", "card": card}
+
+    def launched() -> dict:
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    # (a) and (b): the golden files on each side of the gate
+    for name, gate in (("default_gate", None), ("host_max_0", 0)):
+        set_gate(gate)
+        zero()
+        g = MerPCR()
+        check(g.load_sts_file(g_sts), "golden STS load failed")
+        api, _, t_api = search_bytes(g, g.load_fasta_file(g_fa))
+        counts = launched()
+        check(api == GOLDEN_LINE + "\n", f"golden {name}: API output {api!r}")
+        if gate is None:
+            check(not any(counts.values()) and g._tables == {} and g.last_scans == [],
+                  f"golden on the default gate: launches {counts}, "
+                  f"{len(g._tables)} tables, {len(g.last_scans)} planes")
+        else:
+            check(all(counts[k] > 0 for k in four) and len(g._tables) == 1,
+                  f"golden at MERPCR_TPU_HOST_MAX=0: launches {counts}")
+        out, t_cli = cold_cli(g_sts, g_fa)
+        check(out == GOLDEN_LINE + "\n", f"golden CLI {name}: {out!r}")
+        line[name] = {"api_s": t_api, "launches": counts, "device_tables": len(g._tables),
+                      "cli_cold_s": t_cli, "golden": True}
+        del g
+
+    # (c) start-up steps in cold processes, then the crossover
+    startup = {}
+    for name, gate in (("host_path", None), ("device_path", 0)):
+        set_gate(gate)
+        got = cold_startup(g_sts, g_fa)
+        check((got["tables"], got["scans"]) == ((0, 0) if gate is None else (1, 1)),
+              f"start-up {name}: {got['tables']} tables, {got['scans']} planes")
+        startup[name] = got["steps"]
+    startup["kernel_build_s_first_use"] = build_s  # phase 2: nvcc, all four
+    line["startup"] = startup
+    # each prefix on a fresh engine on the host path (an engine whose
+    # table is on the card takes the kernels), on one engine on the device
+    # path, and on that warm engine again on the default gate
+    eng = MerPCR()
+    check(eng.load_sts_file(sts), "STS load failed")
+    crossover = []
+    for mbp in CROSSOVER_MBP:
+        m = int(mbp * 1e6)
+        rec = FASTARecord(defline=f">{recs[0].label} prefix", sequence=recs[0].sequence[:m])
+        inside = [e for e in expect if int(e.split("\t")[1].split("..")[1]) <= m]
+        row = {"mbp": mbp, "bases": m}
+        outs = {}
+        for path, gate in (("host", None), ("device", 0), ("warm_engine_default_gate", None)):
+            set_gate(gate)
+            zero()
+            e = eng
+            if path == "host":
+                e = MerPCR()
+                check(e.load_sts_file(sts), "STS load failed")
+            outs[path], _, row[f"{path}_cold_s"] = search_bytes(e, [rec])
+            outs[path + "_warm"], _, row[f"{path}_warm_s"] = search_bytes(e, [rec])
+            row[f"{path}_launches"] = sum(launched()[k] for k in four)
+            check(outs[path] == outs[path + "_warm"], f"{mbp} Mbp {path}: warm differs")
+            check((len(e.last_scans) > 0) == (path != "host") and
+                  (len(e._tables) == 0) == (path == "host"),
+                  f"{mbp} Mbp {path}: {len(e.last_scans)} planes, {len(e._tables)} tables")
+            del e
+        check(outs["host"] == outs["device"] == outs["warm_engine_default_gate"],
+              f"{mbp} Mbp: host and device bytes differ")
+        lines = set(outs["host"].splitlines())
+        missing = [e for e in inside if e not in lines]
+        check(not missing, f"{mbp} Mbp: {len(missing)} planted lines missing")
+        row.update(planted_inside=len(inside), hits=len(lines), equal=True,
+                   host_warm_mbp_per_s=mbp / row["host_warm_s"],
+                   device_warm_mbp_per_s=mbp / row["device_warm_s"])
+        crossover.append(row)
+    line["crossover"] = crossover
+    # the device path's one-time cost in a cold process against the host
+    # path's warm rate: the input size at which a one-shot run breaks even
+    dev, host = startup["device_path"], startup["host_path"]
+    once = (dev["cuda_context_s"] + dev["table_upload_s"] + dev["kernel_library_load_s"]
+            + dev["first_search_s"] - host["first_search_s"])
+    last = crossover[-1]
+    h_rate, d_rate = last["host_warm_s"] / last["mbp"], last["device_warm_s"] / last["mbp"]
+    line["crossover_estimate"] = {
+        "device_once_s": once, "host_warm_s_per_mbp": h_rate,
+        "device_warm_s_per_mbp": d_rate,
+        "warm_device_faster_at_every_prefix": all(
+            r["device_warm_s"] < r["host_warm_s"] for r in crossover),
+        "cold_crossover_mbp": once / (h_rate - d_rate) if h_rate > d_rate else None}
+    del eng
+
+    # (d) floods: past each cap, the record falls back to the kernels
+    floods = {}
+    for flood in ("candidates", "window"):
+        f_sts, f_fa, params = flood_corpus(tmp, flood)
+        set_gate(None)
+        eng = MerPCR(**params)
+        check(eng.load_sts_file(f_sts), f"{flood} flood STS load failed")
+        f_recs = eng.load_fasta_file(f_fa)
+        t0 = time.perf_counter()
+        rows = host_scan_record(eng._table_host, eng._meta, record_seq_bytes(f_recs[0]),
+                                eng.margin, eng.mismatches, eng.three_prime_match)
+        t_host = time.perf_counter() - t0
+        check(rows is None, f"{flood} flood: host_scan_record returned rows")
+        zero()
+        out, hits, t_search = search_bytes(eng, f_recs)
+        counts = launched()
+        (scan,) = eng.last_scans
+        used = path_wrappers(scan.cfg)
+        check(counts[used[0]] == counts[used[1]] == scan.tiles and
+              all(v == 0 for k, v in counts.items() if k not in used),
+              f"{flood} flood: launches {counts} for {scan.tiles} tiles")
+        set_gate(0)
+        dev_out, _, _ = search_bytes(eng, f_recs)
+        cpu = MerPCR(device="cpu", **params)
+        check(cpu.load_sts_file(f_sts), "STS load failed (cpu)")
+        cpu_out, _, _ = search_bytes(cpu, f_recs)
+        check(out == dev_out == cpu_out, f"{flood} flood: bytes differ")
+        tile_len, totals = plane_totals(eng, f_recs[0])
+        pair_cap = max(1024, tile_len // PAIRS_PER_CAP)
+        floods[flood] = {
+            "params": params, "bases": len(f_recs[0].sequence), "hits": hits,
+            "host_scan_s_to_none": t_host, "search_s": t_search, "tiles": scan.tiles,
+            "launches": counts, "strict": scan.cfg.strict,
+            "pairs_per_tile": [t[0] for t in totals], "pair_buffer": pair_cap,
+            "expand_past_pair_buffer": any(t[0] > pair_cap for t in totals),
+            "rows_per_tile": [t[2] for t in totals], "row_buffer": ROW_CAP,
+            "margin_p2_past_row_buffer": counts["margin_p2"] > counts["verify_p1"],
+            "equal_to_host_max_0_and_cpu": True}
+        del eng, cpu
+    w = floods["window"]
+    check(max(w["rows_per_tile"]) > ROW_CAP and w["launches"]["margin_p2"] == 2 * w["tiles"],
+          f"window flood: rows {w['rows_per_tile']}, margin_p2 launches "
+          f"{w['launches']['margin_p2']}")
+    line["floods"] = floods
+
+    # (e) the trace of a warm 47 Mbp -N 0 search
+    set_gate(0)  # above the default cutoff anyway: the device path
+    eng = MerPCR()
+    check(eng.load_sts_file(sts), "STS load failed")
+    search_bytes(eng, recs)
+    plain, _, t_plain = search_bytes(eng, recs)
+    trace_dir = os.path.join(tmp, "trace")
+    os.environ["MERPCR_TPU_TRACE"] = trace_dir
+    try:
+        traced, _, t_traced = search_bytes(eng, recs)
+    finally:
+        del os.environ["MERPCR_TPU_TRACE"]
+    check(traced == plain == want_n0, "the traced search's bytes differ")
+    found = traced_kernels(trace_dir)
+    names = [f"{k}_kernel" for k in four]
+    check(all(found.get(k, 0) > 0 for k in names), f"trace kernels {found}")
+    line["trace"] = {"warm_s_untraced": t_plain, "warm_s_traced": t_traced,
+                     "kernel_events": found, "trace_bytes": sum(
+                         os.path.getsize(os.path.join(trace_dir, f))
+                         for f in os.listdir(trace_dir))}
+    del eng
+    # a one-shot traced run pays the profiler's first start in its process:
+    # the golden CLI cold and traced on each side of the gate, against (a)
+    # and (b) untraced
+    for name, gate in (("default_gate", None), ("host_max_0", 0)):
+        set_gate(gate)
+        trace_dir = os.path.join(tmp, f"trace_cli_{name}")
+        os.environ["MERPCR_TPU_TRACE"] = trace_dir
+        try:
+            out, t_cli = cold_cli(g_sts, g_fa)
+        finally:
+            del os.environ["MERPCR_TPU_TRACE"]
+        check(out == GOLDEN_LINE + "\n", f"traced golden CLI {name}: {out!r}")
+        check(len(os.listdir(trace_dir)) == 1, f"traced golden CLI {name}: no trace")
+        line["trace"][f"cli_cold_s_traced_{name}"] = t_cli
+        line["trace"][f"cli_cold_s_untraced_{name}"] = line[name]["cli_cold_s"]
+    set_gate(0)
+    emit(line)
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1567,6 +1986,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # phases 1-13 drive the kernels: no input of theirs takes the host path
+    # (the golden files of phase 10 would); phase 14 sets the gate itself
+    set_gate(0)
     from merpcr_tpu_torch import MerPCR
     from merpcr_tpu_torch.ops import kernels
     from merpcr_tpu_torch.ops.expand import expand, expand_loose, expand_raw
@@ -1590,9 +2012,10 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     logs = kernels.build()
+    build_s = time.perf_counter() - t0
     ptxas = {k: [ln.split("ptxas info    : ")[-1] for ln in v.splitlines()
                  if "registers" in ln] for k, v in logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    emit({"phase": "build", "seconds": build_s,
           "compiled": sorted(logs), "ptxas": ptxas})
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1613,6 +2036,7 @@ def main() -> int:
         recs = eng.load_fasta_file(fa)
         t_fasta = time.perf_counter() - t0
         check(len(recs) == 1 and len(recs[0].sequence) == n, "FASTA load")
+        plants = list(expect)  # the record's exact plants (phase 11 reuses the name)
 
         # 4. kernels
         res = phase_kernels(eng, record_tile(eng, recs), card, "kernels", "")
@@ -1761,6 +2185,14 @@ def main() -> int:
         # 13. the sharded search (K15): meshes on the card, two processes
         phase_sharded(MerPCR, recs, wrappers, sts, fa, warm, a_sts, a_dirty, c_out, n,
                       a_bp, card)
+
+        # 14. the host fast path, its gate and floods, and the trace hook
+        if PKG == ROOT or os.path.exists(
+                os.path.join(PKG, "merpcr_tpu_torch", "ops", "host_scan.py")):
+            phase_host_path(MerPCR, wrappers, sts, recs, plants, warm, n, card, build_s, tmp)
+        else:
+            emit({"phase": "host_path", "ran": False,
+                  "reason": f"--package-root {PKG} has no merpcr_tpu_torch/ops/host_scan.py"})
 
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),

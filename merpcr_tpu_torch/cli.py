@@ -6,7 +6,12 @@ same bounds validators (cli.py:79-124), same legacy me-PCR ``X=value``
 argument conversion (cli.py:19-62), same exit codes (0 success / 1
 failure, cli.py:256-266), diagnostics to stderr and results to stdout
 (cli.py:65-76). The search runs on the CUDA card; without
-one, ``main`` raises before it parses the files.
+one, ``main`` raises before it parses the files. An input whose records
+together hold at most ``MERPCR_TPU_HOST_MAX`` bases (default 2,000,000;
+never with ``--multihost``) takes the host path: each record is scanned
+in NumPy, with no table upload and no kernel, unless it floods the host
+path's caps, and then that record runs on the card's kernels. The output
+bytes are the same on either path.
 """
 
 from __future__ import annotations

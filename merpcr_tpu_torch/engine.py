@@ -34,6 +34,17 @@ consecutive packable records is laid end to end in one plane, separated by
 launch once per tile, not once per record. A lone record takes the record
 path (one record per plane).
 
+Small inputs skip the card: when all records together hold at most
+``MERPCR_TPU_HOST_MAX`` bases (default 2,000,000), no mesh or second
+process is set and the table is not yet on the engine's device, every
+record is scanned in NumPy (``ops.host_scan``, the JAX package's host fast
+path, ``merpcr_tpu/engine.py:1436-1509``), with no table upload and no
+kernel; a record whose candidates or window work pass that path's caps is
+scanned on the record path instead. Once a search has put the table on the
+device, small inputs run on the kernels too: the host path saves the
+upload and the first launches, and a warm card scans faster than NumPy.
+The bytes are the same either way.
+
 Several devices (``use_mesh``) and several processes (``enable_multihost``)
 take the sharded scan of ``parallel`` (K15, the JAX package's
 ``shard_map`` path): each plane's scan positions are cut into one span of
@@ -44,6 +55,7 @@ are the single-device bytes for any shard count.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import math
 import os
@@ -58,6 +70,7 @@ from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
+from .ops.host_scan import host_scan_record
 from .ops.scan import ScanConfig, default_config, scan_stream
 from .ops.table import build_strict1, compile_table, table_from_numpy
 from .parallel import distributed
@@ -89,6 +102,8 @@ TILE_LEN_BUCKETS = (1 << 15, 1 << 17, 1 << 19, 1 << 21, 1 << 23)
 STREAM_MAX_TILE = 1 << 21
 
 logger = logging.getLogger(__name__)
+# per-process number of a search's trace file (MERPCR_TPU_TRACE)
+_TRACE_SEQ = itertools.count()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -572,11 +587,36 @@ class MerPCR:
         bounds = np.searchsorted(rows[:, 6], np.arange(len(items) + 1))
         return [rows[bounds[i] : bounds[i + 1], :6] for i in range(len(items))]
 
+    def _search_record(self, rec: FASTARecord, host: bool) -> np.ndarray:
+        """(n_hits, 6) rows of one record: on the host (``ops.host_scan``)
+        when ``host`` is set and the record stays within its caps, else on
+        the record path's kernels (``merpcr_tpu/engine.py:1493-1509``). A
+        host-path record touches no device table, no front-end choice and
+        no dirty-rate sample, and adds nothing to ``last_scans``."""
+        seq = record_seq_bytes(rec)
+        if host:
+            rows = host_scan_record(self._table_host, self._meta, seq, self.margin,
+                                    self.mismatches, self.three_prime_match)
+            if rows is not None:
+                return rows
+        packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
+        return self._scan_record(seq, packed)
+
     def search(
         self, fasta_records: List[FASTARecord], output_file: Optional[str] = None
     ) -> int:
         """Search all records; emit 5-field tab-delimited hits
-        (reference engine.py:365-451; line format engine.py:442)."""
+        (reference engine.py:365-451; line format engine.py:442).
+
+        Small inputs take the host path (``merpcr_tpu/engine.py:1436-1449``):
+        when all records together hold at most ``MERPCR_TPU_HOST_MAX`` bases
+        (read at every search; default 2,000,000), without a mesh or
+        several processes, and while the table is not on the engine's
+        device, each record is scanned in NumPy on its own, and a record
+        past the host path's caps falls back to the kernels.
+        ``MERPCR_TPU_TRACE`` naming a directory wraps the search in
+        ``torch.profiler`` and writes a Chrome trace there
+        (``merpcr_tpu/engine.py:1411-1419``)."""
         total_hits = 0
         # Several processes: every rank runs every plan item (all must join
         # each gather, in the same order) but only rank 0 writes; the others
@@ -590,25 +630,43 @@ class MerPCR:
             output = open(output_file, "w")
         else:
             output = sys.stdout
+        trace_dir = os.environ.get("MERPCR_TPU_TRACE")
+        prof = None
+        if trace_dir:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
         search_t0 = time.time()
         total_bp = 0
         have_table = self._meta is not None and self._meta.n_entries > 0
         self.last_scans = []
         empty = np.zeros((0, 6), dtype=np.int64)
-        if have_table:
-            plan = self._plan(fasta_records)
-        else:
-            plan = [("single", i) for i in range(len(fasta_records))]
+        log_debug = logger.isEnabledFor(logging.DEBUG)
         try:
+            host_max = int(os.environ.get("MERPCR_TPU_HOST_MAX", "2000000"))
+            # an engine whose table is on its device already scans a small
+            # input faster on the kernels than in NumPy
+            use_host = (have_table and self.mesh is None and not self._multihost
+                        and self.device not in self._tables
+                        and sum(len(r.sequence) for r in fasta_records) <= host_max)
+            if use_host:  # every record an item of its own, never a stream run
+                plan = [("host", i) for i in range(len(fasta_records))]
+            elif have_table:
+                plan = self._plan(fasta_records)
+            else:
+                plan = [("single", i) for i in range(len(fasta_records))]
             for item in plan:
+                t0 = time.time()
                 if item[0] == "stream":
                     idxs, arrs = item[1], self._scan_stream(item[2])
                 else:
-                    rec = fasta_records[item[1]]
                     arr = empty
                     if have_table:
-                        packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
-                        arr = self._scan_record(record_seq_bytes(rec), packed)
+                        arr = self._search_record(fasta_records[item[1]], item[0] == "host")
                     idxs, arrs = [item[1]], [arr]
                 for j, arr in zip(idxs, arrs):
                     record = fasta_records[j]
@@ -618,7 +676,8 @@ class MerPCR:
                     if len(arr):
                         # Reproduce T=1 ordering: stable sort by pos1 over
                         # hits emitted scan-order (tile, pair, rank) --
-                        # engine.py:434.
+                        # engine.py:434. Host rows carry tile 0 and a
+                        # record-wide pair order, which sort the same way.
                         key = np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))
                         arr = arr[key]
                         e2r = self._meta.entry_to_record
@@ -630,9 +689,17 @@ class MerPCR:
                             )
                         total_hits += len(arr)
                     total_bp += seq_len
+                    if log_debug:
+                        logger.debug("searched %s (%d bp) in %.3fs",
+                                     seq_label, seq_len, time.time() - t0)
         finally:
             if output is not sys.stdout:
                 output.close()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                os.makedirs(trace_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    trace_dir, f"merpcr_{os.getpid()}_{next(_TRACE_SEQ)}.pt.trace.json"))
 
         elapsed = time.time() - search_t0
         if elapsed > 0 and total_bp:

@@ -16,6 +16,7 @@ and plain version must agree exactly (tolerance 0).
 from __future__ import annotations
 
 import io
+import json
 import os
 import subprocess
 import sys
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import flood_corpus  # imports neither jax nor merpcr_tpu
 from merpcr_tpu_torch import MerPCR
 from merpcr_tpu_torch.ops import kernels
 from merpcr_tpu_torch.models import FASTARecord
@@ -65,6 +67,15 @@ GOLDEN_FA = os.path.join(ROOT, "tests", "data", "test.fa")
 GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 COMP = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+@pytest.fixture(autouse=True)
+def _device_path(monkeypatch):
+    """Keep small corpora on the kernels: on its default gate the engine
+    scans an input of at most 2,000,000 bases on the host, so a card search
+    here would launch nothing. ``tests/conftest.py`` sets the same, but the
+    card runs skip it (``--noconftest``); the host-path tests lift it."""
+    monkeypatch.setenv("MERPCR_TPU_HOST_MAX", "0")
 
 
 @pytest.fixture
@@ -230,7 +241,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('engine', 'ops.scan', 'ops.units', 'ops.expand', 'ops.verify_p1',\n"
-        "          'ops.margin_p2', 'ops.table'):\n"
+        "          'ops.margin_p2', 'ops.table', 'ops.host_scan'):\n"
         "    assert 'merpcr_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'merpcr_tpu')]\n"
         "print(len([m for m in sys.modules if m.startswith('merpcr_tpu_torch')]), bad)\n"
@@ -239,7 +250,7 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[0]) >= 15  # every module was imported
+    assert int(r.stdout.split()[0]) >= 16  # every module was imported
 
 
 # ---------------------------------------------------------------- on the card
@@ -1106,3 +1117,73 @@ def test_front_end_raw_edges_equal_plain(cuda, tmp_path, wordsize):
                 assert front_mod.flag_count(cnt) == int(cp)
     assert flagged > 0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------ host path on the card
+@pytest.mark.gpu
+def test_card_host_path_launches_nothing(cuda, monkeypatch):
+    """The golden files on the default gate: the host path, with no launch
+    and no table on the card."""
+    monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
+    counts = [f.launches for f in WRAPPERS]
+    eng = MerPCR(device=cuda)
+    assert _search(eng, GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
+    assert [f.launches for f in WRAPPERS] == counts
+    assert eng._tables == {} and eng.last_scans == []
+
+
+@pytest.mark.gpu
+def test_card_warm_engine_keeps_small_searches_on_the_kernels(cuda, monkeypatch):
+    """Once a search has put the table on the card, a small search on the
+    same engine and the default gate launches the kernels."""
+    eng = MerPCR(device=cuda)
+    recs = eng.load_fasta_file(GOLDEN_FA)
+    assert _search_records(eng, GOLDEN_STS, recs) == GOLDEN_LINE + "\n"  # at 0: uploads
+    monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
+    counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        eng.search(recs)
+    assert buf.getvalue() == GOLDEN_LINE + "\n"
+    after = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+    assert all(b > a for a, b in zip(counts, after)), (counts, after)
+    assert len(eng.last_scans) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flood", ["candidates", "window"])
+def test_card_flood_falls_back_to_the_kernels(cuda, monkeypatch, tmp_path, flood):
+    """A corpus past a host-path cap runs on the kernels on the default
+    gate, with the CPU's bytes; the window flood's rows take margin_p2's
+    second launch."""
+    sts, fa, params = flood_corpus(tmp_path, flood)
+    monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
+    counts = {f: f.launches for f in WRAPPERS}
+    eng = MerPCR(device=cuda, **params)
+    on_card = _search(eng, sts, fa)
+    launched = {f.__name__: f.launches - c0 for f, c0 in counts.items()}
+    (scan,) = eng.last_scans
+    assert on_card == _search(MerPCR(device="cpu", **params), sts, fa)
+    front, exp = ("front_end", "expand") if scan.cfg.strict else ("front_end_loose", "expand_loose")
+    assert launched[front] == launched[exp] == scan.tiles, launched
+    if flood == "window":
+        assert launched["verify_p1"] == scan.tiles and launched["margin_p2"] == 2 * scan.tiles
+        assert on_card.count("\n") > 8192
+
+
+@pytest.mark.gpu
+def test_card_trace_holds_the_kernels(cuda, monkeypatch, tmp_path):
+    """MERPCR_TPU_TRACE on a card search: one Chrome trace with a kernel
+    event of each of the -N 0 path's four kernels, and the same bytes."""
+    sts, fa = _corpus(tmp_path)
+    eng = MerPCR(device=cuda)
+    want = _search(eng, sts, fa)
+    trace_dir = tmp_path / "trace"
+    monkeypatch.setenv("MERPCR_TPU_TRACE", str(trace_dir))
+    assert _search(eng, sts, fa) == want and want.count("\n") > 0
+    (name,) = os.listdir(trace_dir)
+    with open(trace_dir / name) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    for k in ("front_end_kernel", "expand_kernel", "verify_p1_kernel", "margin_p2_kernel"):
+        assert any(k in n for n in names), (k, sorted(set(names))[:20])
