@@ -9,7 +9,10 @@ Run from the repository root on a machine with one CUDA card:
 (for example a parent commit unpacked with ``git archive``) through the
 same phases and measurements, for an A/B on one card: run parent, this
 tree, this tree, parent in one command. The device-operation gate below
-holds only for this checkout's package.
+holds only for this checkout's package. ``--only warm_path`` runs phases
+1-3 and phase 15 alone, without its device="cpu" comparisons, floods and
+mixed plan: the A/B of the warm-search path, which a checkout before it
+runs as well.
 
 Phases (each prints one JSON line; any failure exits non-zero, and the
 closing device line is printed only when every phase passed):
@@ -158,12 +161,38 @@ closing device line is printed only when every phase passed):
              ``--package-root`` a package without ``ops/host_scan.py``
              gets a line saying the phase did not run
 
-Phases 1-13 run at MERPCR_TPU_HOST_MAX=0 (set by this script, inherited
-by the processes it starts), so their inputs never take the host path;
-phase 14 sets the gate itself.
+15. warm_path the warm-search path: (a) the 47 Mbp record and assembly (c)
+             on one engine each: the first search, three warm searches,
+             then -N 2, -N 1, -N 0 and -M 1000, each with its host seconds,
+             host reads (every ``ScanState.read`` and ``wait``, counted
+             here), planes, tiles, tiles rerun and launches, bytes equal to
+             device="cpu"; device busy and idle share of a warm search;
+             the first search's host steps (dirty rate, plane, upload; a
+             warm search takes them from the engine's cache); (b) the
+             record at -N 2 and assemblies (a), (b), (d), (e) on fresh
+             engines, first search and warm; (c) phase 14's two floods and
+             their RNA renderings on the deferred scan: the tiles rerun
+             count first are exactly those whose pair_total passes
+             ``expand``'s pair buffer or whose hit_total passes
+             ``margin_p2``'s row buffer, bytes equal to device="cpu"; (d) a
+             mixed plan (a stream run, an empty record, a 2 Mbp lone
+             record, an RNA scaffold, another run) under the depth-1
+             prefetch: FASTA order, bytes equal to device="cpu"
+
+Phases 1-13 and 15 run at MERPCR_TPU_HOST_MAX=0 (set by this script,
+inherited by the processes it starts), so their inputs never take the host
+path; phase 14 sets the gate itself. A search launches the stage
+wrappers in their deferred mode (given ``totals``; rows ``*_deferred``,
+counted in the wrapper's ``launches_deferred``) once per tile, and in
+their count-first mode only to rerun a tile past a buffer.
 
 The second-to-last JSON line lists every kernel with its launches on the
-main path, error against its plain version, times and bound: the record
+main path, error against its plain version, times and bound, each
+kernel's count-first mode and its deferred one (``*_deferred``: counts
+from device memory, fixed buffers, against the plain versions under the
+same buffer contract); the count-first rows carry the launches of phase 15's
+floods, where a search reruns tiles count first, and the run fails if any
+row was launched no time: the record
 path's four kernels (phase 4 times, launches of the warm 47 Mbp search),
 their stream variants (phase 12 times, launches of the warm variant (c)
 search), the -N 1 (strict1) and -N 2 (loose) paths' kernels (phase 6
@@ -182,7 +211,7 @@ words of the items that pass it, where that is less than every item's
 table word. ``device_ops``
 is the device operations (kernels, copies, fills) of one call from the same
 traces; the run fails if an expand wrapper issues more than 2, or a front
-end, a verify_p1 or a margin_p2 wrapper more than 1. The rows of the loose
+end, a verify_p1, a margin_p2 or a deferred wrapper more than 1. The rows of the loose
 and raw front ends also carry ``prefilter`` (of the tile's looked-up
 items, clean and in scan, the share whose prefilter bit is set, which
 gather from the full table, and the prefilter's density) and
@@ -198,6 +227,7 @@ the last is nvidia-smi's name and power limit; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import io
 import json
 import os
@@ -220,12 +250,21 @@ ASM_RECORDS = 3000
 AMBIGUITY = np.frombuffer(b"NRYKMSWBDHV", dtype=np.uint8)
 RESOLVE = {ord("R"): b"AG", ord("Y"): b"CT", ord("N"): b"ACGT"}
 COMP = bytes.maketrans(b"ACGTRYN", b"TGCAYRN")
-WRAPPERS = ("front_end", "expand", "verify_p1", "margin_p2")
-RAW_WRAPPERS = ("front_end_raw", "expand_raw", "verify_p1_raw", "margin_p2_raw")
+# the wrappers of a -N 0 search: the front end and the deferred modes of
+# the tile scan's stages (``Deferred``), one launch each per tile
+WRAPPERS = ("front_end", "expand_deferred", "verify_p1_deferred", "margin_p2_deferred")
+RAW_WRAPPERS = ("front_end_raw", "expand_raw_deferred", "verify_p1_raw_deferred",
+                "margin_p2_raw_deferred")
+# the count-first wrappers: a search launches them only to rerun a tile
+# that passed a buffer of the deferred scan
+COUNT_FIRST = ("expand", "expand_loose", "expand_raw", "verify_p1", "verify_p1_raw",
+               "margin_p2", "margin_p2_raw")
+DEFERRED = tuple(f"{k}_deferred" for k in COUNT_FIRST)
+KERNEL_NAMES = ("front_end_kernel", "expand_kernel", "verify_p1_kernel", "margin_p2_kernel")
 # wrapper -> its kernel source in merpcr_tpu_torch/csrc/
 SOURCE_OF = {"front_end_loose": "front_end", "front_end_raw": "front_end",
-             "expand_loose": "expand", "expand_raw": "expand",
-             "verify_p1_raw": "verify_p1", "margin_p2_raw": "margin_p2"}
+             **{k: next(s for s in ("expand", "verify_p1", "margin_p2") if k.startswith(s))
+                for k in COUNT_FIRST + DEFERRED}}
 GOLDEN_LINE = "L78833\t75823..76023\tAFM248yg9\t(D17S932)  Chr.17, 63.7 cM\t(-)"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
@@ -236,7 +275,69 @@ PKG = ROOT  # the checkout whose merpcr_tpu_torch runs (--package-root)
 # flood reaches it in a search)
 DEVICE_OPS_MAX = {"front_end": 1, "front_end_loose": 1, "front_end_raw": 1,
                   "expand": 2, "expand_loose": 2, "expand_raw": 2,
-                  "verify_p1": 1, "verify_p1_raw": 1, "margin_p2": 1, "margin_p2_raw": 1}
+                  "verify_p1": 1, "verify_p1_raw": 1, "margin_p2": 1, "margin_p2_raw": 1,
+                  **{k: 1 for k in DEFERRED}}
+
+
+class Deferred:
+    """The deferred-mode launch count of a stage wrapper (its
+    ``launches_deferred``), read and reset as ``launches`` under the name
+    ``<wrapper>_deferred``, beside the wrapper's count-first ``launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = f"{fn.__name__}_deferred"
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches_deferred
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches_deferred = n
+
+
+READS = [0]  # the host's waits on the card so far (count_reads)
+# host seconds of the waits on the card and of the garbage collections
+# (all, and those of the oldest generation), and their number (count_reads)
+CLOCK = {"wait_s": 0.0, "gc_s": 0.0, "gc_runs": 0, "gc2_s": 0.0}
+
+
+def count_reads(kernels) -> None:
+    """Count every host wait on the card in READS: ``ScanState.read`` (a
+    count-first wrapper's totals) and ``ScanState.wait`` (the deferred
+    scan's one read per plane), patched on the class, so that another
+    checkout's package (``--package-root``) is counted the same way. The
+    host seconds of those waits go into CLOCK["wait_s"], and those of
+    Python's garbage collections into CLOCK["gc_s"]."""
+    cls = kernels.ScanState
+    for name in ("read", "wait"):
+        real = getattr(cls, name, None)
+        if real is None:
+            continue
+
+        def counted(self, *args, _real=real):
+            READS[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _real(self, *args)
+            finally:
+                CLOCK["wait_s"] += time.perf_counter() - t0
+
+        setattr(cls, name, counted)
+    gc_t0 = [0.0]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            dt = time.perf_counter() - gc_t0[0]
+            CLOCK["gc_s"] += dt
+            CLOCK["gc_runs"] += 1
+            if info.get("generation") == 2:
+                CLOCK["gc2_s"] += dt
+
+    gc.callbacks.append(gc_clock)
 
 
 def check(cond, msg: str) -> None:
@@ -727,12 +828,12 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     # unit); a raw position as above (14)
     fe_ops = (14 * n_items if raw else 70 * n_items if cfg.strict
               else 16 * n_items + 16 * n_units)
-    words, c_total = run(
+    words, c_t = run(
         fe_name, fe, fe_plain, fe_args, 50,
         (L + W - 1 if raw else 4 * (n_units + 2)) + table_bytes(distinct_words, pre_stats)
         + n_items // 8 + 4, fe_ops, fe_line, lambda o: o, fe_kw,
     )
-    c_total = int(c_total.item())
+    c_total = int(c_t.item())
     if fe_kw:  # the same kernel with folds of 2^18 and 2^20 bits, in turns
         # with the table's own (staging against passes)
         from merpcr_tpu_torch.ops.table import fold_bits, prefilter_shift
@@ -828,6 +929,16 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
         "merpcr_tpu/ops/scan.py:1201" if margin > 128 else "merpcr_tpu/ops/scan.py:1047",
         lambda o: (o,),
     )
+    if hasattr(margin_p2, "launches_deferred"):  # (an A/B parent has no deferred mode)
+        # the same three stages in the deferred mode of the tile scan
+        # (counts from device memory, buffers of fixed capacity), against
+        # their plain versions under the same contract
+        fe(*fe_args, **fe_kw)  # leaves the tile's count in the scan state again
+        deferred_rows(res, variant, tile, (ex_name, ex_plain, ex_args, c_t, L),
+                      (vf_plain, v_args), (mf_plain, m_args), raw,
+                      {k: (res[k]["bound_ms"], res[k]["bound_by"], res[k]["replaces"])
+                       for k in (ex_name, "verify_p1_raw" if raw else "verify_p1",
+                                 "margin_p2_raw" if raw else "margin_p2")})
     past_buffer = None
     if buffer_check and hasattr(margin_mod, "ROW_CAP"):  # (an A/B parent may lack it)
         row_cap = margin_mod.ROW_CAP
@@ -881,15 +992,85 @@ def phase_kernels(eng, laid, card: str, phase: str, variant: str,
     return res
 
 
+def deferred_rows(res: dict, variant: str, tile, ex, ver, mar, raw: bool, bounds: dict) -> None:
+    """Rows of the deferred modes of a tile's expand, verify_p1 and
+    margin_p2 (``ops.scan.dispatch_stream``'s stages) into ``res``: each
+    against its plain version under the same buffer contract on the same
+    card tensors (the five totals, the pairs, anchors and rows within the
+    buffers; tolerance 0), CUDA-event and profiler times. The bounds are
+    the count-first rows' (the same work)."""
+    from merpcr_tpu_torch.ops import expand as ex_mod
+    from merpcr_tpu_torch.ops import margin_p2 as m_mod
+    from merpcr_tpu_torch.ops import verify_p1 as v_mod
+
+    ex_name, ex_plain, ex_args, c_t, L = ex
+    vf_plain, v_args = ver
+    mf_plain, m_args = mar
+    dev = tile.device
+    cap = m_mod.ROW_CAP
+    v_name = "verify_p1_raw" if raw else "verify_p1"
+    m_name = "margin_p2_raw" if raw else "margin_p2"
+    dex, dv, dm = getattr(ex_mod, ex_name), getattr(v_mod, v_name), getattr(m_mod, m_name)
+    state = {w: {"tot": torch.zeros(5, dtype=torch.int32, device=dev),
+                 "rows": torch.zeros((cap, 6), dtype=torch.int32, device=dev)}
+             for w in ("kernel", "plain")}
+    k, p = state["kernel"], state["plain"]
+    k["e"], k["p"] = dex(*ex_args, totals=k["tot"], c_total=c_t)
+    p["e"], p["p"] = ex_mod.deferred_plain(ex_plain(*ex_args), c_t, p["tot"], L)
+    tv = v_args[3:]  # emeta, primers, ..., after (tile, entry, ppos)
+    tm = m_args[4:]  # emeta, primers, ..., after (tile, a_idx, entry, ppos)
+    calls = {
+        ex_name: (lambda: dex(*ex_args, totals=k["tot"], c_total=c_t),
+                  lambda: ex_mod.deferred_plain(ex_plain(*ex_args), c_t, p["tot"], L)),
+        v_name: (lambda: dv(tile, k["e"], k["p"], *tv, totals=k["tot"]),
+                 lambda: v_mod.deferred_plain(vf_plain, tile, p["e"], p["p"], p["tot"], *tv)),
+        m_name: (lambda: dm(tile, k["a"], k["e"], k["p"], *tm, totals=k["tot"],
+                            rows=k["rows"]),
+                 lambda: m_mod.deferred_plain(mf_plain, tile, p["a"], p["tot"], p["rows"],
+                                              p["e"], p["p"], *tm)),
+    }
+    k["a"], p["a"] = calls[v_name][0](), calls[v_name][1]()
+    calls[m_name][0]()
+    calls[m_name][1]()
+    tot = p["tot"].tolist()
+    pairs, rows = min(tot[2], k["e"].numel()), min(tot[4], cap)
+    err = max_abs_err([k["tot"], k["e"][:pairs], k["p"][:pairs], k["a"][: tot[3]],
+                       k["rows"][:rows]],
+                      [p["tot"], p["e"][:pairs], p["p"][:pairs], p["a"][: tot[3]],
+                       p["rows"][:rows]])
+    if err:
+        raise RuntimeError(f"deferred stages [{variant}]: kernels differ from plain by {err}")
+    for name, (call, plain) in calls.items():
+        reps = 20
+        ms = cuda_ms(call, reps)
+        device_ms, lost, ops, split = profiled_ms(call, reps)
+        b_ms, b_by, line = bounds[name]
+        row = {
+            "name": f"{name}_deferred" if not variant else f"{name}_deferred[{variant}]",
+            "route": "cuda", "source": f"merpcr_tpu_torch/csrc/{SOURCE_OF[name]}.cu",
+            "replaces": line, "equal": True, "max_abs_err": 0, "ms": ms, "kernel_ms": ms,
+            "host_ms": host_ms(call, reps), "device_ms": device_ms,
+            "device_events_lost": lost, "device_ops": ops, "device_split": split,
+            "plain_ms": cuda_ms(plain, 4), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "prefilter": None, "totals": tot,
+            "capacity": k["e"].numel() if name != m_name else cap,
+        }
+        check(PKG != ROOT or ops <= DEVICE_OPS_MAX[f"{name}_deferred"],
+              f"{name}_deferred[{variant}]: {ops} device operations per call")
+        res[f"{name}_deferred"] = row
+
+
 def breakdown(eng, recs) -> dict:
-    """Host-clock time of each step of one record's search, and device
-    time by kernel name from torch.profiler over the tile scan."""
+    """Host-clock time of each step of one record's first search (the
+    steps a warm search takes from the engine's cache: dirty rate, plane,
+    upload), the deferred tile scan of its plane with its host reads, and
+    device time by kernel name from torch.profiler over that scan."""
     from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
-    from merpcr_tpu_torch.ops.scan import record_rmeta, scan_stream
+    from merpcr_tpu_torch.ops.scan import collect_stream, dispatch_stream, record_rmeta
 
     rec = recs[0]
     t0 = time.perf_counter()
-    seq = record_seq_bytes(rec)  # a string of the API encoded at each search
+    seq = record_seq_bytes(rec)
     t_bytes = time.perf_counter() - t0
     packed = record_packed(rec)
     n = len(seq)
@@ -914,15 +1095,17 @@ def breakdown(eng, recs) -> dict:
     rmeta = record_rmeta(n, eng.device)
     torch.cuda.synchronize()
     out["upload_s"] = time.perf_counter() - t0
+    reads = READS[0]
 
     def scan():
-        scan_stream(cfg, eng._table, plane, total, n, rmeta, None,
-                    eng._runtime_params(), n_tiles)
+        collect_stream(dispatch_stream(cfg, eng._table, plane, total, n, rmeta, None,
+                                       eng._runtime_params(), n_tiles))
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     scan()
     out["scan_tiles_s"] = time.perf_counter() - t0
+    out["host_reads_per_scan"] = READS[0] - reads
     dev = device_time(scan)
     busy = sum(v[0] for v in dev.values())
     out["device_busy_s"] = busy if dev else None
@@ -988,29 +1171,35 @@ def l2_window_ms(table, scan) -> dict:
 
 
 def stream_breakdown(eng, recs) -> dict:
-    """Host-clock time of each step of one warm stream search, and device
-    busy time over its tile scan from torch.profiler."""
+    """Host-clock time of each step of one warm stream search (the layout
+    and the run's dirty rate from the engine's cache, and afresh), and
+    device busy time over its plane's deferred scan from torch.profiler."""
     out = {}
     t0 = time.perf_counter()
     (_, _, items), = eng._plan(recs)
     out["plan_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    laid = eng._stream_plane(items)  # dirty rates, layout, 0xFF plane
+    eng._stream_geometry(items)  # layout and dirty rate, cached
     out["layout_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng._run_dirty_pos(items)  # what the first search of the run pays
+    out["run_dirty_rate_s"] = time.perf_counter() - t0
+    reads = READS[0]
 
     def scan():
-        eng._scan_plane(*laid)  # upload, tiles, one download of the rows
+        eng._collect(eng._dispatch_stream(items), len(items))  # the cached plane
         torch.cuda.synchronize()
 
     scan()  # warm
     t0 = time.perf_counter()
     scan()
     out["scan_plane_s"] = time.perf_counter() - t0
+    out["host_reads_per_scan"] = (READS[0] - reads) / 2
     dev = device_time(scan)
     busy = sum(v[0] for v in dev.values())
     out["device_busy_s"] = busy if dev else None
     out["device_idle_share"] = (1 - busy / out["scan_plane_s"]) if dev else None
-    out["tiles"] = -(-laid[2] // laid[0].tile_len)
+    out["tiles"] = eng.last_scans[-1].tiles
     out["device_by_name"] = {
         k.replace("(anonymous namespace)::", "").split("(")[0]: {
             "device_s": v[0], "count": v[1]}
@@ -1107,8 +1296,7 @@ def phase_assembly_rna(MerPCR, wrappers, sts, fa, want: str, n_bp: int,
           and sum(k for _, _, k in streams) == ASM_RECORDS - n_raw,
           f"e: stream scans {[(t, k) for _, t, k in streams]}")
     tiles = sum(t for _, t, _ in streams)
-    want_n = {"front_end_raw": (n_raw, n_raw), "expand_raw": (n_raw, n_raw),
-              "verify_p1_raw": (1, n_raw), "margin_p2_raw": (1, n_raw),
+    want_n = {**{k: (n_raw, n_raw) for k in RAW_WRAPPERS},
               **{k: (1, tiles) for k in path_wrappers(streams[0][0])}}
     check(all(want_n.get(k, (0, 0))[0] <= v <= want_n.get(k, (0, 0))[1]
               for k, v in launches.items()),
@@ -1129,12 +1317,15 @@ def tier_of(wordsize: int) -> tuple:
 
 
 def path_wrappers(cfg) -> tuple:
-    """The wrappers a scan with ``cfg`` launches (one each per tile)."""
+    """The wrappers a scan with ``cfg`` launches (one each per tile, and a
+    count-first rerun of a tile past a buffer launches its front end
+    again)."""
     if not cfg.packed:
         return RAW_WRAPPERS
     if cfg.strict:
-        return ("front_end", "expand", "verify_p1", "margin_p2")
-    return ("front_end_loose", "expand_loose", "verify_p1", "margin_p2")
+        return WRAPPERS
+    return ("front_end_loose", "expand_loose_deferred", "verify_p1_deferred",
+            "margin_p2_deferred")
 
 
 def timed_search(eng, recs, wrappers, what: str) -> tuple:
@@ -1409,10 +1600,10 @@ def sharded_search(MerPCR, recs, wrappers, sts: str, shards: int, what: str,
                    **params) -> dict:
     """One search of ``recs`` on ``shards`` shards of cuda:0 (1: no mesh),
     cold then warm, launch counts read around the warm run: the path's
-    front end and expansion once per global tile (padding tiles included),
-    verify and margin only on tiles with pairs or anchors (at most once per
-    real tile: a padding tile skips both, and expansion's write pass), no
-    other wrapper. Returns the warm output and figures."""
+    four wrappers once per global tile (padding tiles included: the
+    deferred scan reads no count on the host, so a padding tile's verify
+    and margin launch and find no pair), no other wrapper. Returns the
+    warm output and figures."""
     from merpcr_tpu_torch.parallel import make_mesh
 
     eng = MerPCR(**params)
@@ -1430,9 +1621,7 @@ def sharded_search(MerPCR, recs, wrappers, sts: str, shards: int, what: str,
     n_global = shards * -(-n_tiles // shards)
     check(scan.shards == shards, f"{what}: last_scans shows {scan.shards} shards")
     used = path_wrappers(cfg)
-    check(all(v == 0 for k, v in launches.items() if k not in used)
-          and launches[used[0]] == launches[used[1]] == n_global
-          and all(0 < launches[k] <= n_tiles for k in used[2:]),
+    check(all(v == (n_global if k in used else 0) for k, v in launches.items()),
           f"{what}: launches {launches} for {n_tiles} tiles, {n_global} global")
     return {"out": warm, "hits": hits, "cold_s": t_cold, "warm_s": t_warm,
             "launches": launches, "tiles": n_tiles, "global_tiles": n_global,
@@ -1523,8 +1712,7 @@ def phase_sharded(MerPCR, recs, wrappers, sts: str, fa: str, want_n0: str,
                   "last_scans_shards": r["last_scans_shards"], "hits": r["hits"],
                   "cold_s": r["cold_s"], "warm_s": r["warm_s"],
                   "warm_mbp_per_s": n / 1e6 / r["warm_s"], "launches": r["launches"],
-                  "equal_to_one_device": True,
-                  "padding_tiles_skip": ["verify_p1", "margin_p2", "expand write pass"]})
+                  "equal_to_one_device": True})
     a_recs = MerPCR(device="cpu").load_fasta_file(a_fa)
     for shards in (1, 2):
         r = sharded_search(MerPCR, a_recs, wrappers, a_sts, shards,
@@ -1901,8 +2089,10 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         counts = launched()
         (scan,) = eng.last_scans
         used = path_wrappers(scan.cfg)
-        check(counts[used[0]] == counts[used[1]] == scan.tiles and
-              all(v == 0 for k, v in counts.items() if k not in used),
+        # a tile past a buffer of the deferred scan reruns count first
+        check(counts[used[1]] == scan.tiles
+              and counts[used[0]] == scan.tiles + len(scan.reruns) and
+              all(v == 0 for k, v in counts.items() if k not in used + COUNT_FIRST),
               f"{flood} flood: launches {counts} for {scan.tiles} tiles")
         set_gate(0)
         dev_out, _, _ = search_bytes(eng, f_recs)
@@ -1915,7 +2105,7 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         floods[flood] = {
             "params": params, "bases": len(f_recs[0].sequence), "hits": hits,
             "host_scan_s_to_none": t_host, "search_s": t_search, "tiles": scan.tiles,
-            "launches": counts, "strict": scan.cfg.strict,
+            "launches": counts, "strict": scan.cfg.strict, "reruns": list(scan.reruns),
             "pairs_per_tile": [t[0] for t in totals], "pair_buffer": pair_cap,
             "expand_past_pair_buffer": any(t[0] > pair_cap for t in totals),
             "rows_per_tile": [t[2] for t in totals], "row_buffer": ROW_CAP,
@@ -1923,9 +2113,10 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
             "equal_to_host_max_0_and_cpu": True}
         del eng, cpu
     w = floods["window"]
-    check(max(w["rows_per_tile"]) > ROW_CAP and w["launches"]["margin_p2"] == 2 * w["tiles"],
-          f"window flood: rows {w['rows_per_tile']}, margin_p2 launches "
-          f"{w['launches']['margin_p2']}")
+    check(max(w["rows_per_tile"]) > ROW_CAP and w["reruns"]
+          and w["launches"]["margin_p2"] == 2 * len(w["reruns"]),
+          f"window flood: rows {w['rows_per_tile']}, reruns {w['reruns']}, margin_p2 "
+          f"launches {w['launches']['margin_p2']}")
     line["floods"] = floods
 
     # (e) the trace of a warm 47 Mbp -N 0 search
@@ -1942,8 +2133,7 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         del os.environ["MERPCR_TPU_TRACE"]
     check(traced == plain == want_n0, "the traced search's bytes differ")
     found = traced_kernels(trace_dir)
-    names = [f"{k}_kernel" for k in four]
-    check(all(found.get(k, 0) > 0 for k in names), f"trace kernels {found}")
+    check(all(found.get(k, 0) > 0 for k in KERNEL_NAMES), f"trace kernels {found}")
     line["trace"] = {"warm_s_untraced": t_plain, "warm_s_traced": t_traced,
                      "kernel_events": found, "trace_bytes": sum(
                          os.path.getsize(os.path.join(trace_dir, f))
@@ -1969,6 +2159,228 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
     return line
 
 
+# ---------------------------------------------------------------- warm path
+WARM_SWEEP = (("N2", {"mismatches": 2}), ("N1", {"mismatches": 1}),
+              ("N0", {"mismatches": 0}), ("M1000", {"margin": 1000}))
+
+
+def searched(eng, recs, wrappers, want=None, what: str = "") -> tuple:
+    """(output, figures) of one search: host seconds, the host's waits on
+    the card (READS), planes, tiles, tiles rerun past a buffer, launches,
+    and ``host_split``: the host seconds of the engine's dispatch and
+    collect steps, of the waits on the card (within collect) and of
+    Python's garbage collections (CLOCK); the output held to ``want`` when
+    given."""
+    for w in wrappers.values():
+        w.launches = 0
+    r0, c0 = READS[0], dict(CLOCK)
+    steps = {"dispatch_s": 0.0, "collect_s": 0.0}
+    for step, attr in (("dispatch_s", "_dispatch_item"), ("collect_s", "_collect")):
+        real = getattr(eng, attr, None)  # (an A/B parent has neither)
+        if real is not None:
+            setattr(eng, attr, clocked(real, steps, step))
+    try:
+        out, hits, t = search_bytes(eng, recs)
+    finally:
+        for attr in ("_dispatch_item", "_collect"):
+            eng.__dict__.pop(attr, None)
+    scans = eng.last_scans
+    fig = {"s": t, "host_reads": READS[0] - r0, "planes": len(scans),
+           "host_split": {**steps, **{k: CLOCK[k] - c0[k] for k in CLOCK}},
+           "tiles": sum(sc[1] for sc in scans),
+           "reruns": sum(len(getattr(sc, "reruns", ())) for sc in scans), "hits": hits,
+           "launches": {k: w.launches for k, w in wrappers.items() if w.launches}}
+    if want is not None:
+        check(out == want, f"{what}: bytes differ from device=\"cpu\"")
+    return out, fig
+
+
+def clocked(fn, acc: dict, key: str):
+    """``fn`` with its host seconds added to ``acc[key]``."""
+
+    def run(*args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            acc[key] += time.perf_counter() - t0
+
+    return run
+
+
+def cpu_bytes(MerPCR, sts: str, recs, **params) -> str:
+    cpu = MerPCR(device="cpu", **params)
+    check(cpu.load_sts_file(sts), "STS load failed (cpu)")
+    return search_bytes(cpu, recs)[0]
+
+
+def warm_engine(MerPCR, wrappers, sts: str, recs, what: str, cpu: bool, sweep: bool,
+                **params) -> dict:
+    """A fresh engine's first search, then warm searches: three at the
+    start parameters (device busy and idle share of one of them from
+    torch.profiler against the unprofiled warm seconds), then with
+    ``sweep`` -N 2, -N 1, -N 0 and -M 1000 in turn on the same engine. Every
+    search's bytes equal the first one's at the same parameters and, with
+    ``cpu``, device="cpu"'s."""
+    eng = MerPCR(**params)
+    check(eng.load_sts_file(sts), "STS load failed")
+    want = cpu_bytes(MerPCR, sts, recs, **params) if cpu else None
+    first, fig = searched(eng, recs, wrappers, want, f"{what} first")
+    got = {"first": fig, "warm": []}
+    for _ in range(3):
+        out, fig = searched(eng, recs, wrappers, first, f"{what} warm")
+        got["warm"].append(fig)
+    dev = device_time(lambda: search_bytes(eng, recs))
+    busy = sum(v[0] for v in dev.values())
+    warm_s = min(f["s"] for f in got["warm"])
+    got.update(device_busy_s=busy, device_idle_share=1 - busy / warm_s,
+               warm_mbp_per_s=sum(len(r.sequence) for r in recs) / 1e6 / warm_s)
+    if sweep:
+        base = dict(params)
+        for name, change in WARM_SWEEP:
+            for k, v in change.items():
+                setattr(eng, k, v)
+            base.update(change)
+            ref = cpu_bytes(MerPCR, sts, recs, **base) if cpu else None
+            out, fig = searched(eng, recs, wrappers, ref, f"{what} {name}")
+            got[name] = fig
+        eng.margin = params.get("margin", 50)
+    return got
+
+
+def flood_reruns(MerPCR, wrappers, tmp: str, rna_too: bool) -> tuple:
+    """Phase 14's two floods (and their RNA renderings, raw-byte records) on
+    the deferred scan: the tiles rerun are exactly those whose
+    count-first pair_total passes ``expand``'s pair buffer or whose
+    hit_total passes ``margin_p2``'s row buffer, and the bytes equal
+    device="cpu"'s. Returns (figures, launches of every wrapper)."""
+    from merpcr_tpu_torch.models import FASTARecord
+    from merpcr_tpu_torch.ops import expand as ex_mod
+    from merpcr_tpu_torch.ops import margin_p2 as m_mod
+
+    out, total = {}, {}
+    for flood in ("candidates", "window"):
+        f_sts, f_fa, params = flood_corpus(tmp, flood)
+        eng = MerPCR(**params)
+        check(eng.load_sts_file(f_sts), f"{flood} flood STS load failed")
+        f_recs = eng.load_fasta_file(f_fa)
+        renders = [("dna", f_recs, params)]
+        if rna_too:  # at -I 1, where U matches T
+            renders.append(("rna", [FASTARecord(defline=r.defline, sequence=rna(r.sequence))
+                                    for r in f_recs], {**params, "iupac_mode": 1}))
+        for kind, rs, prm in renders:
+            eng = MerPCR(**prm)
+            check(eng.load_sts_file(f_sts), f"{flood} flood STS load failed")
+            want = cpu_bytes(MerPCR, f_sts, rs, **prm)
+            got, fig = searched(eng, rs, wrappers, want, f"{flood} flood ({kind})")
+            (scan,) = eng.last_scans
+            tile_len, totals = plane_totals(eng, rs[0])
+            pair_cap = ex_mod.pair_cap(tile_len)
+            past = tuple(t for t, (pairs, _a, hits) in enumerate(totals)
+                         if pairs > pair_cap or hits > m_mod.ROW_CAP)
+            check(past and scan.reruns == past,
+                  f"{flood} flood ({kind}): reruns {scan.reruns}, past a buffer {past}")
+            out[f"{flood}_{kind}"] = {**fig, "pair_buffer": pair_cap,
+                                      "row_buffer": m_mod.ROW_CAP,
+                                      "pairs_per_tile": [t[0] for t in totals],
+                                      "rows_per_tile": [t[2] for t in totals],
+                                      "rerun_tiles": list(scan.reruns), "packed": scan.cfg.packed,
+                                      "equal_to_cpu": True}
+            for k, v in fig["launches"].items():
+                total[k] = total.get(k, 0) + v
+    return out, total
+
+
+def phase_warm_path(MerPCR, wrappers, sts: str, recs, a_sts: str, fas: dict, tmp: str,
+                    card: str, full: bool) -> tuple:
+    """Phase 15: the warm-search path. (a) the 47 Mbp record and assembly
+    (c): a fresh engine's first search, three warm searches, then -N 2, -N 1,
+    -N 0 and -M 1000 on the same engine, each with its seconds, host reads,
+    reruns and launches, bytes equal to device="cpu"; device busy and idle
+    share of a warm search; the first search's host steps (dirty rate,
+    plane, upload), which warm searches take from the cache; (b) the
+    record at -N 2 and assemblies (a), (b), (d), (e) on fresh engines,
+    first search and warm; (c) the floods on the deferred scan, reruns
+    exactly past the buffers; (d) a mixed plan under the depth-1 prefetch.
+    With ``full`` False (an A/B of another checkout) (c) and (d) and the
+    device="cpu" comparisons are left out. Returns (the phase line, the
+    launches of the floods' searches)."""
+    from merpcr_tpu_torch.io.fasta import record_packed, record_seq_bytes
+    from merpcr_tpu_torch.models import FASTARecord
+
+    line = {"phase": "warm_path", "card": card, "package": os.path.relpath(PKG, ROOT)}
+    a_recs = MerPCR(device="cpu").load_fasta_file(fas["dirty"])
+    line["record_N0"] = warm_engine(MerPCR, wrappers, sts, recs, "47 Mbp", full, True)
+    line["assembly_c"] = warm_engine(MerPCR, wrappers, a_sts, a_recs, "assembly (c)", full,
+                                     True, iupac_mode=1)
+    # the first search's host steps, each on its own
+    eng = MerPCR()
+    check(eng.load_sts_file(sts), "STS load failed")
+    seq, packed = record_seq_bytes(recs[0]), record_packed(recs[0])
+    steps = {}
+    t0 = time.perf_counter()
+    eng._dirty_of(seq, packed)
+    steps["dirty_rate_s"] = time.perf_counter() - t0
+    total = len(seq) - eng.wordsize + 1
+    cfg = eng._base_config(eng._pick_tile_len(total))
+    n_tiles = -(-total // cfg.tile_len)
+    t0 = time.perf_counter()
+    plane = eng._plane(packed, cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                       packed=True)
+    steps["plane_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.from_numpy(plane).to(eng.device)
+    torch.cuda.synchronize()
+    steps["upload_s"] = time.perf_counter() - t0
+    (_, _, items), = eng._plan(a_recs)
+    t0 = time.perf_counter()
+    if hasattr(eng, "_run_dirty_pos"):
+        eng._run_dirty_pos(items)
+    else:  # a checkout whose stream run samples record by record
+        sum(eng._dirty_of(q, p)[1] * len(q) for q, p in items)
+    steps["assembly_dirty_rate_s"] = time.perf_counter() - t0
+    line["first_search_steps"] = steps
+    del eng, plane
+    # (b) the other cells, fresh engines
+    line["record_N2"] = warm_engine(MerPCR, wrappers, sts, recs, "47 Mbp -N 2", full, False,
+                                    mismatches=2)
+    for name, fa, params in (("assembly_a", fas["clean"], {}), ("assembly_b", fas["dirty"], {}),
+                             ("assembly_d", fas["dirty"], {"iupac_mode": 1, "mismatches": 2})):
+        rs = a_recs if fa == fas["dirty"] else MerPCR(device="cpu").load_fasta_file(fa)
+        line[name] = warm_engine(MerPCR, wrappers, a_sts, rs, name, full, False, **params)
+    e_recs = [FASTARecord(defline=r.defline, sequence=rna(r.sequence)) if i % RNA_EVERY == 0
+              else r for i, r in enumerate(a_recs)]
+    line["assembly_e"] = warm_engine(MerPCR, wrappers, a_sts, e_recs, "assembly (e)", full,
+                                     False, iupac_mode=1)
+    floods = {}
+    if full:
+        # (c) the floods on the deferred scan
+        line["floods"], floods = flood_reruns(MerPCR, wrappers, tmp, True)
+        # (d) a mixed plan: a stream run, an empty record, a 2 Mbp lone
+        # record, an RNA scaffold (raw bytes), another run, an empty record
+        prefix = FASTARecord(defline=">prefix of the record", sequence=recs[0].sequence[:2_000_000])
+        empty = FASTARecord(defline=">empty", sequence="")
+        mixed = [*a_recs[:100], empty, prefix, FASTARecord(
+            defline=a_recs[100].defline, sequence=rna(a_recs[100].sequence)),
+            *a_recs[101:200], FASTARecord(defline=">empty2", sequence="")]
+        eng = MerPCR(iupac_mode=1)
+        check(eng.load_sts_file(a_sts), "STS load failed")
+        want = cpu_bytes(MerPCR, a_sts, mixed, iupac_mode=1)
+        got = {}
+        for run in ("first", "warm"):
+            out, got[run] = searched(eng, mixed, wrappers, want, f"mixed plan ({run})")
+        labels = [ln.split("\t")[0] for ln in out.splitlines()]
+        order = {r.label: i for i, r in enumerate(mixed)}
+        check(labels == sorted(labels, key=order.__getitem__), "mixed plan: not in FASTA order")
+        kinds = [k for k, *_ in eng._plan(mixed)]
+        check([(sc.records, sc.cfg.packed) for sc in eng.last_scans] ==
+              [(100, True), (1, True), (1, False), (99, True)], f"mixed plan: {eng.last_scans}")
+        line["mixed_plan"] = {**got, "plan": kinds, "records": len(mixed),
+                              "equal_to_cpu": True, "in_fasta_order": True}
+    emit(line)
+    return line, floods
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1978,6 +2390,9 @@ def main() -> int:
     ap.add_argument("--package-root", default=ROOT,
                     help="run the merpcr_tpu_torch of this checkout (an A/B "
                          "against another commit), measured by this script")
+    ap.add_argument("--only", choices=("warm_path",),
+                    help="phases 1-3 and this phase alone, without its "
+                         "device=\"cpu\" comparisons, floods and mixed plan (the A/B)")
     args = ap.parse_args()
     global PKG
     PKG = os.path.abspath(args.package_root)
@@ -1990,17 +2405,20 @@ def main() -> int:
     # (the golden files of phase 10 would); phase 14 sets the gate itself
     set_gate(0)
     from merpcr_tpu_torch import MerPCR
+    from merpcr_tpu_torch.ops import expand as ex_mod
+    from merpcr_tpu_torch.ops import front_end as fe_mod
     from merpcr_tpu_torch.ops import kernels
-    from merpcr_tpu_torch.ops.expand import expand, expand_loose, expand_raw
-    from merpcr_tpu_torch.ops.front_end import front_end, front_end_loose, front_end_raw
-    from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_raw
-    from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_raw
+    from merpcr_tpu_torch.ops import margin_p2 as m_mod
+    from merpcr_tpu_torch.ops import verify_p1 as v_mod
 
-    wrappers = {"front_end": front_end, "front_end_loose": front_end_loose,
-                "expand": expand, "expand_loose": expand_loose,
-                "verify_p1": verify_p1, "margin_p2": margin_p2,
-                "front_end_raw": front_end_raw, "expand_raw": expand_raw,
-                "verify_p1_raw": verify_p1_raw, "margin_p2_raw": margin_p2_raw}
+    # every wrapper the package has, and the deferred mode of each stage
+    # wrapper that has one (an A/B parent has none)
+    wrappers = {k: getattr(mod, k) for mod in (fe_mod, ex_mod, v_mod, m_mod)
+                for k in ("front_end", "front_end_loose", "front_end_raw") + COUNT_FIRST
+                if hasattr(mod, k) and hasattr(getattr(mod, k), "launches")}
+    wrappers.update({f"{k}_deferred": Deferred(wrappers[k]) for k in COUNT_FIRST
+                     if hasattr(wrappers.get(k), "launches_deferred")})
+    count_reads(kernels)
     t_start = time.perf_counter()
 
     # 1. device
@@ -2027,6 +2445,15 @@ def main() -> int:
               "genome_bp": n, "sts": args.nsts, "planted_lines": len(expect),
               "mismatch_lines": {k: len(v) for k, v in mism.items()},
               "off_size_lines": {d: len(v) for d, v in off_size.items()}})
+        if args.only:  # the A/B: phase 15 alone
+            a_sts, a_clean, a_dirty, *_ = make_assembly(tmp, args.seed, args.nsts, args.planted)
+            recs = MerPCR(device="cpu").load_fasta_file(fa)
+            phase_warm_path(MerPCR, wrappers, sts, recs, a_sts,
+                            {"clean": a_clean, "dirty": a_dirty}, tmp, card, False)
+            print(smi())
+            emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                         "count": torch.cuda.device_count()}})
+            return 0
 
         eng = MerPCR()
         t0 = time.perf_counter()
@@ -2194,12 +2621,23 @@ def main() -> int:
             emit({"phase": "host_path", "ran": False,
                   "reason": f"--package-root {PKG} has no merpcr_tpu_torch/ops/host_scan.py"})
 
+        # 15. the warm-search path: caches, the deferred scan, reruns, prefetch
+        set_gate(0)
+        _, rerun_launches = phase_warm_path(MerPCR, wrappers, sts, recs, a_sts,
+                                            {"clean": a_clean, "dirty": a_dirty}, tmp, card,
+                                            True)
+
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),
                            (d_res, d_launches), *ws, *mg, *sw, rw):
         for k, r in kern.items():
-            r["launches"] = launched[k]
+            # a search launches a count-first wrapper only to rerun a tile past
+            # a buffer: those rows count phase 15's floods, which do
+            r["launches"] = rerun_launches.get(k, 0) if k in COUNT_FIRST else launched[k]
+            r["launches_of"] = "phase 15 floods" if k in COUNT_FIRST else "warm search"
             rows.append(r)
+    check(PKG != ROOT or all(r["launches"] > 0 for r in rows),
+          f"kernels launched no time: {[r['name'] for r in rows if not r['launches']]}")
     emit({"kernels": rows, "card": card, "seconds": time.perf_counter() - t_start})
     print(smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

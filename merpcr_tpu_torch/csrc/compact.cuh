@@ -17,11 +17,17 @@
 //   sums of earlier tiles until it meets an inclusive prefix, and publishes
 //   its own inclusive prefix. The tile statuses carry the launch's sequence
 //   number, so no launch has to clear them; the ticket counters are put
-//   back to 0 by the launch that used them.
+//   back to 0 by the launch that used them. verify_p1 and margin_p2 loop
+//   over their tiles (live_items below), so that a launch over a buffer's
+//   capacity, whose count is on the device, needs no more blocks than the
+//   card holds.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include <mutex>
+#include <vector>
 
 namespace mp {
 
@@ -167,6 +173,62 @@ __device__ __forceinline__ unsigned int look_back(const ScanState& s,
   }
   if (lane == 0) publish(s, t, excl + agg, true);
   return excl;
+}
+
+// Launches that loop over their tiles (verify_p1, margin_p2). The live
+// item count is the host's n, or in the deferred tile scan the count an
+// earlier kernel of the stream left in device memory (n_dev), at most the
+// buffer's cap: the host reads nothing between the stages. Blocks below
+// min(gridDim.x, tiles) are the workers: each takes tiles from the ticket
+// until one past the last, so `workers` tickets fail; blocks at or past
+// that exit at once. The block holding the last failing ticket puts the
+// ticket back to 0: every worker has taken its last ticket by then.
+__device__ __forceinline__ int live_items(const int* n_dev, int n, int cap) {
+  return n_dev ? min(max(*n_dev, 0), cap) : n;
+}
+
+__device__ __forceinline__ void release_ticket(const ScanState& s,
+                                               unsigned int ticket,
+                                               unsigned int n_tiles,
+                                               unsigned int workers) {
+  if (ticket == n_tiles + workers - 1) s.ticket[0] = 0u;
+}
+
+// Blocks of such a launch over n_tiles tiles: one per tile when the host
+// knows the count (n_dev null), else (the deferred mode, a launch over a
+// buffer's capacity) as many as the device holds at once, occupancy x SMs,
+// at most n_tiles, the blocks then looping; at least 1. The occupancy is
+// queried once per (device, kernel, threads, shared memory) and kept.
+template <typename Kernel>
+static inline int loop_grid(Kernel kernel, int threads, size_t smem,
+                            long long n_tiles, const void* n_dev) {
+  long long g = n_tiles;
+  if (n_dev != nullptr) {
+    struct Fit {
+      int dev, threads;
+      size_t smem;
+      int blocks;
+    };
+    static std::mutex mu;
+    static std::vector<Fit> known;
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int blocks = 0;
+    {
+      std::lock_guard<std::mutex> lock(mu);
+      for (const Fit& k : known)
+        if (k.dev == dev && k.threads == threads && k.smem == smem) blocks = k.blocks;
+      if (blocks == 0) {
+        int sms = 1, per_sm = 1;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+        blocks = max(per_sm, 1) * max(sms, 1);
+        known.push_back({dev, threads, smem, blocks});
+      }
+    }
+    g = min(g, static_cast<long long>(blocks));
+  }
+  return static_cast<int>(max(g, 1LL));
 }
 
 }  // namespace mp

@@ -56,7 +56,9 @@
 // front end's flag count, which that kernel left in the scan state
 // (front_end.cu). Only when pair_total passes cap does a second launch
 // (expand_overflow_kernel) write the pairs from the stored lanes: no
-// bucket is looked up twice. The lane buffers are scratch from the
+// bucket is looked up twice. In the deferred mode of the tile scan the
+// totals go to device memory, where verify_p1 reads the pair count, and a
+// tile past cap is rerun by the host after its one read of the plane. The lane buffers are scratch from the
 // wrapper, 12 bytes per scan position of the tile (a tile's lanes are
 // among its scan positions, so each tile of flag words owns a region).
 
@@ -300,7 +302,7 @@ expand_kernel(const uint32_t* __restrict__ units,
               int* __restrict__ lane_ppos, int* __restrict__ lane_start,
               int* __restrict__ lane_off, int2* __restrict__ blk,
               int* __restrict__ entry, int* __restrict__ ppos, int cap,
-              int* __restrict__ totals) {
+              int* __restrict__ totals, bool dev_totals) {
   __shared__ int warp_sums[32];
   const int n_tw = tile_words(n_words);
   __shared__ int items[kMode == kRaw ? 1 : kMaxTileWords * 32];
@@ -363,12 +365,20 @@ expand_kernel(const uint32_t* __restrict__ units,
       if (tile == static_cast<int>(gridDim.x) - 1) {  // every tile has published
         __threadfence();
         const unsigned int lanes = atomicExch(ss.ticket + 1, 0u);
-        // one 16-byte store: each store to pinned host memory is a PCIe
-        // write that the kernel's end waits for. The tile's front-end
-        // flag count rides along; raw planes have no position stage.
-        *reinterpret_cast<int4*>(totals) = make_int4(
-            kMode == kRaw ? 0 : static_cast<int>(lanes), static_cast<int>(base) + n_pairs,
-            static_cast<int>(ss.ticket[mp::kFlagSlot]), 0);
+        // raw planes have no position stage; the tile's front-end flag
+        // count rides along
+        const int pos_total = kMode == kRaw ? 0 : static_cast<int>(lanes);
+        const int pair_total = static_cast<int>(base) + n_pairs;
+        const int c_total = static_cast<int>(ss.ticket[mp::kFlagSlot]);
+        if (dev_totals) {  // the deferred scan's (c, pos, pair) row
+          totals[0] = c_total;
+          totals[1] = pos_total;
+          totals[2] = pair_total;
+        } else {
+          // one 16-byte store: each store to pinned host memory is a PCIe
+          // write that the kernel's end waits for
+          *reinterpret_cast<int4*>(totals) = make_int4(pos_total, pair_total, c_total, 0);
+        }
         ss.ticket[mp::kFlagSlot] = 0u;
         ss.ticket[0] = 0u;
       }
@@ -415,9 +425,10 @@ template <int kMode>
 cudaError_t launch(int grid, cudaStream_t s, const uint32_t* u, const uint32_t* w,
                    const Tables& t, int W, int n_words, int n_scan,
                    const mp::ScanState& ss, int* lp, int* ls, int* lo, int2* blk,
-                   int* entry, int* ppos, int cap, int* totals) {
+                   int* entry, int* ppos, int cap, int* totals, bool dev_totals) {
   expand_kernel<kMode><<<grid, mp::kBlock, 0, s>>>(u, w, t, W, n_words, n_scan, ss, lp, ls,
-                                                   lo, blk, entry, ppos, cap, totals);
+                                                   lo, blk, entry, ppos, cap, totals,
+                                                   dev_totals);
   return cudaGetLastError();
 }
 
@@ -444,8 +455,10 @@ int mp_expand_tiles(int n_words) {
 // hold tile_len ints each, blk mp_expand_tiles(n_words) int2; entry/ppos hold cap ints each.
 // totals: four ints, 16-byte aligned, that the kernel writes (pos_total,
 // pair_total, the front end's flag count from the scan state's
-// slot, 0), host-mapped pinned memory in the wrapper. If pair_total > cap, mp_expand_overflow writes
-// the pairs.
+// slot, 0), host-mapped pinned memory in the count-first wrapper; with
+// dev_totals, three device ints (the flag count, pos_total, pair_total) of
+// the deferred scan's totals row. If pair_total > cap, mp_expand_overflow
+// writes the pairs (the deferred scan reruns the tile instead).
 int mp_expand(const void* units, const void* words, const void* ptab,
               int pf_bits, const void* t16, int t16_bits, int csr_kind,
               const void* csr_a, const void* csr_b, int n_keys, int n_entries,
@@ -453,7 +466,7 @@ int mp_expand(const void* units, const void* words, const void* ptab,
               int n_words, int n_scan, int mode, void* ticket, void* status,
               int seq, void* lane_ppos, void* lane_start, void* lane_off,
               void* blk, void* entry, void* ppos, int cap, void* totals,
-              void* stream) {
+              int dev_totals, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Tables t = make_tables(ptab, pf_bits, t16, t16_bits, csr_kind, csr_a,
                                csr_b, n_keys, n_entries, bloom, bloom_shift,
@@ -471,10 +484,11 @@ int mp_expand(const void* units, const void* words, const void* ptab,
   int* pp = static_cast<int*>(ppos);
   int* tot = static_cast<int*>(totals);
   const int g = mp_expand_tiles(n_words);
+  const bool dt = dev_totals != 0;
   return static_cast<int>(
-      mode == kRaw ? launch<kRaw>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot)
-      : mode == kLoose ? launch<kLoose>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot)
-                       : launch<kStrict>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot));
+      mode == kRaw ? launch<kRaw>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot, dt)
+      : mode == kLoose ? launch<kLoose>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot, dt)
+                       : launch<kStrict>(g, s, u, w, t, W, n_words, n_scan, ss, lp, ls, lo, b, en, pp, cap, tot, dt));
 }
 
 // The pairs when pair_total passed cap: entry/ppos hold pair_total ints

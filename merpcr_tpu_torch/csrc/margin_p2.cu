@@ -177,108 +177,123 @@ __device__ __forceinline__ bool p2_ok(long long s, const Anchor& an,
   return true;
 }
 
-// One block per anchor (ticket order). smem: n_win 64-bit words of window,
-// at -I 1 on a nibble plane the codes_ok mask of each primer base (p2_max
-// words; a table lookup per lane in __constant__ kExpNib would serialise
-// over the distinct codes of a warp), then the hit bits of the live ranks
-// (one 32-bit word per warp and strip).
+// One anchor per block at a time (ticket order), the blocks looping over
+// the live anchors (compact.cuh live_items: the host's count, or in the
+// deferred mode the count verify_p1 left on the device). smem: n_win 64-bit
+// words of window, at -I 1 on a nibble plane the codes_ok mask of each
+// primer base (p2_max words; a table lookup per lane in __constant__
+// kExpNib would serialise over the distinct codes of a warp), then the hit
+// bits of the live ranks (one 32-bit word per warp and strip).
 __global__ void __launch_bounds__(kMaxThreads)
-margin_p2_kernel(Margin m, int n_win, mp::ScanState ss, int* __restrict__ rows,
-                 int cap, int* __restrict__ hit_total) {
+margin_p2_kernel(Margin m, int n_host, const int* __restrict__ n_dev, int a_cap,
+                 int n_win, mp::ScanState ss, int* __restrict__ rows, int cap,
+                 int* __restrict__ hit_total) {
   extern __shared__ uint64_t smem[];
   uint32_t* codes_ok = reinterpret_cast<uint32_t*>(smem + n_win);
   uint32_t* bits = codes_ok + (m.p2_max + 1) / 2 * 2;
   __shared__ int warp_sums[32];
   __shared__ unsigned int tile_sh, excl_sh;
-  if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
-  __syncthreads();
-  const unsigned int tile = tile_sh;
-  const Anchor an = anchor_of(static_cast<int>(tile), m);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int cnt = 0;
-  if (an.n_live) {
-    Window w;
-    const int dmin = an.lo ? -an.lo : (an.d0 ? 0 : 1);
-    const int dmax = an.hi ? an.hi : (an.d0 ? 0 : -1);
-    const long long wlen = dmax - dmin + an.l2;
-    w.w0 = an.tbase + dmin;
-    w.mis = static_cast<int>(reinterpret_cast<uintptr_t>(m.plane) & 7u);
-    w.words = smem;
-    w.bytes = reinterpret_cast<const uint8_t*>(smem);
-    w.codes_ok = codes_ok;
-    if (m.p2_exp && !m.raw) {
-      const uint32_t* px = m.p2_exp + static_cast<long long>(an.e) * m.p2_max;
-      for (int i = threadIdx.x; i < an.l2; i += blockDim.x) {
-        uint32_t ok = 0;
+  const unsigned int n_tiles =
+      static_cast<unsigned int>(mp::live_items(n_dev, n_host, a_cap));  // anchors
+  const unsigned int workers = min(gridDim.x, n_tiles);
+  if (blockIdx.x >= workers) {
+    if (n_tiles == 0 && blockIdx.x == 0 && threadIdx.x == 0) *hit_total = 0;
+    return;
+  }
+  while (true) {
+    if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
+    __syncthreads();
+    const unsigned int tile = tile_sh;
+    if (tile >= n_tiles) {
+      if (threadIdx.x == 0) mp::release_ticket(ss, tile, n_tiles, workers);
+      return;
+    }
+    const Anchor an = anchor_of(static_cast<int>(tile), m);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int cnt = 0;
+    if (an.n_live) {
+      Window w;
+      const int dmin = an.lo ? -an.lo : (an.d0 ? 0 : 1);
+      const int dmax = an.hi ? an.hi : (an.d0 ? 0 : -1);
+      const long long wlen = dmax - dmin + an.l2;
+      w.w0 = an.tbase + dmin;
+      w.mis = static_cast<int>(reinterpret_cast<uintptr_t>(m.plane) & 7u);
+      w.words = smem;
+      w.bytes = reinterpret_cast<const uint8_t*>(smem);
+      w.codes_ok = codes_ok;
+      if (m.p2_exp && !m.raw) {
+        const uint32_t* px = m.p2_exp + static_cast<long long>(an.e) * m.p2_max;
+        for (int i = threadIdx.x; i < an.l2; i += blockDim.x) {
+          uint32_t ok = 0;
 #pragma unroll
-        for (int n = 0; n < 16; ++n) ok |= static_cast<uint32_t>((mp::kExpNib[n] & px[i]) != 0u) << n;
-        codes_ok[i] = ok;
+          for (int n = 0; n < 16; ++n) ok |= static_cast<uint32_t>((mp::kExpNib[n] & px[i]) != 0u) << n;
+          codes_ok[i] = ok;
+        }
+      }
+      if (m.raw) {
+        uint8_t* sb = reinterpret_cast<uint8_t*>(smem);
+        for (long long i = threadIdx.x; i < wlen; i += blockDim.x) {
+          const long long p = w.w0 + i;
+          sb[i] = (p < 0 || p >= m.n_pos) ? 0 : m.plane[p];
+        }
+      } else {
+        const uint64_t* gw = reinterpret_cast<const uint64_t*>(m.plane - w.mis);
+        const long long q_max = (m.n_pos - 1 + 2 * w.mis) >> 4;  // last word in the plane
+        w.q0 = mp::floor16(w.w0 + 2 * w.mis);
+        w.q1 = mp::floor16(w.w0 + wlen - 1 + 2 * w.mis) + 1;  // the funnel's next word
+        for (long long i = threadIdx.x; i <= w.q1 - w.q0; i += blockDim.x) {
+          const long long q = w.q0 + i;
+          smem[i] = (q < 0 || q > q_max) ? 0ull : gw[q];
+        }
+      }
+      __syncthreads();
+      for (int j0 = 0; j0 < an.n_live; j0 += blockDim.x) {  // strips, in rank order
+        const int j = j0 + threadIdx.x;
+        bool hit = false;
+        if (j < an.n_live) {
+          int d;
+          rank_of(j, an, &d);
+          hit = p2_ok(an.tbase + d, an, w, m);
+        }
+        const unsigned int b = __ballot_sync(0xffffffffu, hit);
+        if (lane == 0) bits[(j0 >> 5) + warp] = b;
+        cnt += hit;
       }
     }
-    if (m.raw) {
-      uint8_t* sb = reinterpret_cast<uint8_t*>(smem);
-      for (long long i = threadIdx.x; i < wlen; i += blockDim.x) {
-        const long long p = w.w0 + i;
-        sb[i] = (p < 0 || p >= m.n_pos) ? 0 : m.plane[p];
-      }
-    } else {
-      const uint64_t* gw = reinterpret_cast<const uint64_t*>(m.plane - w.mis);
-      const long long q_max = (m.n_pos - 1 + 2 * w.mis) >> 4;  // last word in the plane
-      w.q0 = mp::floor16(w.w0 + 2 * w.mis);
-      w.q1 = mp::floor16(w.w0 + wlen - 1 + 2 * w.mis) + 1;  // the funnel's next word
-      for (long long i = threadIdx.x; i <= w.q1 - w.q0; i += blockDim.x) {
-        const long long q = w.q0 + i;
-        smem[i] = (q < 0 || q > q_max) ? 0ull : gw[q];
+    int agg;
+    mp::block_exclusive_scan(cnt, warp_sums, &agg);  // also publishes bits
+    if (threadIdx.x < 32) {  // warp 0 looks back
+      const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
+      if (threadIdx.x == 0) {
+        excl_sh = excl;
+        if (tile == n_tiles - 1) *hit_total = static_cast<int>(excl) + agg;
       }
     }
     __syncthreads();
-    for (int j0 = 0; j0 < an.n_live; j0 += blockDim.x) {  // strips, in rank order
-      const int j = j0 + threadIdx.x;
-      bool hit = false;
-      if (j < an.n_live) {
-        int d;
-        rank_of(j, an, &d);
-        hit = p2_ok(an.tbase + d, an, w, m);
+    if (agg) {
+      const int n_words = (an.n_live + 31) >> 5;
+      int carry = static_cast<int>(excl_sh);
+      for (int w0 = 0; w0 < n_words; w0 += blockDim.x) {
+        const int wi = w0 + threadIdx.x;
+        uint32_t b = wi < n_words ? bits[wi] : 0u;
+        int chunk;
+        int k = carry + mp::block_exclusive_scan(__popc(b), warp_sums, &chunk);
+        for (; b; b &= b - 1, ++k) {
+          if (k >= cap) break;  // past the buffer: the caller sizes a second one
+          int d;
+          const int r = rank_of(32 * wi + __ffs(b) - 1, an, &d);
+          int* row = rows + 6LL * k;
+          row[0] = static_cast<int>(an.ak);
+          row[1] = static_cast<int>(an.base + d + an.l2 - 1);
+          row[2] = an.e;
+          row[3] = an.pair;
+          row[4] = r;
+          row[5] = an.rec;
+        }
+        carry += chunk;
       }
-      const unsigned int b = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) bits[(j0 >> 5) + warp] = b;
-      cnt += hit;
     }
-  }
-  int agg;
-  mp::block_exclusive_scan(cnt, warp_sums, &agg);  // also publishes bits
-  if (threadIdx.x < 32) {  // warp 0 looks back
-    const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
-    if (threadIdx.x == 0) {
-      excl_sh = excl;
-      if (tile == gridDim.x - 1) {  // every ticket is taken
-        *hit_total = static_cast<int>(excl) + agg;
-        ss.ticket[0] = 0u;
-      }
-    }
-  }
-  __syncthreads();
-  if (agg == 0) return;
-  const int n_words = (an.n_live + 31) >> 5;
-  int carry = static_cast<int>(excl_sh);
-  for (int w0 = 0; w0 < n_words; w0 += blockDim.x) {
-    const int wi = w0 + threadIdx.x;
-    uint32_t b = wi < n_words ? bits[wi] : 0u;
-    int chunk;
-    int k = carry + mp::block_exclusive_scan(__popc(b), warp_sums, &chunk);
-    for (; b; b &= b - 1, ++k) {
-      if (k >= cap) break;  // past the buffer: the second launch writes it
-      int d;
-      const int r = rank_of(32 * wi + __ffs(b) - 1, an, &d);
-      int* row = rows + 6LL * k;
-      row[0] = static_cast<int>(an.ak);
-      row[1] = static_cast<int>(an.base + d + an.l2 - 1);
-      row[2] = an.e;
-      row[3] = an.pair;
-      row[4] = r;
-      row[5] = an.rec;
-    }
-    carry += chunk;
+    __syncthreads();  // shared memory is read before the next anchor
   }
 }
 
@@ -286,24 +301,29 @@ margin_p2_kernel(Margin m, int n_win, mp::ScanState ss, int* __restrict__ rows,
 
 extern "C" {
 
-// One launch over n_anch anchors (a block each): rows holds cap x 6 ints,
-// the first min(hit_total, cap) rows of the call in (anchor, rank) order;
-// hit_total is one int that the kernel writes, host-mapped pinned memory
-// in the wrapper. raw 0: a nibble plane of n_pos positions, p2_codes (rows
-// of p2_max bytes, p2_max a multiple of 8, 8-byte aligned) and (-I 1)
-// p2_exp; raw 1: a byte plane of n_pos bytes, p2_codes holding the primer
-// bytes and (-I 1) match the 65,536-byte match table. p2_exp/match null:
-// -I 0. recmap null: the plane holds record 0 alone. ticket/status/seq:
-// the device's scan state (compact.cuh ScanState), status holding n_anch
-// entries.
+// One launch over n_anch anchors, a block at a time each: rows holds cap
+// x 6 ints, the first min(hit_total, cap) rows of the call in (anchor,
+// rank) order; hit_total is one int that the kernel writes, host-mapped
+// pinned memory in the count-first wrapper. n_dev null: n_anch anchors;
+// else the deferred mode: *n_dev anchors, read on the device, at most
+// n_anch (a_idx's capacity), and hit_total a device int. raw 0: a nibble
+// plane of n_pos positions, p2_codes (rows of p2_max bytes, p2_max a
+// multiple of 8, 8-byte aligned) and (-I 1) p2_exp; raw 1: a byte plane of
+// n_pos bytes, p2_codes holding the primer bytes and (-I 1) match the
+// 65,536-byte match table. p2_exp/match null: -I 0. recmap null: the plane
+// holds record 0 alone. ticket/status/seq: the device's scan state
+// (compact.cuh ScanState), status holding n_anch entries. Grid:
+// compact.cuh loop_grid (a block per anchor, or in the deferred mode as
+// many as the card holds at once, looping over the anchors).
 int mp_margin_p2(const void* plane, long long n_pos, int raw,
-                 const void* a_idx, int n_anch, const void* entry,
-                 const void* ppos, const void* emeta, const void* p2_codes,
-                 const void* p2_exp, const void* match, int p2_max,
-                 long long tile_start, const void* rmeta, const void* recmap,
-                 long long n_map, int lead, int margin, int nmm,
-                 int three_prime, void* ticket, void* status, int seq,
-                 void* rows, int cap, void* hit_total, void* stream) {
+                 const void* a_idx, int n_anch, const void* n_dev,
+                 const void* entry, const void* ppos, const void* emeta,
+                 const void* p2_codes, const void* p2_exp, const void* match,
+                 int p2_max, long long tile_start, const void* rmeta,
+                 const void* recmap, long long n_map, int lead, int margin,
+                 int nmm, int three_prime, void* ticket, void* status,
+                 int seq, void* rows, int cap, void* hit_total,
+                 void* stream) {
   const Margin m = {static_cast<const uint8_t*>(plane), n_pos, raw != 0,
                     static_cast<const int*>(a_idx), static_cast<const int*>(entry),
                     static_cast<const int*>(ppos), static_cast<const int*>(emeta),
@@ -330,8 +350,10 @@ int mp_margin_p2(const void* plane, long long n_pos, int raw,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  margin_p2_kernel<<<n_anch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      m, n_win, ss, static_cast<int*>(rows), cap, static_cast<int*>(hit_total));
+  const int grid = mp::loop_grid(margin_p2_kernel, threads, smem, n_anch, n_dev);
+  margin_p2_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      m, n_anch, static_cast<const int*>(n_dev), n_anch, n_win, ss,
+      static_cast<int*>(rows), cap, static_cast<int*>(hit_total));
   return static_cast<int>(cudaGetLastError());
 }
 

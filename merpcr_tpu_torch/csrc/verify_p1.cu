@@ -18,7 +18,10 @@
 // 2^23-base tile). So the whole call is one launch: one thread per pair,
 // and the passing pairs are compacted in pair order in the same launch by
 // the single-pass look-back scan of compact.cuh; the last tile writes
-// anch_total straight into the caller's pinned host word.
+// anch_total straight into the caller's pinned host word. In the deferred
+// mode of the tile scan the pair count is the one expand left on the
+// device and anch_total goes to device memory, so no stage of a tile waits
+// for the host; the launch then covers the pair buffer's capacity.
 //
 // The compare at -I 0 on a nibble plane (the main path) takes 16 bases
 // per step (nibwords.cuh, shared with margin_p2: the window funnel-shifted
@@ -87,34 +90,48 @@ __device__ __forceinline__ bool p1_ok(int e, int pos, const Verify1& v) {
 }
 
 // One thread per pair of a ticketed tile; the passing pair indices go to
-// a_idx in pair order. The last tile writes anch_total and puts the ticket
+// a_idx in pair order. The blocks loop over the tiles of the live pairs
+// (compact.cuh live_items: the host's n, or the count on the device); the
+// last tile writes anch_total, and the last failing ticket puts the ticket
 // back to 0.
 __global__ void verify_p1_kernel(const int* __restrict__ entry,
-                                 const int* __restrict__ ppos, int n,
+                                 const int* __restrict__ ppos, int n_host,
+                                 const int* __restrict__ n_dev, int cap,
                                  Verify1 v, mp::ScanState ss,
                                  int* __restrict__ a_idx,
                                  int* __restrict__ anch_total) {
   __shared__ int warp_sums[32];
   __shared__ unsigned int tile_sh, excl_sh;
-  if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
-  __syncthreads();
-  const unsigned int tile = tile_sh;
-  const int i = static_cast<int>(tile) * mp::kBlock + threadIdx.x;
-  const int pass = (i < n && p1_ok(entry[i], ppos[i], v)) ? 1 : 0;
-  int agg;
-  const int local = mp::block_exclusive_scan(pass, warp_sums, &agg);
-  if (threadIdx.x < 32) {  // warp 0 looks back
-    const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
-    if (threadIdx.x == 0) {
-      excl_sh = excl;
-      if (tile == gridDim.x - 1) {  // every ticket is taken
-        *anch_total = static_cast<int>(excl) + agg;
-        ss.ticket[0] = 0u;
+  const int n = mp::live_items(n_dev, n_host, cap);
+  const unsigned int n_tiles = (n + mp::kBlock - 1) / mp::kBlock;
+  const unsigned int workers = min(gridDim.x, n_tiles);
+  if (blockIdx.x >= workers) {
+    if (n_tiles == 0 && blockIdx.x == 0 && threadIdx.x == 0) *anch_total = 0;
+    return;
+  }
+  while (true) {
+    if (threadIdx.x == 0) tile_sh = mp::take_tile(ss);
+    __syncthreads();
+    const unsigned int tile = tile_sh;
+    if (tile >= n_tiles) {
+      if (threadIdx.x == 0) mp::release_ticket(ss, tile, n_tiles, workers);
+      return;
+    }
+    const int i = static_cast<int>(tile) * mp::kBlock + threadIdx.x;
+    const int pass = (i < n && p1_ok(entry[i], ppos[i], v)) ? 1 : 0;
+    int agg;
+    const int local = mp::block_exclusive_scan(pass, warp_sums, &agg);
+    if (threadIdx.x < 32) {  // warp 0 looks back
+      const unsigned int excl = mp::look_back(ss, tile, static_cast<unsigned int>(agg));
+      if (threadIdx.x == 0) {
+        excl_sh = excl;
+        if (tile == n_tiles - 1) *anch_total = static_cast<int>(excl) + agg;
       }
     }
+    __syncthreads();
+    if (pass) a_idx[excl_sh + local] = i;
+    __syncthreads();  // tile_sh and excl_sh are read before the next tile
   }
-  __syncthreads();
-  if (pass) a_idx[excl_sh + local] = i;
 }
 
 }  // namespace
@@ -123,15 +140,18 @@ extern "C" {
 
 // One launch: a_idx holds n ints (the anchors' pair indices, ascending, in
 // its first *anch_total entries); anch_total is one int that the kernel
-// writes, host-mapped pinned memory in the wrapper. raw 0: a nibble plane
-// of n_pos positions, p1_codes (rows of p1_max bytes, p1_max a multiple of
-// 8, 8-byte aligned) and (-I 1) p1_exp; raw 1: a byte plane of n_pos
-// bytes, p1_codes holding the primer bytes and (-I 1) match the
+// writes, host-mapped pinned memory in the count-first wrapper. n_dev
+// null: n pairs; else the deferred mode: *n_dev pairs, read on the device,
+// at most n (the buffers' capacity), and anch_total a device int. raw 0: a
+// nibble plane of n_pos positions, p1_codes (rows of p1_max bytes, p1_max
+// a multiple of 8, 8-byte aligned) and (-I 1) p1_exp; raw 1: a byte plane
+// of n_pos bytes, p1_codes holding the primer bytes and (-I 1) match the
 // 65,536-byte match table. p1_exp/match null: -I 0. recmap null: the plane
 // holds record 0 alone. ticket/status/seq: the device's scan state
-// (compact.cuh ScanState), status holding n_blocks(n) entries.
+// (compact.cuh ScanState), status holding n_blocks(n) entries. Grid:
+// compact.cuh loop_grid.
 int mp_verify_p1(const void* plane, long long n_pos, int raw,
-                 const void* entry, const void* ppos, int n,
+                 const void* entry, const void* ppos, int n, const void* n_dev,
                  const void* emeta, const void* p1_codes, const void* p1_exp,
                  const void* match, int p1_max, long long tile_start,
                  const void* rmeta, const void* recmap, long long n_map,
@@ -149,10 +169,11 @@ int mp_verify_p1(const void* plane, long long n_pos, int raw,
   const mp::ScanState ss = {static_cast<unsigned int*>(ticket),
                             static_cast<unsigned long long*>(status),
                             static_cast<unsigned int>(seq)};
-  verify_p1_kernel<<<mp::n_blocks(n), mp::kBlock, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(entry), static_cast<const int*>(ppos), n, v, ss,
-      static_cast<int*>(a_idx), static_cast<int*>(anch_total));
+  const int grid = mp::loop_grid(verify_p1_kernel, mp::kBlock, 0, mp::n_blocks(n), n_dev);
+  verify_p1_kernel<<<grid, mp::kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(entry), static_cast<const int*>(ppos), n,
+      static_cast<const int*>(n_dev), n, v, ss, static_cast<int*>(a_idx),
+      static_cast<int*>(anch_total));
   return static_cast<int>(cudaGetLastError());
 }
 

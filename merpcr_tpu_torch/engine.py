@@ -34,6 +34,16 @@ consecutive packable records is laid end to end in one plane, separated by
 launch once per tile, not once per record. A lone record takes the record
 path (one record per plane).
 
+Repeat searches reuse what does not depend on -N, -X or -I: a record's
+(or stream run's) dirty rates, layout and planes on the device, kept in a
+cache entry that holds the record's arrays (``_owned``). A plane's tiles
+are enqueued with no host read between their stages
+(``ops.scan.dispatch_stream``): each stage reads the count of the one
+before from device memory, and the host reads the plane once, when it
+collects it, rerunning count first the rare tile that passed a buffer.
+The plan's next item is dispatched before this one is collected
+(``merpcr_tpu/engine.py:1519-1532``).
+
 Small inputs skip the card: when all records together hold at most
 ``MERPCR_TPU_HOST_MAX`` bases (default 2,000,000), no mesh or second
 process is set and the table is not yet on the engine's device, every
@@ -55,6 +65,7 @@ are the single-device bytes for any shard count.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import math
@@ -71,10 +82,11 @@ from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
 from .ops.host_scan import host_scan_record
-from .ops.scan import ScanConfig, default_config, scan_stream
+from .ops.scan import ScanConfig, collect_stream, default_config, dispatch_stream
 from .ops.table import build_strict1, compile_table, table_from_numpy
 from .parallel import distributed
-from .parallel.sharded import make_mesh, sharded_scan_record, sharded_scan_stream
+from .parallel.sharded import (collect_shards, dispatch_shards, make_mesh, shard_planes,
+                               shard_stream_planes, upload, upload_shards)
 
 # Constants (reference engine.py:17-39)
 DEFAULT_MARGIN = 50
@@ -122,15 +134,33 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def _dirty_bytes(b: np.ndarray) -> np.ndarray:
+    """Bytes of a nibble packing that hold a code outside ACGT."""
+    return ((b & 0xF) >= 4) | ((b >> 4) >= 4)
+
+
+def _window_flags(dirty: np.ndarray) -> np.ndarray:
+    """``w_pos``'s flag at each byte offset p of a packing's dirty bytes:
+    dirty in bytes p..p+7 (16 bases), clean in p..p+5 (~11)."""
+    n = max(len(dirty) - 7, 0)
+    clean6 = ~dirty[:n]
+    for o in range(1, 6):
+        clean6 &= ~dirty[o : o + n]
+    return clean6 & (dirty[6 : 6 + n] | dirty[7 : 7 + n])
+
+
 class PlaneScan(tuple):
     """(cfg, tiles, records) of one scanned plane, with ``shards``: the
-    mesh's shard count (1 without a mesh). ``tiles`` counts the plane's
+    mesh's shard count (1 without a mesh), and ``reruns``: the (global)
+    tiles that passed a buffer of the deferred tile scan and were rerun
+    count first (``ops.scan.collect_stream``). ``tiles`` counts the plane's
     real tiles; a mesh of n shards scans n * ceil(tiles / n) global tiles,
     the rest padding."""
 
-    def __new__(cls, cfg, tiles: int, records: int, shards: int = 1):
+    def __new__(cls, cfg, tiles: int, records: int, shards: int = 1, reruns=()):
         self = super().__new__(cls, (cfg, tiles, records))
         self.shards = shards
+        self.reruns = tuple(reruns)
         return self
 
     cfg = property(lambda self: self[0])
@@ -183,6 +213,9 @@ class MerPCR:
         # Test hook: force a specific tile length (exercises multi-tile
         # paths on small inputs). None -> TILE_LEN_BUCKETS heuristic.
         self._tile_len_override: Optional[int] = None
+        # (arrays, entry) of the records and stream runs whose dirty rates,
+        # layouts and uploaded planes repeat searches reuse (``_owned``)
+        self._owners: list = []
 
         self._validate_parameters()
 
@@ -288,41 +321,74 @@ class MerPCR:
         * ``w_pos`` — fraction of positions dirty-in-16 but
           clean-in-~11: the ones that expand phases through the exact
           CSR with no table filter.
+
+        The JAX package (``merpcr_tpu/engine.py:284-336``) takes a prefix
+        sum of the dirty bytes over the whole record and differences it at
+        about 16k sampled offsets; each difference sums at most 10 bytes
+        (packed) or 20 bases (raw) from its offset, so only those windows
+        are read here, and the rates are the same numbers.
         """
         if packed_rec is not None and len(packed_rec):
             b = packed_rec
-            db = (((b & 0xF) >= 4) | ((b >> 4) >= 4)).astype(np.int32)
-            cs = np.concatenate(([0], np.cumsum(db)))
-            if len(cs) <= 13:
-                any_d = bool(db.any())
-                return (float(any_d), 0.0)
+            n_cs = len(b) + 1  # the JAX prefix sum's length
+            if n_cs <= 13:
+                return (float(_dirty_bytes(b).any()), 0.0)
             # byte granularity: 1 byte = 2 bases. Unit key bases 7..19
             # ~ bytes 3..9; phase W-mer windows ~ 6-byte windows at byte
             # offsets 0..4; position windows: 8 B = 16 bases, 6 B ~ 11.
-            idx = np.arange(0, len(cs) - 13, max(1, len(cs) >> 14))
-            key_d = (cs[idx + 10] - cs[idx + 3]) > 0
+            idx = np.arange(0, n_cs - 13, max(1, n_cs >> 14))
+            d = _dirty_bytes(b[idx[:, None] + np.arange(10)])
+            key_d = d[:, 3:10].any(axis=1)
             phase_c = np.zeros(len(idx), dtype=bool)
-            for d in range(5):
-                phase_c |= (cs[idx + d + 6] - cs[idx + d]) == 0
+            for o in range(5):
+                phase_c |= ~d[:, o : o + 6].any(axis=1)
             w_unit = float((key_d & phase_c).mean())
-            w16 = (cs[idx + 8] - cs[idx]) > 0
-            w11 = (cs[idx + 6] - cs[idx]) > 0
+            w16, w11 = d[:, :8].any(axis=1), d[:, :6].any(axis=1)
             return (w_unit, float((w16 & ~w11).mean()))
         if seq is None or not len(seq):
             return (0.0, 0.0)
-        db = (SCODE[seq] == AMBIG).astype(np.int32)
-        cs = np.concatenate(([0], np.cumsum(db)))
-        if len(cs) <= 27:
-            return (float(db.any()), 0.0)
-        idx = np.arange(0, len(cs) - 27, max(1, len(cs) >> 15))
-        key_d = (cs[idx + 20] - cs[idx + 7]) > 0
+        n_cs = len(seq) + 1
+        if n_cs <= 27:
+            return (float((SCODE[seq] == AMBIG).any()), 0.0)
+        idx = np.arange(0, n_cs - 27, max(1, n_cs >> 15))
+        d = SCODE[seq[idx[:, None] + np.arange(20)]] == AMBIG
+        key_d = d[:, 7:20].any(axis=1)
         phase_c = np.zeros(len(idx), dtype=bool)
-        for d in range(8):
-            phase_c |= (cs[idx + d + 11] - cs[idx + d]) == 0
+        for o in range(8):
+            phase_c |= ~d[:, o : o + 11].any(axis=1)
         w_unit = float((key_d & phase_c).mean())
-        w16 = (cs[idx + 16] - cs[idx]) > 0
-        w11 = (cs[idx + 11] - cs[idx]) > 0
+        w16, w11 = d[:, :16].any(axis=1), d[:, :11].any(axis=1)
         return (w_unit, float((w16 & ~w11).mean()))
+
+    @staticmethod
+    def _run_dirty_pos(items) -> float:
+        """The length-weighted mean of a stream run's records' ``w_pos``
+        rates (``_dirty_of``), which arms K10 for the run
+        (``merpcr_tpu/engine.py:949-962``), in one vectorised pass over the
+        run instead of one call per record: every offset's window flag over
+        the records' packed bytes end to end, then each record's sampled
+        offsets counted (all of them below 2^14 bytes, where the stride is
+        1). The counts are ``_dirty_of``'s integers, and the rates are
+        summed in record order as its loop sums them, so the float is
+        equal."""
+        packed = [p for _, p in items]
+        lens = np.fromiter((len(p) for p in packed), dtype=np.int64, count=len(packed))
+        flags = _window_flags(_dirty_bytes(np.concatenate(packed)))
+        off = np.cumsum(lens) - lens
+        n_cs = lens + 1
+        stride = np.maximum(1, n_cs >> 14)
+        k = np.where(n_cs > 13, -(-(n_cs - 13) // stride), 0)  # sampled offsets
+        hits = np.zeros(len(packed), dtype=np.int64)
+        dense = (k > 0) & (stride == 1)
+        if dense.any():  # contiguous offsets: one segment sum per record
+            bounds = np.stack([off[dense], off[dense] + k[dense]], axis=1).ravel()
+            hits[dense] = np.add.reduceat(flags, bounds, dtype=np.int64)[::2]
+        for i in np.flatnonzero((k > 0) & (stride > 1)).tolist():
+            hits[i] = int(flags[off[i] : off[i] + k[i] * stride[i] : stride[i]].sum())
+        w_pos = 0.0
+        for h, n_k, (seq, _p) in zip(hits.tolist(), k.tolist(), items):
+            w_pos += (h / n_k if n_k else 0.0) * len(seq)
+        return w_pos / sum(len(seq) for seq, _p in items)
 
     def _front_end(self) -> tuple:
         """(strict, strict_n) of the next scan, as the JAX engine decides
@@ -400,82 +466,140 @@ class MerPCR:
                 return b
         return buckets[-1]
 
-    def _scan_plane(self, cfg: ScanConfig, plane_np: np.ndarray,
-                    total_scan: int, stream_len: int, rmeta: np.ndarray,
-                    recmap) -> np.ndarray:
-        """Upload a plane and its record tables, run the kernels over its
-        tiles, and download every tile's hits in one copy; with a mesh, cut
-        the plane into shards first (``sharded_scan_stream``).
+    # Owners (records, stream runs) whose dirty rates and planes the engine
+    # keeps: past this many the cache is cleared (the JAX package's bound)
+    OWNERS_MAX = 64
 
-        Returns an int64 array of shape (n_hits, 7) with columns
-        (pos1, pos2, entry, tile_idx, pair_order, rank, rec), pos1/pos2
-        0-based in the coordinates of record ``rec`` (an rmeta row)."""
+    def _owned(self, arrays: tuple) -> dict:
+        """The cache entry of a record (``arrays``: its packed bytes, or its
+        raw bytes) or a stream run (every item's packed bytes), which repeat
+        searches reuse (``merpcr_tpu/engine.py:492-499``, ``:556-579``): the
+        dirty rates ("dirty"), a run's layout ("layout") and the uploaded
+        planes, keyed by device and the geometry that their bytes depend on.
+        The entry holds ``arrays`` and is found by the identity of every one
+        of them, so an entry is never served to another record, even one of
+        the same length, and no key is an object's id number, which a new
+        object could reuse. Cleared past ``OWNERS_MAX`` owners."""
+        for owners, entry in self._owners:
+            if len(owners) == len(arrays) and all(x is y for x, y in zip(owners, arrays)):
+                return entry
+        if len(self._owners) >= self.OWNERS_MAX:
+            self._owners.clear()
+        entry: dict = {}
+        self._owners.append((arrays, entry))
+        return entry
+
+    def _dispatch_plane(self, cfg: ScanConfig, owned: dict, make_plane,
+                        total_scan: int, stream_len: int, rmeta: np.ndarray,
+                        recmap, n_records: int) -> tuple:
+        """Enqueue the scan of one plane without a host read
+        (``ops.scan.dispatch_stream``, or with a mesh
+        ``parallel.sharded.dispatch_shards``). The plane, and its ``rmeta``
+        and ``recmap``, are uploaded once per device and geometry and kept
+        in ``owned``, so a repeat search with a new -N, -X or -I uploads
+        nothing (a new -M or STS set changes ``lead``/``tail`` and so the
+        plane); ``make_plane()`` builds its host bytes on a miss. Returns
+        the context that ``_collect`` reads."""
         n_tiles = -(-total_scan // cfg.tile_len)
         rt = self._runtime_params()
         if self.mesh is not None:
-            outs = sharded_scan_stream(cfg, self._table, plane_np, rmeta, total_scan,
-                                       stream_len, self.mesh, rt, recmap=recmap,
-                                       tables=self._tables)
-            return self._rows(cfg, n_tiles, len(rmeta), outs)
+            key = (self.mesh, cfg.lead, cfg.tail, cfg.tile_len, cfg.packed, stream_len)
+            up = owned.get(key)
+            if up is None:
+                up = owned[key] = upload_shards(make_plane(), rmeta, recmap, self.mesh)
+            pend = dispatch_shards(cfg, self._table, up, total_scan, stream_len, rt,
+                                   self._tables)
+            return ("mesh", cfg, n_tiles, n_records, pend)
         dev = self.device
-        outs = scan_stream(
-            cfg, self._table, torch.from_numpy(plane_np).to(dev), total_scan,
-            stream_len, torch.from_numpy(rmeta).to(dev),
-            None if recmap is None else torch.from_numpy(recmap).to(dev),
-            rt, n_tiles,
-        )
-        return self._rows(cfg, n_tiles, len(rmeta), outs)
+        key = (dev, cfg.lead, cfg.tail, cfg.tile_len, cfg.packed, stream_len)
+        up = owned.get(key)
+        if up is None:
+            up = owned[key] = (upload(make_plane(), dev), upload(rmeta, dev),
+                               None if recmap is None else upload(recmap, dev))
+        pend = dispatch_stream(cfg, self._table, up[0], total_scan, stream_len, up[1],
+                               up[2], rt, n_tiles)
+        return ("plane", cfg, n_tiles, n_records, pend)
 
-    def _rows(self, cfg: ScanConfig, n_tiles: int, n_records: int, outs) -> np.ndarray:
+    def _collect(self, ctx, n_items: int) -> List[np.ndarray]:
+        """The (n_hits, 6) int64 rows (pos1, pos2, entry, tile_idx,
+        pair_order, rank), 0-based in each record's coordinates, of each of
+        the ``n_items`` records of a dispatched plan item
+        (``merpcr_tpu/engine.py`` ``_collect_record``/``_collect_stream``):
+        the plane's one host read and the reruns of the tiles that passed a
+        buffer, the plane recorded in ``last_scans``. ``ctx``: None (nothing
+        to scan), ("rows", rows) from the host path, or a plane
+        (``_dispatch_plane``)."""
+        if ctx is None:
+            return [np.zeros((0, 6), dtype=np.int64)] * n_items
+        if ctx[0] == "rows":
+            return [ctx[1]]
+        kind, cfg, n_tiles, n_records, pend = ctx
+        if kind == "mesh":
+            outs, reruns = collect_shards(pend, len(self.mesh))
+        else:
+            outs, reruns = collect_stream(pend)
+        rows = self._rows(cfg, n_tiles, n_records, outs, reruns)
+        if n_items == 1:
+            return [rows[:, :6]]
+        # split by record with one stable argsort (:1163-1168); the
+        # emitter re-sorts each record's rows by their unique keys
+        rows = rows[np.argsort(rows[:, 6], kind="stable")]
+        bounds = np.searchsorted(rows[:, 6], np.arange(n_items + 1))
+        return [rows[bounds[i] : bounds[i + 1], :6] for i in range(n_items)]
+
+    def _rows(self, cfg: ScanConfig, n_tiles: int, n_records: int, outs,
+              reruns) -> np.ndarray:
         """Record the plane in ``last_scans`` and stack its tiles' hits as
-        (n_hits, 7) int64 rows; the tile column is the index in ``outs``,
-        the global tile index ``shard * tiles_per_shard + t`` under a mesh."""
+        (n_hits, 7) int64 rows (pos1, pos2, entry, tile_idx, pair_order,
+        rank, rec); the tile column is the index in ``outs``, the global
+        tile index ``shard * tiles_per_shard + t`` under a mesh."""
         shards = 1 if self.mesh is None else len(self.mesh)
-        self.last_scans.append(PlaneScan(cfg, n_tiles, n_records, shards))
+        self.last_scans.append(PlaneScan(cfg, n_tiles, n_records, shards, reruns))
         parts = []
         for t, o in enumerate(outs):
             if o.hit_total:
-                tile = torch.full_like(o.rank, t)
-                parts.append(torch.stack(
-                    [o.pos1, o.pos2, o.entry, tile, o.pair_order, o.rank, o.rec],
-                    dim=1))
+                part = torch.stack([o.pos1, o.pos2, o.entry, torch.full_like(o.rank, t),
+                                    o.pair_order, o.rank, o.rec], dim=1)
+                parts.append(part.cpu())  # a rerun tile's rows are on its device
         if not parts:
             return np.zeros((0, 7), dtype=np.int64)
-        if len({p.device for p in parts}) > 1:  # shards on several devices
-            parts = [p.cpu() for p in parts]
-        return torch.cat(parts).cpu().numpy().astype(np.int64)
+        return torch.cat(parts).numpy().astype(np.int64)
 
-    def _scan_record(self, seq: np.ndarray, packed_rec) -> np.ndarray:
-        """Run the kernels over one record (the record path: a plane of
-        [lead zeros][record][zeros], nibble-packed, or raw bytes when
-        ``packed_rec`` is None); in strict mode the dirty-span filter is
-        armed from this record's own dirty rate
-        (``merpcr_tpu/engine.py:497-504``). The loose and raw paths never
-        arm it, so they skip the dirty-rate sample.
-
-        Returns an int64 array of shape (n_hits, 6) with columns
-        (pos1, pos2, entry, tile_idx, pair_order, rank), 0-based."""
+    def _dispatch_record(self, seq: np.ndarray, packed_rec):
+        """Enqueue one record's scan (``merpcr_tpu/engine.py:471-594``): the
+        record path, a plane of [lead zeros][record][zeros], nibble-packed,
+        or raw bytes when ``packed_rec`` is None. In strict mode the
+        dirty-span filter is armed from this record's own dirty rate
+        (``:492-504``), computed on the first strict search and kept with
+        the plane in the record's cache entry (``_owned``); the loose and
+        raw paths never arm it, so they skip the sample. Returns the
+        context of ``_collect``, None for a record no word fits in."""
         n = len(seq)
         if n <= self.wordsize:  # reference engine.py:458-459 (note <=)
-            return np.zeros((0, 6), dtype=np.int64)
+            return None
         packed = packed_rec is not None
         total_scan = n - self.wordsize + 1
         tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
+        owned = self._owned((packed_rec if packed else seq,))
         dirty_pos = 0.0
         if packed and self._front_end()[0]:
-            dirty_pos = self._quantize_dirty(self._dirty_of(seq, packed_rec)[1])
+            if "dirty" not in owned:
+                owned["dirty"] = self._dirty_of(seq, packed_rec)
+            dirty_pos = self._quantize_dirty(owned["dirty"][1])
         cfg = self._base_config(tile_len, dirty_pos=dirty_pos, packed=packed)
-        n_tiles = -(-total_scan // cfg.tile_len)
-        if self.mesh is not None:
-            outs = sharded_scan_record(cfg, self._table, seq, self.wordsize, self.mesh,
-                                       self._runtime_params(), packed_rec=packed_rec,
-                                       tables=self._tables)
-            return self._rows(cfg, n_tiles, 1, outs)[:, :6]
-        plane = self._plane(packed_rec if packed else seq,
-                            cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
-                            packed=packed)
-        rmeta = np.asarray([[0, n]], dtype=np.int32)
-        return self._scan_plane(cfg, plane, total_scan, n, rmeta, None)[:, :6]
+        data = packed_rec if packed else seq
+
+        def make_plane():
+            if self.mesh is not None:  # (padded_shards, tile_start0, tiles_per_shard)
+                padded, starts, _, tps = shard_planes(cfg, seq, self.wordsize,
+                                                      len(self.mesh), packed_rec)
+                return padded, starts, tps
+            n_tiles = -(-total_scan // cfg.tile_len)
+            return self._plane(data, cfg.lead + n_tiles * cfg.tile_len + cfg.tail, cfg.lead,
+                               packed=packed)
+
+        return self._dispatch_plane(cfg, owned, make_plane, total_scan, n,
+                                    np.asarray([[0, n]], dtype=np.int32), None, 1)
 
     # ---------------------------------------------------------- stream path
     # Limits of one stream plane (the JAX package's): records per run and
@@ -542,12 +666,18 @@ class MerPCR:
         flush()
         return plan
 
-    def _stream_plane(self, items):
-        """Lay a run of records out as one stream plane
-        (``merpcr_tpu/engine.py:904-1001``). Returns (cfg, plane uint8,
-        total_scan, stream_len, rmeta, recmap), or None when no position
-        of the run can be scanned (every record shorter than a word)."""
-        rmeta, stream_len = self._stream_layout(items)
+    def _stream_geometry(self, items):
+        """(cfg, total_scan, stream_len, rmeta, recmap, cache entry) of a
+        run of records laid out as one stream plane
+        (``merpcr_tpu/engine.py:904-985``), or None when no position of the
+        run can be scanned (every record shorter than a word). The layout
+        and the run's dirty rate come from the run's cache entry
+        (``_owned``) after the first search."""
+        owned = self._owned(tuple(p for _s, p in items))
+        if "layout" not in owned:
+            rmeta, stream_len = self._stream_layout(items)
+            owned["layout"] = (rmeta, stream_len, self._recmap(rmeta, stream_len))
+        rmeta, stream_len, recmap = owned["layout"]
         total_scan = stream_len - self.wordsize + 1
         if total_scan <= 0:
             return None
@@ -555,52 +685,79 @@ class MerPCR:
         # only the strict path reads (K10)
         w_pos = 0.0
         if self._front_end()[0]:
-            for seq, packed in items:
-                w_pos += self._dirty_of(seq, packed)[1] * len(seq)
-            w_pos /= sum(len(seq) for seq, _p in items)
+            if "dirty" not in owned:
+                owned["dirty"] = self._run_dirty_pos(items)
+            w_pos = owned["dirty"]
         tile_len = self._tile_len_override or self._pick_tile_len(
             total_scan, max_tile=STREAM_MAX_TILE)
         cfg = self._base_config(tile_len, stream=True,
                                 dirty_pos=self._quantize_dirty(w_pos))
+        return cfg, total_scan, stream_len, rmeta, recmap, owned
+
+    @staticmethod
+    def _stream_bytes(cfg: ScanConfig, items, rmeta: np.ndarray,
+                      total_scan: int) -> np.ndarray:
+        """The host bytes of a stream plane: gaps, lead and tail are 0xFF
+        (dirty nibbles), so no scan window crosses a record boundary;
+        record starts are byte-aligned."""
         L = cfg.tile_len
         n_tiles = -(-total_scan // L)
-        # gaps, lead and tail are 0xFF (dirty nibbles), so no scan window
-        # crosses a record boundary; record starts are byte-aligned
         plane = np.full((cfg.lead + n_tiles * L + cfg.tail) // 2, 0xFF, np.uint8)
         lead_b = cfg.lead // 2
         for (_seq, packed), start in zip(items, rmeta[:, 0]):
             b0 = lead_b + int(start) // 2
             plane[b0 : b0 + len(packed)] = packed
-        return cfg, plane, total_scan, stream_len, rmeta, self._recmap(rmeta, stream_len)
+        return plane
 
-    def _scan_stream(self, items) -> List[np.ndarray]:
-        """Scan a run of records as one plane (``merpcr_tpu/engine.py``
-        ``_dispatch_stream``/``_collect_stream``, without capacities,
-        rescans or caches). Returns one (n_hits, 6) row array per item."""
-        laid = self._stream_plane(items)
+    def _stream_plane(self, items):
+        """Lay a run of records out as one stream plane
+        (``merpcr_tpu/engine.py:904-1001``). Returns (cfg, plane uint8,
+        total_scan, stream_len, rmeta, recmap), or None when no position
+        of the run can be scanned (every record shorter than a word)."""
+        laid = self._stream_geometry(items)
         if laid is None:
-            return [np.zeros((0, 6), dtype=np.int64)] * len(items)
-        rows = self._scan_plane(*laid)
-        # split by record with one stable argsort (:1163-1168); the
-        # emitter re-sorts each record's rows by their unique keys
-        rows = rows[np.argsort(rows[:, 6], kind="stable")]
-        bounds = np.searchsorted(rows[:, 6], np.arange(len(items) + 1))
-        return [rows[bounds[i] : bounds[i + 1], :6] for i in range(len(items))]
+            return None
+        cfg, total_scan, stream_len, rmeta, recmap, _ = laid
+        return (cfg, self._stream_bytes(cfg, items, rmeta, total_scan), total_scan,
+                stream_len, rmeta, recmap)
 
-    def _search_record(self, rec: FASTARecord, host: bool) -> np.ndarray:
-        """(n_hits, 6) rows of one record: on the host (``ops.host_scan``)
-        when ``host`` is set and the record stays within its caps, else on
-        the record path's kernels (``merpcr_tpu/engine.py:1493-1509``). A
-        host-path record touches no device table, no front-end choice and
-        no dirty-rate sample, and adds nothing to ``last_scans``."""
+    def _dispatch_stream(self, items):
+        """Enqueue a run of records as one plane (``merpcr_tpu/engine.py``
+        ``_dispatch_stream``, without capacities or rescans); the context
+        of ``_collect``, None when nothing of the run can be scanned."""
+        laid = self._stream_geometry(items)
+        if laid is None:
+            return None
+        cfg, total_scan, stream_len, rmeta, recmap, owned = laid
+
+        def make_plane():
+            plane = self._stream_bytes(cfg, items, rmeta, total_scan)
+            if self.mesh is None:
+                return plane
+            return shard_stream_planes(cfg, plane, total_scan, len(self.mesh))
+
+        return self._dispatch_plane(cfg, owned, make_plane, total_scan, stream_len,
+                                    rmeta, recmap, len(items))
+
+    def _dispatch_item(self, fasta_records, item):
+        """Dispatch one plan item (``merpcr_tpu/engine.py:1493-1515``): a
+        host-path record is scanned here, in NumPy (``ops.host_scan``),
+        unless it passes that path's caps, which sends it to the record
+        path's kernels; a host-path record touches no device table, no
+        front-end choice and no dirty-rate sample, and adds nothing to
+        ``last_scans``. Other items enqueue their plane. Returns the context
+        of ``_collect``."""
+        if item[0] == "stream":
+            return self._dispatch_stream(item[2])
+        rec = fasta_records[item[1]]
         seq = record_seq_bytes(rec)
-        if host:
+        if item[0] == "host":
             rows = host_scan_record(self._table_host, self._meta, seq, self.margin,
                                     self.mismatches, self.three_prime_match)
             if rows is not None:
-                return rows
+                return ("rows", rows)
         packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
-        return self._scan_record(seq, packed)
+        return self._dispatch_record(seq, packed)
 
     def search(
         self, fasta_records: List[FASTARecord], output_file: Optional[str] = None
@@ -613,7 +770,9 @@ class MerPCR:
         (read at every search; default 2,000,000), without a mesh or
         several processes, and while the table is not on the engine's
         device, each record is scanned in NumPy on its own, and a record
-        past the host path's caps falls back to the kernels.
+        past the host path's caps falls back to the kernels. Plan items are
+        dispatched one ahead of their collection, so the next item's host
+        work overlaps this one's kernels; output stays in FASTA order.
         ``MERPCR_TPU_TRACE`` naming a directory wraps the search in
         ``torch.profiler`` and writes a Chrome trace there
         (``merpcr_tpu/engine.py:1411-1419``)."""
@@ -644,7 +803,6 @@ class MerPCR:
         total_bp = 0
         have_table = self._meta is not None and self._meta.n_entries > 0
         self.last_scans = []
-        empty = np.zeros((0, 6), dtype=np.int64)
         log_debug = logger.isEnabledFor(logging.DEBUG)
         try:
             host_max = int(os.environ.get("MERPCR_TPU_HOST_MAX", "2000000"))
@@ -659,15 +817,18 @@ class MerPCR:
                 plan = self._plan(fasta_records)
             else:
                 plan = [("single", i) for i in range(len(fasta_records))]
-            for item in plan:
+            # depth-1 prefetch (merpcr_tpu/engine.py:1519-1532): the next
+            # item's host preparation and dispatch overlap this item's
+            # device work; collect reads each plane once, in plan order
+            dispatch = (functools.partial(self._dispatch_item, fasta_records)
+                        if have_table else lambda item: None)
+            ctx_next = dispatch(plan[0]) if plan else None
+            for pi, item in enumerate(plan):
                 t0 = time.time()
-                if item[0] == "stream":
-                    idxs, arrs = item[1], self._scan_stream(item[2])
-                else:
-                    arr = empty
-                    if have_table:
-                        arr = self._search_record(fasta_records[item[1]], item[0] == "host")
-                    idxs, arrs = [item[1]], [arr]
+                ctx = ctx_next
+                ctx_next = dispatch(plan[pi + 1]) if pi + 1 < len(plan) else None
+                idxs = item[1] if item[0] == "stream" else [item[1]]
+                arrs = self._collect(ctx, len(idxs))
                 for j, arr in zip(idxs, arrs):
                     record = fasta_records[j]
                     seq_label = record.label

@@ -68,7 +68,9 @@ def _make_record(defline_bytes: bytes, seg: np.ndarray) -> FASTARecord:
         defline=defline_bytes.strip().decode("latin-1"),
         sequence=filtered.tobytes().decode("latin-1"),
     )
-    rec._seq_bytes = filtered  # device-path fast access; str kept for API
+    # device-path fast access, held with the str it was made from (see
+    # record_seq_bytes); the str is kept for the API
+    rec._seq_bytes = (rec.sequence, filtered)
     return rec
 
 
@@ -131,13 +133,21 @@ def _parse_lines(data: bytes) -> List[FASTARecord]:
 
 
 def record_seq_bytes(record: FASTARecord) -> np.ndarray:
-    """uint8 view of a record's sequence (cached by the loader when possible)."""
+    """uint8 view of a record's sequence, cached on the instance (the loader
+    sets it; a record made through the API gets it on first use), so that a
+    record's bytes are one array across searches, the key of the engine's
+    caches of its raw-byte planes. The cache holds the ``sequence`` string
+    it was made from and is used only while ``record.sequence`` is that very
+    object (a str is immutable): a record given new bases, even of the same
+    length, is encoded anew."""
     cached = getattr(record, "_seq_bytes", None)
-    if cached is not None and len(cached) == len(record.sequence):
-        return cached
-    return np.frombuffer(
+    if cached is not None and cached[0] is record.sequence:
+        return cached[1]
+    seq = np.frombuffer(
         record.sequence.encode("latin-1", errors="replace"), dtype=np.uint8
     )
+    record._seq_bytes = (record.sequence, seq)
+    return seq
 
 
 def record_packed(record: FASTARecord):
@@ -148,8 +158,9 @@ def record_packed(record: FASTARecord):
     array holds the record's 4-bit codes two-per-byte starting at an even
     position boundary (one trailing pad nibble for odd lengths).
     """
+    seq = record_seq_bytes(record)
     cached = getattr(record, "_packed_cache", None)
-    if cached is not None and cached[0] == len(record.sequence):
+    if cached is not None and cached[0] is seq:  # same string, see above
         return cached[1]
     # deferred imports (native ctypes lib): resolved once, then cached on
     # the module so the per-record fast path above stays import-free —
@@ -160,9 +171,8 @@ def record_packed(record: FASTARecord):
         from ..ops.encoding import NIB_LUT as _lut_
 
         _nibble_pack, _NIB_LUT = _np_, _lut_
-    seq = record_seq_bytes(record)
     packed = _nibble_pack(seq, _NIB_LUT)
-    record._packed_cache = (len(seq), packed)
+    record._packed_cache = (seq, packed)
     return packed
 
 

@@ -56,8 +56,11 @@ memory, so the one host read is a stream synchronise (beside them the
 tile's front-end flag count, which that kernel leaves in the scan state
 for ``front_end.flag_count``). Past that capacity
 a second launch writes the pairs from the stored lanes into buffers of
-exactly ``pair_total`` entries. The lane buffers are scratch of 12 bytes
-per scan position of the tile. On the card it is bound by launch latency
+exactly ``pair_total`` entries. Given ``totals``, the wrappers make the
+same launch for the deferred tile scan (``ops.scan.dispatch_stream``):
+the totals go to device memory, nothing is read, and a tile whose pairs
+pass the buffer is rerun by the deferred scan. The lane buffers are scratch of
+12 bytes per scan position of the tile. On the card it is bound by launch latency
 and dependent gathers: only flagged items (a few per 10^3-10^4 on a clean
 genome) gather from ``ptab``, ``t16`` and the CSR. ``expand_plain``,
 ``expand_loose_plain`` and ``expand_raw_plain`` are the same functions in
@@ -78,8 +81,17 @@ CSR_ROWS, CSR_STARTS, CSR_SEARCH = 0, 1, 2
 # item modes of the kernel's C entries: units, stride groups, raw positions
 STRICT, LOOSE, RAW = 0, 1, 2
 # the one-launch path writes up to tile_len / PAIRS_PER_CAP pairs (at least
-# 1024); more take a second launch
+# 1024); more take a second launch (``pair_cap``)
 PAIRS_PER_CAP = 16
+# a test's smaller pair buffer (None: ``pair_cap``'s rule), to reach the
+# second launch and the deferred scan's rerun on small inputs
+_pair_cap_override = None
+
+
+def pair_cap(tile_len: int) -> int:
+    """Pairs of the first launch's buffers for a tile of ``tile_len``
+    positions: tile_len / PAIRS_PER_CAP, at least 1024."""
+    return _pair_cap_override or max(1024, tile_len // PAIRS_PER_CAP)
 
 
 def _csr_kind(csr) -> int:
@@ -265,18 +277,23 @@ def _csr_tensors(csr) -> tuple:
 def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
             csr, n_entries: int, wordsize: int, lead: int, tile_len: int,
             n_scan: int, bloom, bloom_bits: int, stride: int,
-            exact_group: bool):
+            exact_group: bool, totals=None):
     """One launch of ``csrc/expand.cu`` and one host read of (pos_total,
     pair_total); the pairs are the first pair_total entries of buffers of
     ``cap`` pairs, or, past ``cap``, a second launch writes them into
     buffers of exactly pair_total entries. ``mode``: STRICT (units), LOOSE
     (stride groups) or RAW (flag words of a byte plane, 32 positions each;
-    no ptab, t16 or bloom)."""
+    no ptab, t16 or bloom). With ``totals`` (the deferred mode) the kernel
+    writes (c_total, pos_total, pair_total) into its first three device
+    ints and the call returns the buffers of ``cap`` pairs, reading
+    nothing."""
     kind = _csr_kind(csr)
     keys, *rest = _csr_tensors(csr)
     for t, name in ((words, "words"), (keys, "csr"), *((t, "ustart") for t in rest)):
         require(t, torch.int32, name)
     require(tile, torch.uint8, "tile")
+    if totals is not None:
+        require(totals, torch.int32, "totals")
     if mode != RAW:
         require(ptab, torch.int32, "ptab")
         if stride not in (2, 4):
@@ -314,17 +331,18 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     lane_ppos, lane_start, lane_off = (lanes[k * tile_len : (k + 1) * tile_len]
                                        for k in range(3))
     blk = lanes[3 * tile_len :]  # (lanes, pair base) per tile
-    cap = max(1024, tile_len // PAIRS_PER_CAP)
+    cap = pair_cap(tile_len)
     entry = torch.empty(cap, dtype=torch.int32, device=dev)
     ppos = torch.empty(cap, dtype=torch.int32, device=dev)
     fn = kernels.function(
         "expand", "mp_expand",
         [P, P, P, I, P, I, I, P, P, I, I, P, I, I, I, I, I, I,
-         P, P, I, P, P, P, P, P, P, I, P, P])
+         P, P, I, P, P, P, P, P, P, I, P, I, P])
     with kernels.on_device(tile):
         s = kernels.stream(tile)
         st = kernels.scan_state(tile)
         seq = st.tag(n_tiles)
+        out = st.host if totals is None else totals
         kernels.call(
             fn, tile.data_ptr() + first, words.data_ptr(),
             ptab.data_ptr() if exact_group else None, pf_bits,
@@ -335,7 +353,10 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
             2 * wordsize - bloom_bits, wordsize, stride, n_words, n_scan, mode,
             st.ticket.data_ptr(), st.status.data_ptr(), seq, lane_ppos.data_ptr(),
             lane_start.data_ptr(), lane_off.data_ptr(), blk.data_ptr(),
-            entry.data_ptr(), ppos.data_ptr(), cap, st.host.data_ptr(), s)
+            entry.data_ptr(), ppos.data_ptr(), cap, out.data_ptr(),
+            int(totals is not None), s)
+        if totals is not None:
+            return entry, ppos
         pos_total, pair_total = st.read(2)
         if pair_total <= cap:
             return entry[:pair_total], ppos[:pair_total], pos_total, pair_total
@@ -349,10 +370,20 @@ def _launch(mode: int, tile, words, ptab, pf_bits: int, t16, t16_bits: int,
     return entry, ppos, pos_total, pair_total
 
 
+def deferred_plain(out, c_total, totals, tile_len: int):
+    """A plain version's ``out`` (entry, ppos, pos_total, pair_total) under
+    the deferred mode's buffer contract: (c_total, pos_total, pair_total)
+    into totals[0:3], at most ``pair_cap(tile_len)`` pairs kept."""
+    entry, ppos, pos_total, pair_total = out
+    totals[0], totals[1], totals[2] = int(c_total[0]), pos_total, pair_total
+    cap = pair_cap(tile_len)
+    return entry[:cap], ppos[:cap]
+
+
 def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
            n_entries: int, wordsize: int, lead: int, tile_len: int,
            n_scan: int, stride: int, exact_group: bool, bloom=None,
-           bloom_bits: int = 0):
+           bloom_bits: int = 0, totals=None, c_total=None):
     """Candidate pairs of one tile's strict-flagged units: the CUDA kernel
     for tensors on the card, ``expand_plain`` for CPU tensors.
 
@@ -363,45 +394,61 @@ def expand(tile, words, ptab, pf_bits: int, t16, t16_bits: int, csr,
     ``bstart`` int32[4^W + 1] or the pair (``uhash``, ``ustart``)
     (``Table.csr``); ``bloom``: int32 words of the 2^bloom_bits-bit W-mer
     occupancy map, or None to leave the dirty-span filter (K10) off;
-    ``stride``: scan positions per ptab group. Returns (entry, ppos,
-    pos_total, pair_total)."""
-    tables = (ptab, t16, *_csr_tensors(csr)) + (() if bloom is None else (bloom,))
+    ``stride``: scan positions per ptab group.
+
+    ``totals`` None (count first): returns (entry, ppos, pos_total,
+    pair_total) after one host read. ``totals`` given (the deferred mode of
+    the tile scan, ``ops.scan``): the tile's five int32 totals on its
+    device; one launch and no host read: the kernel writes (c_total,
+    pos_total, pair_total) into totals[0:3], taking c_total from the scan
+    state where the front end left it (on the CPU ``c_total``, the front
+    end's count tensor, is read), and the call returns (entry, ppos),
+    buffers of ``pair_cap(tile_len)`` pairs whose first min(pair_total,
+    cap) entries are the pairs (a tile past cap is the deferred scan's to
+    rerun). ``expand.launches`` counts the count-first launches,
+    ``expand.launches_deferred`` the deferred ones."""
+    tables = (ptab, t16, *_csr_tensors(csr)) + tuple(
+        t for t in (bloom, totals) if t is not None)
     if not kernel_route(tile, words, *tables):
-        return expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, csr,
-                            n_entries, wordsize, lead, tile_len, n_scan,
-                            stride, exact_group, bloom, bloom_bits)
+        out = expand_plain(tile, words, ptab, pf_bits, t16, t16_bits, csr,
+                           n_entries, wordsize, lead, tile_len, n_scan,
+                           stride, exact_group, bloom, bloom_bits)
+        return out if totals is None else deferred_plain(out, c_total, totals, tile_len)
     out = _launch(STRICT, tile, words, ptab, pf_bits, t16, t16_bits, csr,
                   n_entries, wordsize, lead, tile_len, n_scan, bloom,
-                  bloom_bits, stride, exact_group)
-    expand.launches += 1
+                  bloom_bits, stride, exact_group, totals)
+    kernels.count_launch(expand, totals is not None)
     return out
 
 
-expand.launches = 0
+expand.launches = expand.launches_deferred = 0
 
 
 def expand_loose(tile, words, ptab, pf_bits: int, csr, n_entries: int,
                  wordsize: int, lead: int, tile_len: int, n_scan: int,
-                 stride: int, exact_group: bool):
+                 stride: int, exact_group: bool, totals=None, c_total=None):
     """Candidate pairs of one tile's loose-flagged stride groups (the
     loose branch of K3 with K5): the CUDA kernel for tensors on the card,
     ``expand_loose_plain`` for CPU tensors.
 
     ``words``: the tile's group-ordered flag words from
-    ``front_end_loose``; ``csr`` as for ``expand``. Returns (entry, ppos,
-    pos_total, pair_total), the pairs in (group, phase, bucket slot)
+    ``front_end_loose``; ``csr``, ``totals``, ``c_total``, the result and
+    the counts as for ``expand``, the pairs in (group, phase, bucket slot)
     order."""
-    if not kernel_route(tile, words, ptab, *_csr_tensors(csr)):
-        return expand_loose_plain(tile, words, ptab, pf_bits, csr, n_entries,
-                                  wordsize, lead, tile_len, n_scan, stride,
-                                  exact_group)
+    extra = () if totals is None else (totals,)
+    if not kernel_route(tile, words, ptab, *_csr_tensors(csr), *extra):
+        out = expand_loose_plain(tile, words, ptab, pf_bits, csr, n_entries,
+                                 wordsize, lead, tile_len, n_scan, stride,
+                                 exact_group)
+        return out if totals is None else deferred_plain(out, c_total, totals, tile_len)
     out = _launch(LOOSE, tile, words, ptab, pf_bits, None, 0, csr, n_entries,
-                  wordsize, lead, tile_len, n_scan, None, 0, stride, exact_group)
-    expand_loose.launches += 1
+                  wordsize, lead, tile_len, n_scan, None, 0, stride, exact_group,
+                  totals)
+    kernels.count_launch(expand_loose, totals is not None)
     return out
 
 
-expand_loose.launches = 0
+expand_loose.launches = expand_loose.launches_deferred = 0
 
 
 def expand_raw_plain(tile, words, csr, n_entries: int, wordsize: int,
@@ -417,22 +464,25 @@ def expand_raw_plain(tile, words, csr, n_entries: int, wordsize: int,
 
 
 def expand_raw(tile, words, csr, n_entries: int, wordsize: int, lead: int,
-               tile_len: int, n_scan: int):
+               tile_len: int, n_scan: int, totals=None, c_total=None):
     """K9b: candidate pairs of a raw-byte tile (one byte per position), the
     CUDA kernel (the raw mode of ``csrc/expand.cu``) for tensors on the
     card, ``expand_raw_plain`` for CPU tensors.
 
     ``words``: the tile's flag words from ``front_end_raw``, one bit per
-    position; ``csr`` as for ``expand``. Returns (entry, ppos, pos_total,
-    pair_total) in (position, bucket slot) order; ``pos_total`` is 0, as
-    in the JAX totals of this path (``scan.py:967``)."""
-    if not kernel_route(tile, words, *_csr_tensors(csr)):
-        return expand_raw_plain(tile, words, csr, n_entries, wordsize, lead,
-                                tile_len, n_scan)
+    position; ``csr``, ``totals``, ``c_total``, the result and the counts
+    as for ``expand``, the pairs in (position, bucket slot) order;
+    ``pos_total`` is 0, as in the JAX totals of this path
+    (``scan.py:967``)."""
+    extra = () if totals is None else (totals,)
+    if not kernel_route(tile, words, *_csr_tensors(csr), *extra):
+        out = expand_raw_plain(tile, words, csr, n_entries, wordsize, lead,
+                               tile_len, n_scan)
+        return out if totals is None else deferred_plain(out, c_total, totals, tile_len)
     out = _launch(RAW, tile, words, None, 0, None, 0, csr, n_entries, wordsize,
-                  lead, tile_len, n_scan, None, 0, 1, False)
-    expand_raw.launches += 1
+                  lead, tile_len, n_scan, None, 0, 1, False, totals)
+    kernels.count_launch(expand_raw, totals is not None)
     return out
 
 
-expand_raw.launches = 0
+expand_raw.launches = expand_raw.launches_deferred = 0

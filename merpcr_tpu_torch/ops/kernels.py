@@ -159,7 +159,8 @@ class ScanState:
     end's c_total, which ``expand`` writes with its totals in one
     16-byte store (a pinned allocation is page-aligned).
     ``ticket`` and ``status`` are zeroed once, when they are made or
-    grown."""
+    grown. ``reads`` counts the host's waits on the card: each ``read``,
+    and each ``wait`` of the deferred tile scan's collect."""
 
     SEQ_MAX = (1 << 31) - 1  # a tag has 31 bits (compact.cuh)
 
@@ -171,6 +172,7 @@ class ScanState:
         if self.host.data_ptr() % 16:  # expand stores its totals as one int4
             raise RuntimeError("pinned totals are not 16-byte aligned")
         self.seq = 0
+        self.reads = 0
 
     def tag(self, n_tiles: int) -> int:
         """A fresh sequence number for a launch over ``n_tiles`` tiles (the
@@ -186,10 +188,27 @@ class ScanState:
         """The first ``count`` host words, once the stream's kernels are
         done: the call's one host read."""
         torch.cuda.current_stream(self.device).synchronize()
+        self.reads += 1
         return self.host[:count].tolist()
+
+    def wait(self, event) -> None:
+        """Wait for ``event``, which follows the deferred scan's copy of
+        a plane's totals and rows: the plane's one host read."""
+        event.synchronize()
+        self.reads += 1
 
 
 _STATES: dict = {}
+
+
+def count_launch(wrapper, deferred: bool) -> None:
+    """Count one launch of ``wrapper``'s kernel: in ``wrapper.launches``
+    for its count-first mode, in ``wrapper.launches_deferred`` for the
+    deferred mode of the tile scan (``ops.scan.dispatch_stream``)."""
+    if deferred:
+        wrapper.launches_deferred += 1
+    else:
+        wrapper.launches += 1
 
 
 def scan_state(t: torch.Tensor) -> ScanState:

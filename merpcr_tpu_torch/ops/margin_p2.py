@@ -38,8 +38,15 @@ site by site at -I 1 and on raw planes, and the rows compacted in
 of ``csrc/compact.cuh``. The kernel writes ``hit_total`` into pinned host
 memory, so the one host read is a stream synchronise. Rows go into a
 buffer of at most ``ROW_CAP`` rows; more hits take a second launch into a
-buffer of exactly ``hit_total`` rows. The kernel keeps nothing per
-(anchor, rank) item, so a launch takes any number of anchors and ranks;
+buffer of exactly ``hit_total`` rows. Given ``totals`` and ``rows``, the
+wrappers launch the same kernel for the deferred tile scan (``ops.scan``):
+it reads the anchor count that ``verify_p1`` left on the card, covers the
+anchor buffer's capacity with as many blocks as the card holds at once,
+which loop over the anchors, writes
+``hit_total`` to device memory and at most ``ROW_CAP`` rows into the
+scan's buffer, with no host read; the deferred scan reruns a tile past
+it. The kernel keeps nothing per (anchor, rank) item, so a launch takes
+any number of anchors and ranks;
 the plain version, whose [anchors, ranks, P2MAX] temporaries are int64,
 goes through the anchors in chunks of at most ``PLAIN_MAX_ITEMS`` items
 and concatenates their rows, which chunk order keeps in (anchor, rank)
@@ -152,17 +159,27 @@ def _margin_rows(tile, a_idx, entry, ppos, emeta, p_max: int, matches,
 
 def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
             match, tile_start: int, rmeta, recmap, lead: int, margin: int,
-            mismatches: int, three_prime: int):
+            mismatches: int, three_prime: int, totals, rows):
     """One kernel launch (a block per anchor) into a buffer of a row per
     (anchor, rank) item, at most ``ROW_CAP`` rows, then the one host read of
     ``hit_total`` (a pinned word the kernel writes); past the buffer a
-    second launch into one of exactly ``hit_total`` rows. ``wrapper.launches`` counts the launches
-    (none without anchors). ``p2``: primer codes (nibble plane) or bytes
-    (``raw``)."""
+    second launch into one of exactly ``hit_total`` rows.
+    ``kernels.count_launch`` counts the launches (none without anchors).
+    ``p2``: primer codes (nibble plane) or bytes (``raw``). With ``totals``
+    (the deferred mode) the anchors are the first totals[3] of ``a_idx``,
+    read on the card by as many blocks as the card holds at once, which
+    loop over them; the kernel writes hit_total into totals[4] and at most
+    ``len(rows)`` rows into ``rows``, and the call reads nothing."""
     require(tile, torch.uint8, "tile")
     for t, name in ((a_idx, "a_idx"), (entry, "entry"), (ppos, "ppos"),
                     (emeta, "emeta")):
         require(t, torch.int32, name)
+    deferred = totals is not None
+    if deferred:
+        require(totals, torch.int32, "totals")
+        require(rows, torch.int32, "rows")
+        if rows.dim() != 2 or rows.shape[1] != 6 or not rows.is_contiguous():
+            raise ValueError("rows is not a contiguous int32[cap, 6] buffer")
     check_codes(p2, p2_exp, "p2")
     check_match(match)
     check_records(rmeta, recmap)
@@ -177,9 +194,11 @@ def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
     P, I, LL = kernels.P, kernels.I, kernels.LL
     fn = kernels.function(
         "margin_p2", "mp_margin_p2",
-        [P, LL, I, P, I, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I, P, P, I, P, I, P, P])
+        [P, LL, I, P, I, P, P, P, P, P, P, P, I, LL, P, P, LL, I, I, I, I, P, P, I, P, I, P,
+         P])
     args = (tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
-            a_idx.data_ptr(), n_anch, entry.data_ptr(), ppos.data_ptr(),
+            a_idx.data_ptr(), n_anch, totals[3:].data_ptr() if deferred else None,
+            entry.data_ptr(), ppos.data_ptr(),
             emeta.data_ptr(), p2.data_ptr(),
             None if p2_exp is None else p2_exp.data_ptr(),
             None if match is None else match.data_ptr(), p2.shape[1],
@@ -188,62 +207,103 @@ def _launch(wrapper, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2_exp,
     with kernels.on_device(tile):
         st = kernels.scan_state(tile)
 
-        def launch(cap: int):
-            rows = torch.empty((cap, 6), dtype=torch.int32, device=dev)
+        def launch(rows, hit_total):
             seq = st.tag(n_anch)
             kernels.call(fn, *args, st.ticket.data_ptr(), st.status.data_ptr(), seq,
-                         rows.data_ptr(), cap, st.host.data_ptr(), kernels.stream(tile))
-            wrapper.launches += 1
+                         rows.data_ptr(), rows.shape[0], hit_total.data_ptr(),
+                         kernels.stream(tile))
+            kernels.count_launch(wrapper, deferred)
+
+        if deferred:
+            launch(rows, totals[4:])
+            return rows
+
+        def counted(cap: int):
+            rows = torch.empty((cap, 6), dtype=torch.int32, device=dev)
+            launch(rows, st.host)
             (hit_total,) = st.read(1)
             return rows, hit_total
 
-        rows, hit_total = launch(min(n_anch * (2 * margin + 1), ROW_CAP))
+        rows, hit_total = counted(min(n_anch * (2 * margin + 1), ROW_CAP))
         if hit_total > rows.shape[0]:
-            rows, _ = launch(hit_total)
+            rows, _ = counted(hit_total)
     return rows[:hit_total]
+
+
+def deferred_plain(margin_fn, tile, a_idx, totals, rows, *args):
+    """``margin_fn`` (a plain version) under the deferred mode's buffer
+    contract: the first totals[3] anchors, hit_total into totals[4], at
+    most ``len(rows)`` rows kept in ``rows``, which it returns."""
+    got = margin_fn(tile, a_idx[: int(totals[3])], *args)
+    totals[4] = got.shape[0]
+    kept = got[: rows.shape[0]]
+    rows[: kept.shape[0]] = kept
+    return rows
+
+
+def _route(wrapper, plain, raw: bool, tile, a_idx, entry, ppos, emeta, p2, p2x,
+           tile_start: int, rmeta, recmap, lead: int, margin: int, mismatches: int,
+           three_prime: int, totals, rows):
+    """The kernel for tensors on the card, ``plain`` for CPU tensors (under
+    the deferred buffer contract when ``totals`` is given). ``p2x``: the
+    -I 1 table (``p2_exp``, or ``match`` when ``raw``), None at -I 0."""
+    if (totals is None) != (rows is None):
+        raise ValueError("the deferred mode takes both totals and rows")
+    extra = tuple(t for t in (p2x, recmap, totals, rows) if t is not None)
+    if kernel_route(tile, a_idx, entry, ppos, emeta, p2, rmeta, *extra):
+        return _launch(wrapper, raw, tile, a_idx, entry, ppos, emeta, p2,
+                       None if raw else p2x, p2x if raw else None, tile_start, rmeta,
+                       recmap, lead, margin, mismatches, three_prime, totals, rows)
+    args = (entry, ppos, emeta, p2, p2x, tile_start, rmeta, recmap, lead, margin,
+            mismatches, three_prime)
+    if totals is None:
+        return plain(tile, a_idx, *args)
+    return deferred_plain(plain, tile, a_idx, totals, rows, *args)
 
 
 def margin_p2(tile, a_idx, entry, ppos, emeta, p2_codes, p2_exp,
               tile_start: int, rmeta, recmap, lead: int, margin: int,
-              mismatches: int, three_prime: int):
+              mismatches: int, three_prime: int, totals=None, rows=None):
     """Hit rows of one tile: the CUDA kernel for tensors on the card,
     ``margin_p2_plain`` for CPU tensors.
 
     ``a_idx``: int32 anchor pair indices from ``verify_p1``; ``entry``/
     ``ppos``: the tile's pairs; ``p2_codes``: uint8[E, P2MAX];
     ``p2_exp``: int32[E, P2MAX] IUPAC masks for -I 1, or None;
-    ``rmeta``/``recmap``: the plane's records (``units.records_at``)."""
-    extra = tuple(t for t in (p2_exp, recmap) if t is not None)
-    if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_codes, rmeta, *extra):
-        return margin_p2_plain(tile, a_idx, entry, ppos, emeta, p2_codes,
-                               p2_exp, tile_start, rmeta, recmap, lead,
-                               margin, mismatches, three_prime)
-    return _launch(margin_p2, False, tile, a_idx, entry, ppos, emeta, p2_codes,
-                   p2_exp, None, tile_start, rmeta, recmap, lead, margin,
-                   mismatches, three_prime)
+    ``rmeta``/``recmap``: the plane's records (``units.records_at``).
+
+    ``totals`` None (count first): returns the rows, after one host read.
+    ``totals`` and ``rows`` given (the deferred mode of the tile scan,
+    ``ops.scan``): the tile's five int32 totals and an int32[cap, 6] row
+    buffer on its device; one launch and no host read: ``a_idx`` is
+    ``verify_p1``'s deferred buffer, whose first totals[3] anchors (read
+    on the card) are scanned, the kernel writes hit_total into totals[4]
+    and the first min(hit_total, cap) rows into ``rows``, which the call
+    returns (a tile past it is the deferred scan's to rerun).
+    ``margin_p2.launches`` counts the count-first launches,
+    ``margin_p2.launches_deferred`` the deferred ones."""
+    return _route(margin_p2, margin_p2_plain, False, tile, a_idx, entry, ppos, emeta,
+                  p2_codes, p2_exp, tile_start, rmeta, recmap, lead, margin, mismatches,
+                  three_prime, totals, rows)
 
 
-margin_p2.launches = 0
+margin_p2.launches = margin_p2.launches_deferred = 0
 
 
 def margin_p2_raw(tile, a_idx, entry, ppos, emeta, p2_bytes, match,
                   tile_start: int, rmeta, recmap, lead: int, margin: int,
-                  mismatches: int, three_prime: int):
+                  mismatches: int, three_prime: int, totals=None, rows=None):
     """K9c: hit rows of one raw-byte tile (one byte per position), the CUDA
     kernel (the byte mode of ``csrc/margin_p2.cu``) for tensors on the
     card, ``margin_p2_raw_plain`` for CPU tensors.
 
     ``p2_bytes``: uint8[E, P2MAX] primer bytes (``Table.p2_bytes``);
     ``match``: uint8[65536] match table (``Table.match``) for -I 1, or None
-    for -I 0; the rest as for ``margin_p2``."""
-    extra = tuple(t for t in (match, recmap) if t is not None)
-    if not kernel_route(tile, a_idx, entry, ppos, emeta, p2_bytes, rmeta, *extra):
-        return margin_p2_raw_plain(tile, a_idx, entry, ppos, emeta, p2_bytes,
-                                   match, tile_start, rmeta, recmap, lead,
-                                   margin, mismatches, three_prime)
-    return _launch(margin_p2_raw, True, tile, a_idx, entry, ppos, emeta,
-                   p2_bytes, None, match, tile_start, rmeta, recmap, lead,
-                   margin, mismatches, three_prime)
+    for -I 0; the rest, ``totals``/``rows`` and the counts as for
+    ``margin_p2``."""
+    return _route(margin_p2_raw, margin_p2_raw_plain, True, tile, a_idx, entry, ppos,
+                  emeta, p2_bytes, match, tile_start, rmeta, recmap, lead, margin,
+                  mismatches, three_prime, totals, rows)
 
 
-margin_p2_raw.launches = 0
+margin_p2_raw.launches = margin_p2_raw.launches_deferred = 0

@@ -27,8 +27,13 @@ candidate its record; and a fourth mode for raw-byte planes (K9,
 byte per position, one record per plane), which scans loose at every -N
 without K10. The JAX program runs fixed-capacity stages inside
 one compiled function per tile and reports overflow through its stage
-totals; here every stage sizes its output from its own count pass, so a
-tile never overflows and carries no capacities.
+totals. Here a tile runs in one of two ways: count first (``scan_tile``,
+``scan_stream``), each stage's output sized from the count the host read
+after the stage before, so a tile never overflows; or deferred
+(``dispatch_stream`` / ``collect_stream``, the engine's path), every tile
+of a plane enqueued with each stage reading the count before it from
+device memory into buffers of fixed capacity, the host reading once per
+plane and rerunning count first the rare tile that passed a buffer.
 
 Per tile, in order (each stage replaces the JAX lines its module names):
 
@@ -62,6 +67,9 @@ from typing import List, NamedTuple
 
 import torch
 
+from . import expand as expand_mod
+from . import kernels
+from . import margin_p2 as margin_p2_mod
 from .expand import expand, expand_loose, expand_raw
 from .front_end import flag_count, front_end, front_end_loose, front_end_raw
 from .margin_p2 import margin_p2, margin_p2_raw
@@ -213,18 +221,7 @@ def record_rmeta(record_len: int, device) -> torch.Tensor:
     return torch.tensor([[0, record_len]], dtype=torch.int32, device=device)
 
 
-def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
-              tile_start: int, n_scan: int, rmeta: torch.Tensor, recmap,
-              rt) -> ScanOut:
-    """Scan one halo-padded tile (``get_scan_fn``'s contract, and with
-    ``cfg.stream`` the tile body of ``get_stream_scan_fn``).
-
-    ``tile``: uint8[cfg.tile_buf_in] plane (nibbles, or with
-    ``cfg.packed`` False one byte per position); ``tile_start``: plane position
-    of local scan position 0; ``n_scan``: valid scan positions (<=
-    tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
-    records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
-    a stream plane, None for one record; ``rt``: runtime (-M, -N, -X)."""
+def _check(cfg: ScanConfig, table: Table, rt) -> None:
     if (cfg.wordsize, cfg.stride, cfg.exact_group) != (
             table.wordsize, table.stride, table.exact_group):
         raise ValueError("the config's word size, stride or group-table kind "
@@ -232,21 +229,30 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
     if cfg.dirty_bloom and (cfg.bloom_bits != table.bloom_bits or not cfg.strict):
         raise ValueError("the dirty-span filter needs the strict front end and "
                          f"the table's bloom ({cfg.bloom_bits} != {table.bloom_bits} bits)")
-    margin, nmm, x = (int(v) for v in rt)
-    if margin > cfg.margin:
-        raise ValueError(f"runtime margin {margin} exceeds the cap {cfg.margin}")
-    n_scan = max(0, min(int(n_scan), cfg.tile_len))
+    if int(rt[0]) > cfg.margin:
+        raise ValueError(f"runtime margin {int(rt[0])} exceeds the cap {cfg.margin}")
+
+
+def _front_and_expand(cfg: ScanConfig, table: Table, tile: torch.Tensor,
+                      n_scan: int, totals=None):
+    """The tile's front end and expansion in the config's mode: strict
+    (K1 + K2-K5, K10), loose (K8) or raw (K9a/b). Count-first (``totals``
+    None): (c_total, (entry, ppos, pos_total, pair_total)); deferred: the
+    expansion's (entry, ppos) buffers, its totals in ``totals``."""
     W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
     n_entries = table.emeta.shape[0]
     if not cfg.packed:
-        return _scan_raw_tile(cfg, table, tile, tile_start, n_scan, rmeta, rt)
-    if not cfg.strict:
+        words, c_total = front_end_raw(tile, table.bloom, table.bloom_bits, W,
+                                       lead, L, n_scan, table.raw_prefilter)
+        fn = expand_raw
+        args = (tile, words, table.csr, n_entries, W, lead, L, n_scan)
+    elif not cfg.strict:
         words, c_total = front_end_loose(tile, table.qbloom, table.q_bits, W,
                                          lead, L, n_scan, cfg.stride,
                                          cfg.qbloom_bits, table.loose_prefilter)
-        entry, ppos, pos_total, pair_total = expand_loose(
-            tile, words, table.ptab, table.pf_bits, table.csr, n_entries, W,
-            lead, L, n_scan, cfg.stride, cfg.exact_group)
+        fn = expand_loose
+        args = (tile, words, table.ptab, table.pf_bits, table.csr, n_entries, W,
+                lead, L, n_scan, cfg.stride, cfg.exact_group)
     else:
         if cfg.strict_n == 1:
             if not table.strict1:
@@ -257,47 +263,77 @@ def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
         if cfg.t16_bits != t16_bits:
             raise ValueError(f"config t16_bits {cfg.t16_bits} != table's {t16_bits}")
         words, c_total = front_end(tile, qb, gq, W, lead, L, n_scan)
-        entry, ppos, pos_total, pair_total = expand(
-            tile, words, table.ptab, table.pf_bits, t16, t16_bits, table.csr,
-            n_entries, W, lead, L, n_scan, cfg.stride, cfg.exact_group,
-            table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits,
-        )
-    p1_exp, p2_exp = (table.p1_exp, table.p2_exp) if cfg.iupac else (None, None)
-    a_idx = verify_p1(tile, entry, ppos, table.emeta, table.p1_codes, p1_exp,
-                      tile_start, rmeta, recmap, lead, nmm, x)
-    rows = margin_p2(tile, a_idx, entry, ppos, table.emeta, table.p2_codes,
-                     p2_exp, tile_start, rmeta, recmap, lead, margin, nmm, x)
+        fn = expand
+        args = (tile, words, table.ptab, table.pf_bits, t16, t16_bits, table.csr,
+                n_entries, W, lead, L, n_scan, cfg.stride, cfg.exact_group,
+                table.bloom if cfg.dirty_bloom else None, cfg.bloom_bits)
+    if totals is None:
+        return c_total, fn(*args)
+    return fn(*args, totals=totals, c_total=c_total)
+
+
+def _primers(cfg: ScanConfig, table: Table) -> tuple:
+    """(p1, p1 -I 1 table, p2, p2 -I 1 table) of the verifies: codes and
+    expansion masks on a nibble plane, bytes and the match table on a raw
+    one (K9c); the -I 1 tables are None at -I 0."""
+    if not cfg.packed:
+        match = table.match if cfg.iupac else None
+        return table.p1_bytes, match, table.p2_bytes, match
+    if cfg.iupac:
+        return table.p1_codes, table.p1_exp, table.p2_codes, table.p2_exp
+    return table.p1_codes, None, table.p2_codes, None
+
+
+def scan_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
+              tile_start: int, n_scan: int, rmeta: torch.Tensor, recmap,
+              rt) -> ScanOut:
+    """Scan one halo-padded tile (``get_scan_fn``'s contract, and with
+    ``cfg.stream`` the tile body of ``get_stream_scan_fn``): count first,
+    each stage's buffer sized from the count the host read after the stage
+    before.
+
+    ``tile``: uint8[cfg.tile_buf_in] plane (nibbles, or with
+    ``cfg.packed`` False one byte per position); ``tile_start``: plane position
+    of local scan position 0; ``n_scan``: valid scan positions (<=
+    tile_len); ``rmeta``: int32[R, 2] (start, length) of the plane's
+    records; ``recmap``: int32[ceil(plane length / 8)] block -> record for
+    a stream plane, None for one record; ``rt``: runtime (-M, -N, -X)."""
+    _check(cfg, table, rt)
+    margin, nmm, x = (int(v) for v in rt)
+    n_scan = max(0, min(int(n_scan), cfg.tile_len))
+    c_total, (entry, ppos, pos_total, pair_total) = _front_and_expand(
+        cfg, table, tile, n_scan)
+    p1, p1x, p2, p2x = _primers(cfg, table)
+    vf, mf = (verify_p1, margin_p2) if cfg.packed else (verify_p1_raw, margin_p2_raw)
+    a_idx = vf(tile, entry, ppos, table.emeta, p1, p1x, tile_start, rmeta, recmap,
+               cfg.lead, nmm, x)
+    rows = mf(tile, a_idx, entry, ppos, table.emeta, p2, p2x, tile_start, rmeta,
+              recmap, cfg.lead, margin, nmm, x)
     # the front end's c_total came to the host with expand's totals
     return ScanOut(flag_count(c_total), pos_total, pair_total, a_idx.numel(),
                    rows.shape[0], *rows.unbind(dim=1))
 
 
-def _scan_raw_tile(cfg: ScanConfig, table: Table, tile: torch.Tensor,
-                   tile_start: int, n_scan: int, rmeta: torch.Tensor,
-                   rt) -> ScanOut:
-    """The raw-byte tile program (K9, the JAX ``cfg.packed == False``
-    branches): per-position front end, position expansion (pos_total 0),
-    byte verifies against ``p1_bytes``/``p2_bytes`` (``match`` at -I 1)."""
-    margin, nmm, x = (int(v) for v in rt)
-    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
-    words, c_total = front_end_raw(tile, table.bloom, table.bloom_bits, W,
-                                   lead, L, n_scan, table.raw_prefilter)
-    entry, ppos, pos_total, pair_total = expand_raw(
-        tile, words, table.csr, table.emeta.shape[0], W, lead, L, n_scan)
-    match = table.match if cfg.iupac else None
-    a_idx = verify_p1_raw(tile, entry, ppos, table.emeta, table.p1_bytes, match,
-                          tile_start, rmeta, None, lead, nmm, x)
-    rows = margin_p2_raw(tile, a_idx, entry, ppos, table.emeta, table.p2_bytes,
-                         match, tile_start, rmeta, None, lead, margin, nmm, x)
-    return ScanOut(flag_count(c_total), pos_total, pair_total, a_idx.numel(),
-                   rows.shape[0], *rows.unbind(dim=1))
+def _tiles(cfg: ScanConfig, plane: torch.Tensor, total_scan: int,
+           stream_len: int, recmap, n_tiles: int, start: int):
+    """(tile view, first scan position, scan positions) of each of the
+    plane's ``n_tiles`` tiles."""
+    L, S = cfg.tile_len, cfg.tile_step_in
+    if plane.numel() < (n_tiles - 1) * S + cfg.tile_buf_in:
+        raise ValueError("plane shorter than its tiles")
+    if recmap is not None and recmap.numel() != -(-stream_len // 8):
+        raise ValueError(f"recmap of {recmap.numel()} blocks for {stream_len} positions")
+    for t in range(n_tiles):
+        t0 = start + t * L
+        yield plane[t * S : t * S + cfg.tile_buf_in], t0, min(max(total_scan - t0, 0), L)
 
 
 def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
                 total_scan: int, stream_len: int, rmeta: torch.Tensor,
                 recmap, rt, n_tiles: int, start: int = 0) -> List[ScanOut]:
     """Scan ``n_tiles`` tiles of one plane (``get_stream_scan_fn``'s
-    contract, and ``get_record_scan_fn``'s for a one-record plane): tile t
+    contract, and ``get_record_scan_fn``'s for a one-record plane), count
+    first, tile by tile: tile t
     is the view plane[t*S : t*S + tile_buf_in] (S = ``tile_step_in``: L/2
     bytes of a nibble plane, L of a raw one) of the plane laid out as
     [lead][records][tail], and owns scan positions [start + t*L, start +
@@ -306,15 +342,103 @@ def scan_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
     position of ``plane``: 0 for a whole plane, the shard's first position
     for one shard's slice (``parallel.sharded``), whose tiles past
     ``total_scan`` own no position (``n_scan`` 0)."""
-    L, S = cfg.tile_len, cfg.tile_step_in
-    if plane.numel() < (n_tiles - 1) * S + cfg.tile_buf_in:
-        raise ValueError("plane shorter than its tiles")
-    if recmap is not None and recmap.numel() != -(-stream_len // 8):
-        raise ValueError(f"recmap of {recmap.numel()} blocks for {stream_len} positions")
-    outs = []
-    for t in range(n_tiles):
-        tile = plane[t * S : t * S + cfg.tile_buf_in]
-        t0 = start + t * L
-        n_scan = min(max(total_scan - t0, 0), L)
-        outs.append(scan_tile(cfg, table, tile, t0, n_scan, rmeta, recmap, rt))
-    return outs
+    return [scan_tile(cfg, table, tile, t0, n_scan, rmeta, recmap, rt)
+            for tile, t0, n_scan in _tiles(cfg, plane, total_scan, stream_len,
+                                            recmap, n_tiles, start)]
+
+
+class PendingScan(NamedTuple):
+    """A plane whose tiles ``dispatch_stream`` enqueued (``collect_stream``
+    reads it): the scan's inputs, kept for the reruns, and ``buf``, the
+    plane's totals (int32[n_tiles, 5] in ScanOut order) followed by its
+    rows (int32[n_tiles, row_cap, 6]), with ``host``, the pinned copy of
+    ``buf`` that ``event`` follows (None on the CPU)."""
+
+    cfg: ScanConfig
+    table: Table
+    plane: torch.Tensor
+    total_scan: int
+    stream_len: int
+    rmeta: torch.Tensor
+    recmap: object
+    rt: tuple
+    n_tiles: int
+    start: int
+    pair_cap: int
+    row_cap: int
+    buf: torch.Tensor
+    host: object
+    event: object
+
+
+def dispatch_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
+                    total_scan: int, stream_len: int, rmeta: torch.Tensor,
+                    recmap, rt, n_tiles: int, start: int = 0) -> PendingScan:
+    """Enqueue the scan of ``n_tiles`` tiles of one plane (``scan_stream``'s
+    arguments) without a host read: the deferred tile scan, the
+    counterpart of the JAX package's one program per tile group
+    (``get_record_scan_fn`` / ``get_stream_scan_fn``, dispatched without
+    blocking). Per tile the front end, then ``expand``, ``verify_p1`` and
+    ``margin_p2`` (or their loose or raw forms) in their deferred mode
+    (given ``totals``), each taking the stage before's count from device
+    memory and writing into buffers of fixed
+    capacity: ``expand.pair_cap(tile_len)`` pairs (and as many anchors) and
+    ``margin_p2.ROW_CAP`` rows; every tile's five totals go into one device
+    int32[n_tiles, 5]. On the card the plane's totals and rows are then
+    copied to pinned host memory behind an event, so the host waits once per
+    plane, in ``collect_stream``. On the CPU the same stages run their plain
+    versions at once, with the same buffer contract."""
+    _check(cfg, table, rt)
+    margin, nmm, x = (int(v) for v in rt)
+    row_cap = margin_p2_mod.ROW_CAP
+    dev = plane.device
+    buf = torch.empty(n_tiles * (5 + 6 * row_cap), dtype=torch.int32, device=dev)
+    totals = buf[: 5 * n_tiles].view(n_tiles, 5)
+    rows = buf[5 * n_tiles :].view(n_tiles, row_cap, 6)
+    p1, p1x, p2, p2x = _primers(cfg, table)
+    vf, mf = (verify_p1, margin_p2) if cfg.packed else (verify_p1_raw, margin_p2_raw)
+    for t, (tile, t0, n_scan) in enumerate(_tiles(cfg, plane, total_scan, stream_len,
+                                                  recmap, n_tiles, start)):
+        tot = totals[t]
+        entry, ppos = _front_and_expand(cfg, table, tile, n_scan, tot)
+        a_idx = vf(tile, entry, ppos, table.emeta, p1, p1x, t0, rmeta, recmap,
+                   cfg.lead, nmm, x, totals=tot)
+        mf(tile, a_idx, entry, ppos, table.emeta, p2, p2x, t0, rmeta, recmap,
+           cfg.lead, margin, nmm, x, totals=tot, rows=rows[t])
+    host = event = None
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            host.copy_(buf, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+    return PendingScan(cfg, table, plane, total_scan, stream_len, rmeta, recmap,
+                       tuple(rt), n_tiles, start, expand_mod.pair_cap(cfg.tile_len),
+                       row_cap, buf, host, event)
+
+
+def collect_stream(p: PendingScan) -> tuple:
+    """The tiles of a dispatched plane: (list of ScanOut, the indices of the
+    tiles rerun). One host read (``ScanState.wait``) brings every tile's
+    totals and rows; a tile whose pair_total passed the pair buffer or whose
+    hit_total passed the row buffer is rerun through the count-first path
+    (``scan_tile``), so no hit is dropped. The other tiles' rows are host
+    tensors."""
+    if p.event is not None:
+        kernels.scan_state(p.plane).wait(p.event)
+        got = p.host
+    else:
+        got = p.buf
+    n = p.n_tiles
+    totals = got[: 5 * n].view(n, 5).tolist()
+    rows = got[5 * n :].view(n, p.row_cap, 6)
+    outs, reruns = [], []
+    tiles = _tiles(p.cfg, p.plane, p.total_scan, p.stream_len, p.recmap, n, p.start)
+    for t, ((tile, t0, n_scan), tot) in enumerate(zip(tiles, totals)):
+        if tot[2] > p.pair_cap or tot[4] > p.row_cap:
+            reruns.append(t)
+            outs.append(scan_tile(p.cfg, p.table, tile, t0, n_scan, p.rmeta, p.recmap,
+                                  p.rt))
+        else:
+            outs.append(ScanOut(*tot, *rows[t, : tot[4]].unbind(dim=1)))
+    return outs, reruns

@@ -982,13 +982,13 @@ class Table(NamedTuple):
     # qpre_shift) & (2^qpre_bits - 1) == j; the raw one is bloom folded to
     # its low bpre_bits bits. A table of at most 2^PREFILTER_BITS bits is its
     # own prefilter. Each is folded on its table's device at its first use
-    # and kept in ``folds`` (id of the table tensor -> (tensor, fold)): a
+    # and kept in ``folds`` ((table tensor, fold) pairs): a
     # strict search never folds, and a copy of the Table on another device
     # (which shares ``folds``) folds its own tensor there.
     qpre_bits: int
     qpre_shift: int
     bpre_bits: int
-    folds: dict
+    folds: list
 
     @property
     def loose_prefilter(self) -> tuple:
@@ -1002,11 +1002,12 @@ class Table(NamedTuple):
         return self._fold(self.bloom, 0, self.bpre_bits), self.bpre_bits, 0
 
     def _fold(self, words: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
-        # the entry holds ``words``, so its id is not reused while it is kept
-        got = self.folds.get(id(words))
-        if got is None:
-            got = self.folds[id(words)] = (words, fold_bits(words, shift, bits))
-        return got[1]
+        for held, fold in self.folds:  # found by the table tensor's identity
+            if held is words:
+                return fold
+        fold = fold_bits(words, shift, bits)
+        self.folds.append((words, fold))
+        return fold
 
     @property
     def csr(self):
@@ -1136,5 +1137,5 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
         qpre_shift=prefilter_shift(q_bits, int(meta.wordsize), int(meta.stride),
                                    not meta.exact_group),
         bpre_bits=min(bits(host.bloom), PREFILTER_BITS),
-        folds={},
+        folds=[],
     )

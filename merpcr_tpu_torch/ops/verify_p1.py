@@ -32,9 +32,13 @@ Kernel: ``csrc/verify_p1.cu``, one launch per call: one thread per pair,
 and the passing pair indices compacted in pair order in the same launch by
 a single-pass look-back scan (``csrc/compact.cuh``) into a buffer of one
 entry per pair; the kernel writes ``anch_total`` into pinned host memory,
-so the one host read is a stream synchronise. On the card it is
-launch-bound: pairs number in the hundreds per 2^23-base tile of a clean
-genome.
+so the one host read is a stream synchronise. Given ``totals``, the
+wrappers launch the same kernel for the deferred tile scan (``ops.scan``):
+it reads the pair count that ``expand`` left on the card, covers the pair
+buffer's capacity with as many blocks as the card holds at once, which
+loop over the pair tiles, and writes ``anch_total`` to device memory,
+with no host read. On the card it is launch-bound: pairs number in the
+hundreds per 2^23-base tile of a clean genome.
 ``verify_p1_plain`` and ``verify_p1_raw_plain`` are the same functions in
 plain PyTorch; the wrappers use them only for CPU tensors.
 """
@@ -91,15 +95,20 @@ def verify_p1_raw_plain(tile, entry, ppos, emeta, p1_bytes, match,
 
 def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
             tile_start: int, rmeta, recmap, lead: int, mismatches: int,
-            three_prime: int):
+            three_prime: int, totals):
     """One kernel launch into an ``a_idx`` buffer of n entries, then the one
     host read of ``anch_total`` (a pinned word the kernel writes); returns
-    the buffer's first ``anch_total`` entries. ``wrapper.launches`` counts
-    the launch (none without pairs). ``p1``: primer codes (nibble plane) or
-    bytes (``raw``)."""
+    the buffer's first ``anch_total`` entries. ``kernels.count_launch``
+    counts the launch (none without pairs). ``p1``: primer codes (nibble
+    plane) or bytes (``raw``). With ``totals`` (the deferred mode) the
+    pairs are the first totals[2] of the n in the buffers, read on the
+    card, the kernel writes anch_total into totals[3], and the call returns
+    the whole buffer, reading nothing."""
     require(tile, torch.uint8, "tile")
     for t, name in ((entry, "entry"), (ppos, "ppos"), (emeta, "emeta")):
         require(t, torch.int32, name)
+    if totals is not None:
+        require(totals, torch.int32, "totals")
     check_codes(p1, p1_exp, "p1")
     check_match(match)
     check_records(rmeta, recmap)
@@ -117,27 +126,60 @@ def _launch(wrapper, raw: bool, tile, entry, ppos, emeta, p1, p1_exp, match,
     P, I, LL = kernels.P, kernels.I, kernels.LL
     fn = kernels.function(
         "verify_p1", "mp_verify_p1",
-        [P, LL, I, P, P, I, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, I, P, P, P],
+        [P, LL, I, P, P, I, P, P, P, P, P, I, LL, P, P, LL, I, I, I, P, P, I, P, P, P],
     )
+    deferred = totals is not None
     with kernels.on_device(tile):
         st = kernels.scan_state(tile)
         seq = st.tag(-(-n // 256))
         kernels.call(
             fn, tile.data_ptr(), tile.numel() * (1 if raw else 2), int(raw),
-            entry.data_ptr(), ppos.data_ptr(), n, emeta.data_ptr(), p1.data_ptr(),
-            None if p1_exp is None else p1_exp.data_ptr(),
+            entry.data_ptr(), ppos.data_ptr(), n,
+            totals[2:].data_ptr() if deferred else None, emeta.data_ptr(),
+            p1.data_ptr(), None if p1_exp is None else p1_exp.data_ptr(),
             None if match is None else match.data_ptr(), p1.shape[1],
             tile_start, *record_args(rmeta, recmap), lead, mismatches,
             three_prime, st.ticket.data_ptr(), st.status.data_ptr(), seq,
-            a_idx.data_ptr(), st.host.data_ptr(), kernels.stream(tile),
+            a_idx.data_ptr(), (totals[3:] if deferred else st.host).data_ptr(),
+            kernels.stream(tile),
         )
+        kernels.count_launch(wrapper, deferred)
+        if deferred:
+            return a_idx
         (anch_total,) = st.read(1)
-    wrapper.launches += 1
     return a_idx[:anch_total]
 
 
+def deferred_plain(verify, tile, entry, ppos, totals, *args):
+    """``verify`` (a plain version) under the deferred mode's buffer
+    contract: the first min(totals[2], len) pairs verified, anch_total
+    into totals[3]."""
+    n = min(int(totals[2]), entry.numel())
+    a_idx = verify(tile, entry[:n], ppos[:n], *args)
+    totals[3] = a_idx.numel()
+    return a_idx
+
+
+def _route(wrapper, plain, raw: bool, tile, entry, ppos, emeta, p1, p1x,
+           tile_start: int, rmeta, recmap, lead: int, mismatches: int,
+           three_prime: int, totals):
+    """The kernel for tensors on the card, ``plain`` for CPU tensors (under
+    the deferred buffer contract when ``totals`` is given). ``p1x``: the
+    -I 1 table (``p1_exp``, or ``match`` when ``raw``), None at -I 0."""
+    extra = tuple(t for t in (p1x, recmap, totals) if t is not None)
+    if kernel_route(tile, entry, ppos, emeta, p1, rmeta, *extra):
+        return _launch(wrapper, raw, tile, entry, ppos, emeta, p1,
+                       None if raw else p1x, p1x if raw else None, tile_start,
+                       rmeta, recmap, lead, mismatches, three_prime, totals)
+    args = (emeta, p1, p1x, tile_start, rmeta, recmap, lead, mismatches, three_prime)
+    if totals is None:
+        return plain(tile, entry, ppos, *args)
+    return deferred_plain(plain, tile, entry, ppos, totals, *args)
+
+
 def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,
-              rmeta, recmap, lead: int, mismatches: int, three_prime: int):
+              rmeta, recmap, lead: int, mismatches: int, three_prime: int,
+              totals=None):
     """Anchors of one tile: the CUDA kernel for tensors on the card,
     ``verify_p1_plain`` for CPU tensors.
 
@@ -146,35 +188,38 @@ def verify_p1(tile, entry, ppos, emeta, p1_codes, p1_exp, tile_start: int,
     for -I 1, or None for -I 0; ``tile_start``: plane position of the
     tile's first scan position; ``rmeta``/``recmap``: the plane's records
     (``units.records_at``); ``lead``: the first scan position's index in
-    the tile."""
-    extra = tuple(t for t in (p1_exp, recmap) if t is not None)
-    if not kernel_route(tile, entry, ppos, emeta, p1_codes, rmeta, *extra):
-        return verify_p1_plain(tile, entry, ppos, emeta, p1_codes, p1_exp,
-                               tile_start, rmeta, recmap, lead, mismatches,
-                               three_prime)
-    return _launch(verify_p1, False, tile, entry, ppos, emeta, p1_codes, p1_exp,
-                   None, tile_start, rmeta, recmap, lead, mismatches, three_prime)
+    the tile.
+
+    ``totals`` None (count first): returns the anchors, after one host
+    read. ``totals`` given (the deferred mode of the tile scan,
+    ``ops.scan``): the tile's five int32 totals on its device; one launch
+    and no host read: ``entry``/``ppos`` are ``expand``'s deferred
+    buffers, whose first totals[2] pairs (read on the card) are verified,
+    the kernel writes anch_total into totals[3], and the call returns the
+    ``a_idx`` buffer (as long as ``entry``), its first anch_total entries
+    the anchors. ``verify_p1.launches`` counts the count-first launches,
+    ``verify_p1.launches_deferred`` the deferred ones."""
+    return _route(verify_p1, verify_p1_plain, False, tile, entry, ppos, emeta, p1_codes,
+                  p1_exp, tile_start, rmeta, recmap, lead, mismatches, three_prime,
+                  totals)
 
 
-verify_p1.launches = 0
+verify_p1.launches = verify_p1.launches_deferred = 0
 
 
 def verify_p1_raw(tile, entry, ppos, emeta, p1_bytes, match, tile_start: int,
-                  rmeta, recmap, lead: int, mismatches: int, three_prime: int):
+                  rmeta, recmap, lead: int, mismatches: int, three_prime: int,
+                  totals=None):
     """K9c: anchors of one raw-byte tile (one byte per position), the CUDA
     kernel (the byte mode of ``csrc/verify_p1.cu``) for tensors on the
     card, ``verify_p1_raw_plain`` for CPU tensors.
 
     ``p1_bytes``: uint8[E, P1MAX] primer bytes (``Table.p1_bytes``);
     ``match``: uint8[65536] match table (``Table.match``) for -I 1, or None
-    for -I 0; the rest as for ``verify_p1``."""
-    extra = tuple(t for t in (match, recmap) if t is not None)
-    if not kernel_route(tile, entry, ppos, emeta, p1_bytes, rmeta, *extra):
-        return verify_p1_raw_plain(tile, entry, ppos, emeta, p1_bytes, match,
-                                   tile_start, rmeta, recmap, lead, mismatches,
-                                   three_prime)
-    return _launch(verify_p1_raw, True, tile, entry, ppos, emeta, p1_bytes, None,
-                   match, tile_start, rmeta, recmap, lead, mismatches, three_prime)
+    for -I 0; the rest, ``totals`` and the counts as for ``verify_p1``."""
+    return _route(verify_p1_raw, verify_p1_raw_plain, True, tile, entry, ppos, emeta,
+                  p1_bytes, match, tile_start, rmeta, recmap, lead, mismatches,
+                  three_prime, totals)
 
 
-verify_p1_raw.launches = 0
+verify_p1_raw.launches = verify_p1_raw.launches_deferred = 0

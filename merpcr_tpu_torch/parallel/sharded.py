@@ -5,8 +5,11 @@ a plane (one record, or a stream of records laid end to end) are cut into
 contiguous spans of whole tiles, one span per shard of a 1-D mesh. Each
 shard gets its own halo-padded slice of the plane (the halos are read-only
 overlaps, so no shard needs another's bytes), the compiled table is
-replicated once to each distinct device, and every shard tile runs the four
-kernel wrappers through ``ops.scan.scan_stream``, on the shard's device.
+replicated once to each distinct device, and every shard's tiles run the
+deferred tile scan (``ops.scan.dispatch_stream``, no host read) on the
+shard's device, so the shards on different cards run at once; the host
+reads each shard once when it collects, and the gather of a group of
+several processes runs there too.
 Positions are partitioned, not overlapped, so no hit is found twice; the
 result is one ``ScanOut`` per global tile, global index ``shard *
 tiles_per_shard + t``, which grows with scan position, so the emitter's
@@ -15,12 +18,12 @@ tiles_per_shard + t``, which grows with scan position, so the emitter's
 The port's mesh is a tuple of ``torch.device``, one per shard. A device
 may repeat: ``("cuda:0",) * 2`` is two shards on one card, ``("cpu",) * n``
 runs the plain versions of the kernels. In one process every shard runs
-here (in order, shard by shard) and the outputs stay on their devices. In
-a ``torch.distributed`` group of several processes (``distributed.py``)
+here (dispatched shard by shard, then collected) and the outputs come to
+the host. In a ``torch.distributed`` group of several processes (``distributed.py``)
 each rank runs its own block of shards and the rows are gathered, so that
 every rank holds every global tile, as JAX's ``lax.all_gather`` does.
 
-The JAX programs scan ``group`` tiles per dispatch; the port launches tile
+The JAX programs scan ``group`` tiles per dispatch; the port enqueues tile
 by tile, so it takes ``group = 1``. The parameter is kept so that the tiles
 per shard can be rounded as the JAX package rounds them.
 """
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.encoding import NIB_LUT, pack_nibbles
-from ..ops.scan import ScanConfig, ScanOut, scan_stream
+from ..ops.scan import ScanConfig, ScanOut, collect_stream, dispatch_stream
 from ..ops.table import Table
 from . import distributed
 
@@ -144,37 +147,72 @@ def replicate(table: Table, device: torch.device, tables: Optional[dict] = None)
     return tables[device]
 
 
-def _scan_shards(cfg: ScanConfig, table: Table, planes, total_scan: int,
-                 stream_len: int, rmeta: np.ndarray, recmap, rt, mesh,
-                 tables: Optional[dict]) -> List[ScanOut]:
-    """Scan this process's shards of ``planes`` (padded_shards, tile_start0,
-    tiles_per_shard), then, in a group of several processes, gather every
-    rank's tiles. Tile t of shard s starts at global scan position
-    s*span + t*L and owns clip(total_scan - that, 0, L) positions
-    (``sharded.py:61-63``): a shard past the plane's end scans padding
-    tiles that own none, and they report zero totals and no rows."""
+def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without blocking the host: staged in
+    pinned memory and copied on the device's current stream, so a plane
+    uploaded for the next plan item does not wait for the kernels still
+    running. On the CPU the tensor shares the array's memory."""
+    t = torch.from_numpy(arr)
+    if device.type != "cuda":
+        return t
+    with torch.cuda.device(device):
+        return t.pin_memory().to(device, non_blocking=True)
+
+
+def upload_shards(planes, rmeta: np.ndarray, recmap, mesh) -> tuple:
+    """This process's shards of ``planes`` (padded_shards, tile_start0,
+    tiles_per_shard) on their mesh devices: ((shard, device, buffer, rmeta,
+    recmap, first scan position) per local shard, tiles_per_shard), the
+    record tables uploaded once per device. What a search keeps across
+    searches: the plane's bytes do not depend on -N, -X or -I."""
     padded, tile_start0, tps = planes
     n_shards = len(mesh)
     if padded.shape[0] != n_shards:
         raise ValueError(f"{padded.shape[0]} shard planes for a mesh of {n_shards}")
-    local = distributed.local_shards(n_shards)
     on_dev: dict = {}
-    outs: List[ScanOut] = []
-    for s in local:
+    shards = []
+    for s in distributed.local_shards(n_shards):
         dev = mesh[s]
         if dev not in on_dev:
-            on_dev[dev] = (
-                replicate(table, dev, tables),
-                torch.from_numpy(rmeta).to(dev),
-                None if recmap is None else torch.from_numpy(recmap).to(dev),
-            )
-        tab, rm, rc = on_dev[dev]
-        buf = torch.from_numpy(padded[s]).to(dev)
-        outs += scan_stream(cfg, tab, buf, total_scan, stream_len, rm, rc, rt,
-                            tps, start=int(tile_start0[s]))
-    if len(local) < n_shards:
+            on_dev[dev] = (upload(rmeta, dev),
+                           None if recmap is None else upload(recmap, dev))
+        shards.append((s, dev, upload(padded[s], dev), *on_dev[dev], int(tile_start0[s])))
+    return tuple(shards), tps
+
+
+def dispatch_shards(cfg: ScanConfig, table: Table, uploaded, total_scan: int,
+                    stream_len: int, rt, tables: Optional[dict]) -> tuple:
+    """Enqueue every local shard's tiles (``ops.scan.dispatch_stream``, no
+    host read; shards on different cards run at once). ``uploaded``:
+    ``upload_shards``'s result; ``table`` on any device, replicated to each
+    mesh device through ``tables``. Returns (pending per local shard, tiles
+    per shard)."""
+    shards, tps = uploaded
+    pend = tuple((s, dispatch_stream(cfg, replicate(table, dev, tables), buf,
+                                     total_scan, stream_len, rm, rc, rt, tps,
+                                     start=start))
+                 for s, dev, buf, rm, rc, start in shards)
+    return pend, tps
+
+
+def collect_shards(dispatched, n_shards: int) -> tuple:
+    """(one ScanOut per global tile, the global indices of the tiles rerun
+    here): every local shard collected (``ops.scan.collect_stream``), then,
+    in a group of several processes, every rank's tiles gathered. Tile t
+    of shard s is global tile s * tiles_per_shard + t, starts at global scan
+    position s*span + t*L and owns clip(total_scan - that, 0, L) positions
+    (``sharded.py:61-63``): a shard past the plane's end scans padding
+    tiles that own none, and they report zero totals and no rows."""
+    pend, tps = dispatched
+    outs: List[ScanOut] = []
+    reruns = []
+    for s, p in pend:
+        got, rerun = collect_stream(p)
+        outs += got
+        reruns += [s * tps + t for t in rerun]
+    if len(pend) < n_shards:
         outs = distributed.gather_tiles(outs)
-    return outs
+    return outs, reruns
 
 
 def sharded_scan_record(cfg: ScanConfig, table: Table, seq: np.ndarray,
@@ -191,8 +229,9 @@ def sharded_scan_record(cfg: ScanConfig, table: Table, seq: np.ndarray,
     padded, tile_start0, total_scan, tps = shard_planes(cfg, seq, wordsize, len(mesh),
                                                         packed_rec)
     rmeta = np.asarray([[0, len(seq)]], dtype=np.int32)
-    return _scan_shards(cfg, table, (padded, tile_start0, tps), total_scan,
-                        len(seq), rmeta, None, rt, mesh, tables)
+    uploaded = upload_shards((padded, tile_start0, tps), rmeta, None, mesh)
+    return collect_shards(dispatch_shards(cfg, table, uploaded, total_scan, len(seq),
+                                          rt, tables), len(mesh))[0]
 
 
 def sharded_scan_stream(cfg: ScanConfig, table: Table, plane: np.ndarray,
@@ -205,6 +244,7 @@ def sharded_scan_stream(cfg: ScanConfig, table: Table, plane: np.ndarray,
     (start, length); ``recmap``: the block -> record map of a stream plane
     (``cfg.stream``), None for a one-record plane. Returns one ScanOut per
     global tile, as ``sharded_scan_record``."""
-    planes = shard_stream_planes(cfg, plane, total_scan, len(mesh))
-    return _scan_shards(cfg, table, planes, total_scan, stream_len, rmeta,
-                        recmap, rt, mesh, tables)
+    uploaded = upload_shards(shard_stream_planes(cfg, plane, total_scan, len(mesh)),
+                             rmeta, recmap, mesh)
+    return collect_shards(dispatch_shards(cfg, table, uploaded, total_scan, stream_len,
+                                          rt, tables), len(mesh))[0]

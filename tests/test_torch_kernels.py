@@ -26,10 +26,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import flood_corpus  # imports neither jax nor merpcr_tpu
+from chip_smoke import Deferred, flood_corpus  # imports neither jax nor merpcr_tpu
 from merpcr_tpu_torch import MerPCR
 from merpcr_tpu_torch.ops import kernels
 from merpcr_tpu_torch.models import FASTARecord
+from merpcr_tpu_torch.ops import expand as expand_mod
+from merpcr_tpu_torch.ops import scan as scan_mod
+from merpcr_tpu_torch.ops import verify_p1 as verify_mod
 from merpcr_tpu_torch.ops.expand import (
     expand,
     expand_loose,
@@ -54,6 +57,7 @@ from merpcr_tpu_torch.ops.margin_p2 import (
     margin_p2_raw_plain,
 )
 from merpcr_tpu_torch.ops.scan import record_rmeta
+from merpcr_tpu_torch.parallel.sharded import replicate
 from merpcr_tpu_torch.ops.verify_p1 import (
     verify_p1,
     verify_p1_plain,
@@ -179,8 +183,18 @@ def _search_records(engine, sts, recs) -> str:
 
 # ---------------------------------------------------------------- CPU rules
 RAW_WRAPPERS = (front_end_raw, expand_raw, verify_p1_raw, margin_p2_raw)
+# the deferred modes of the tile scan's stages, which a search launches
+# (their ``launches_deferred`` counts, read as ``launches``)
+DEFERRED = tuple(Deferred(f) for f in (expand, expand_loose, expand_raw, verify_p1,
+                                       verify_p1_raw, margin_p2, margin_p2_raw))
+(expand_deferred, expand_loose_deferred, expand_raw_deferred, verify_p1_deferred,
+ verify_p1_raw_deferred, margin_p2_deferred, margin_p2_raw_deferred) = DEFERRED
 WRAPPERS = (front_end, front_end_loose, expand, expand_loose, verify_p1, margin_p2,
-            *RAW_WRAPPERS)
+            *RAW_WRAPPERS, *DEFERRED)
+# a search's path: the front end and the deferred stages
+PATH = (front_end, expand_deferred, verify_p1_deferred, margin_p2_deferred)
+RAW_PATH = (front_end_raw, expand_raw_deferred, verify_p1_raw_deferred,
+            margin_p2_raw_deferred)
 
 
 @pytest.mark.parametrize("mismatches", [0, 1, 2])
@@ -447,13 +461,14 @@ def test_card_mismatch_search_equals_cpu_search(cuda, tmp_path):
     """-N 1 (strict1), -N 2 and -N 3 (loose) on the card print the CPU
     bytes, through the kernels of their front end."""
     sts, fa = _corpus(tmp_path)
-    for n_mm, used in ((1, (front_end, expand)), (2, (front_end_loose, expand_loose)),
-                       (3, (front_end_loose, expand_loose))):
+    for n_mm, used in ((1, (front_end, expand_deferred)),
+                       (2, (front_end_loose, expand_loose_deferred)),
+                       (3, (front_end_loose, expand_loose_deferred))):
         counts = [f.launches for f in WRAPPERS]
         eng = MerPCR(device=cuda, mismatches=n_mm)
         on_card = _search(eng, sts, fa)
         launched = dict(zip(WRAPPERS, (f.launches - c0 for f, c0 in zip(WRAPPERS, counts))))
-        assert all((launched[f] > 0) == (f in used + (verify_p1, margin_p2))
+        assert all((launched[f] > 0) == (f in used + (verify_p1_deferred, margin_p2_deferred))
                    for f in WRAPPERS), (n_mm, launched)
         assert [(c.strict, c.strict_n) for c, _, _ in eng.last_scans] == \
             [(n_mm == 1, int(n_mm == 1))]
@@ -511,7 +526,7 @@ def test_card_stream_search_equals_cpu_search(cuda, tmp_path):
     """A dirty scaffold assembly at -I 0 and -I 1: the card prints the CPU
     bytes, and each kernel launches at most once per stream tile."""
     sts, fa = _assembly(tmp_path)
-    wrappers = (front_end, expand, verify_p1, margin_p2)
+    wrappers = PATH
     for iupac in (0, 1):
         eng = MerPCR(device=cuda, iupac_mode=iupac)
         counts = [f.launches for f in wrappers]
@@ -541,11 +556,11 @@ def test_card_stream_search_at_large_margins(cuda, tmp_path, wordsize, margin):
 @pytest.mark.gpu
 def test_card_search_equals_cpu_search(cuda, tmp_path):
     sts, fa = _corpus(tmp_path)
-    counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+    counts = [f.launches for f in PATH]
     on_card = _search(MerPCR(device=cuda), sts, fa)
     assert on_card == _search(MerPCR(device="cpu"), sts, fa)
     assert on_card.count("\n") > 0
-    launched = [f.launches - c0 for f, c0 in zip((front_end, expand, verify_p1, margin_p2), counts)]
+    launched = [f.launches - c0 for f, c0 in zip(PATH, counts)]
     assert all(k > 0 for k in launched), launched
     assert _search(MerPCR(), GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
 
@@ -582,14 +597,13 @@ def test_card_mesh_search_equals_cpu_search(cuda, tmp_path):
     want = _search(MerPCR(device="cpu"), sts, fa)
     assert want.count("\n") > 0
     for mesh in ((cuda,) * 2, (cuda,) * 3, None):
-        counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+        counts = [f.launches for f in PATH]
         eng = MerPCR(device=cuda).use_mesh(make_mesh(mesh))
         eng._tile_len_override = 1 << 15
         assert _search(eng, sts, fa) == want
         (scan,) = eng.last_scans
         n_global = scan.shards * -(-scan.tiles // scan.shards)
-        launched = [f.launches - c0 for f, c0 in
-                    zip((front_end, expand, verify_p1, margin_p2), counts)]
+        launched = [f.launches - c0 for f, c0 in zip(PATH, counts)]
         assert launched[0] == launched[1] == n_global, (mesh, launched)
         assert all(0 < k <= n_global for k in launched), (mesh, launched)
 
@@ -670,16 +684,14 @@ def test_card_raw_search_equals_cpu_search(cuda, tmp_path, mismatches):
     launched = dict(zip(WRAPPERS, (f.launches - c0 for f, c0 in zip(WRAPPERS, counts))))
     (cfg, n_tiles, _), = eng.last_scans
     assert not cfg.packed and n_tiles > 1
-    assert all(launched[f] == (n_tiles if f in RAW_WRAPPERS[:2] else 0)
-               for f in WRAPPERS if f not in RAW_WRAPPERS[2:]), launched
-    assert all(0 < launched[f] <= n_tiles for f in RAW_WRAPPERS[2:]), launched
+    assert all(launched[f] == (n_tiles if f in RAW_PATH else 0) for f in WRAPPERS), launched
     assert on_card == _search_records(MerPCR(device="cpu", **params), sts, _rna_records(fa))
     assert on_card.count("\n") > 0
     asm_sts, asm_fa = _assembly(tmp_path)
-    counts = [f.launches for f in RAW_WRAPPERS]
+    counts = [f.launches for f in RAW_PATH]
     recs = _rna_records(asm_fa, every=7)
     on_card = _search_records(MerPCR(device=cuda, **params), asm_sts, recs)
-    assert [f.launches - c0 for f, c0 in zip(RAW_WRAPPERS, counts)][:2] == [58, 58]
+    assert [f.launches - c0 for f, c0 in zip(RAW_PATH, counts)] == [58] * 4
     assert on_card == _search_records(MerPCR(device="cpu", **params), asm_sts, recs)
 
 
@@ -1140,12 +1152,12 @@ def test_card_warm_engine_keeps_small_searches_on_the_kernels(cuda, monkeypatch)
     recs = eng.load_fasta_file(GOLDEN_FA)
     assert _search_records(eng, GOLDEN_STS, recs) == GOLDEN_LINE + "\n"  # at 0: uploads
     monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
-    counts = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+    counts = [f.launches for f in PATH]
     buf = io.StringIO()
     with redirect_stdout(buf):
         eng.search(recs)
     assert buf.getvalue() == GOLDEN_LINE + "\n"
-    after = [f.launches for f in (front_end, expand, verify_p1, margin_p2)]
+    after = [f.launches for f in PATH]
     assert all(b > a for a, b in zip(counts, after)), (counts, after)
     assert len(eng.last_scans) == 1
 
@@ -1154,8 +1166,9 @@ def test_card_warm_engine_keeps_small_searches_on_the_kernels(cuda, monkeypatch)
 @pytest.mark.parametrize("flood", ["candidates", "window"])
 def test_card_flood_falls_back_to_the_kernels(cuda, monkeypatch, tmp_path, flood):
     """A corpus past a host-path cap runs on the kernels on the default
-    gate, with the CPU's bytes; the window flood's rows take margin_p2's
-    second launch."""
+    gate, with the CPU's bytes; the window flood's tiles pass the deferred
+    scan's row buffer and are rerun count first, where the rows take
+    margin_p2's second launch."""
     sts, fa, params = flood_corpus(tmp_path, flood)
     monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
     counts = {f: f.launches for f in WRAPPERS}
@@ -1165,9 +1178,11 @@ def test_card_flood_falls_back_to_the_kernels(cuda, monkeypatch, tmp_path, flood
     (scan,) = eng.last_scans
     assert on_card == _search(MerPCR(device="cpu", **params), sts, fa)
     front, exp = ("front_end", "expand") if scan.cfg.strict else ("front_end_loose", "expand_loose")
-    assert launched[front] == launched[exp] == scan.tiles, launched
+    reruns = len(scan.reruns)
+    assert launched[exp + "_deferred"] == scan.tiles, launched
+    assert launched[front] == scan.tiles + reruns and launched[exp] == reruns, launched
     if flood == "window":
-        assert launched["verify_p1"] == scan.tiles and launched["margin_p2"] == 2 * scan.tiles
+        assert reruns == scan.tiles and launched["margin_p2"] == 2 * reruns
         assert on_card.count("\n") > 8192
 
 
@@ -1187,3 +1202,130 @@ def test_card_trace_holds_the_kernels(cuda, monkeypatch, tmp_path):
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     for k in ("front_end_kernel", "expand_kernel", "verify_p1_kernel", "margin_p2_kernel"):
         assert any(k in n for n in names), (k, sorted(set(names))[:20])
+
+
+# ------------------------------------------------ the deferred tile scan
+def _deferred_stages(cfg, tb, tile, t0, n_scan, n, device, kernel: bool, rows_cap: int):
+    """The deferred expand, verify_p1 and margin_p2 of one tile: the
+    wrappers (kernels on the card) or their plain versions under the same
+    buffer contract, on the same card tensors. Returns (totals, entry,
+    ppos, a_idx, rows)."""
+    totals = torch.full((5,), -7, dtype=torch.int32, device=device)
+    rows = torch.full((rows_cap, 6), -7, dtype=torch.int32, device=device)
+    rm = record_rmeta(n, device)
+    W, lead, L = cfg.wordsize, cfg.lead, cfg.tile_len
+    if not cfg.packed:
+        w, c = front_end_raw(tile, tb.bloom, tb.bloom_bits, W, lead, L, n_scan,
+                             tb.raw_prefilter)
+        args = (tile, w, tb.csr, tb.emeta.shape[0], W, lead, L, n_scan)
+        ex, ex_plain = expand_raw, expand_raw_plain
+    elif cfg.strict:
+        w, c = front_end(tile, tb.qbloom_s, tb.gq, W, lead, L, n_scan)
+        args = (tile, w, tb.ptab, tb.pf_bits, tb.t16, tb.t16_bits, tb.csr,
+                tb.emeta.shape[0], W, lead, L, n_scan, cfg.stride, cfg.exact_group, None,
+                tb.bloom_bits)
+        ex, ex_plain = expand, expand_plain
+    else:
+        w, c = front_end_loose(tile, tb.qbloom, tb.q_bits, W, lead, L, n_scan, cfg.stride,
+                               cfg.qbloom_bits, tb.loose_prefilter)
+        args = (tile, w, tb.ptab, tb.pf_bits, tb.csr, tb.emeta.shape[0], W, lead, L,
+                n_scan, cfg.stride, cfg.exact_group)
+        ex, ex_plain = expand_loose, expand_loose_plain
+    if kernel:
+        e, p = ex(*args, totals=totals, c_total=c)
+    else:
+        e, p = expand_mod.deferred_plain(ex_plain(*args), c.cpu(), totals, L)
+    p1, p2 = (tb.p1_codes, tb.p2_codes) if cfg.packed else (tb.p1_bytes, tb.p2_bytes)
+    vf, vplain, mf, mplain = ((verify_p1, verify_p1_plain, margin_p2, margin_p2_plain)
+                              if cfg.packed else
+                              (verify_p1_raw, verify_p1_raw_plain, margin_p2_raw,
+                               margin_p2_raw_plain))
+    match = tb.match if cfg.iupac and not cfg.packed else None  # the RNA record's U
+    vargs = (tb.emeta, p1, match, t0, rm, None, lead, cfg_n(cfg), 1)
+    margs = (tb.emeta, p2, match, t0, rm, None, lead, 50, cfg_n(cfg), 1)
+    if kernel:
+        a = vf(tile, e, p, *vargs, totals=totals)
+        mf(tile, a, e, p, *margs, totals=totals, rows=rows)
+    else:
+        a = verify_mod.deferred_plain(vplain, tile, e, p, totals, *vargs)
+        margin_mod.deferred_plain(mplain, tile, a, totals, rows, e, p, *margs)
+    return totals, e, p, a, rows
+
+
+def cfg_n(cfg) -> int:
+    """The tile's -N: 0 on the strict path, 2 on the loose and raw ones."""
+    return 0 if cfg.strict else 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", [None, (6, 1)])
+@pytest.mark.parametrize("mode", ["strict", "loose", "raw"])
+def test_deferred_kernels_equal_plain(cuda, tmp_path, monkeypatch, mode, caps):
+    """expand, verify_p1 and margin_p2 in their deferred mode (counts from
+    device memory, fixed buffers) against their plain versions under the
+    same contract, tile by tile: the five device totals, the anchors and
+    the rows, with the default buffers and with buffers that the tiles
+    pass (truncated pairs, the true pair_total, rows cut at the buffer),
+    and on an empty tile (no scan position)."""
+    if caps:
+        monkeypatch.setattr(expand_mod, "_pair_cap_override", caps[0])
+        monkeypatch.setattr(margin_mod, "ROW_CAP", caps[1])
+    if mode == "raw":
+        eng, cfg, tiles = _raw_tiles(tmp_path, cuda, iupac_mode=1, mismatches=2)
+    else:
+        eng, cfg, tiles = _tiles(tmp_path, cuda, mismatches=0 if mode == "strict" else 2)
+    assert cfg.packed == (mode != "raw") and cfg.strict == (mode == "strict")
+    tb = eng._table
+    cap = margin_mod.ROW_CAP
+    tile0, t00, _n_scan, n0 = tiles[0]
+    passed = {"pairs": 0, "rows": 0, "hits": 0}
+    for tile, t0, n_scan, n in [(tile0, t00, 0, n0)] + tiles[:6]:
+        got = _deferred_stages(cfg, tb, tile, t0, n_scan, n, cuda, True, cap)
+        want = _deferred_stages(cfg, tb, tile, t0, n_scan, n, cuda, False, cap)
+        tot = got[0].tolist()
+        assert tot == want[0].tolist(), (tot, want[0].tolist())
+        if n_scan == 0:
+            assert tot == [0, 0, 0, 0, 0]
+        kept = min(tot[2], expand_mod.pair_cap(cfg.tile_len))
+        assert torch.equal(got[1][:kept], want[1][:kept]) and torch.equal(got[2][:kept], want[2][:kept])
+        assert torch.equal(got[3][: tot[3]], want[3][: tot[3]])
+        rows = min(tot[4], cap)
+        assert torch.equal(got[4][:rows], want[4][:rows])
+        passed["pairs"] += tot[2] > kept
+        passed["rows"] += tot[4] > cap
+        passed["hits"] += tot[4]
+    assert passed["hits"] > 0
+    if caps:
+        assert passed["pairs"] > 0 and passed["rows"] > 0, passed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("caps", [None, (6, 1)])
+def test_deferred_scan_on_card_equals_cpu(cuda, tmp_path, monkeypatch, caps):
+    """``dispatch_stream``/``collect_stream`` on the card against the
+    count-first ``scan_stream`` on the CPU, tile by tile: one host read for
+    the plane, plus the count-first path's reads of each tile rerun past a
+    buffer, exactly the tiles past one."""
+    if caps:
+        monkeypatch.setattr(expand_mod, "_pair_cap_override", caps[0])
+        monkeypatch.setattr(margin_mod, "ROW_CAP", caps[1])
+    eng, cfg, tiles = _tiles(tmp_path, cuda)
+    tb = eng._table
+    n = tiles[0][3]
+    total = n - eng.wordsize + 1
+    plane = tiles[0][0]._base  # the plane the tiles are views of
+    rt = eng._runtime_params()
+    args = (cfg, tb, plane, total, n, record_rmeta(n, cuda), None, rt, len(tiles))
+    st = kernels.scan_state(plane)
+    reads = st.reads
+    got, reruns = scan_mod.collect_stream(scan_mod.dispatch_stream(*args))
+    want = scan_mod.scan_stream(cfg, replicate(tb, torch.device("cpu")), plane.cpu(), total,
+                                n, record_rmeta(n, "cpu"), None, rt, len(tiles))
+    past = [t for t, o in enumerate(want)
+            if o.pair_total > expand_mod.pair_cap(cfg.tile_len) or o.hit_total > margin_mod.ROW_CAP]
+    assert reruns == past and bool(past) == bool(caps)
+    for g, w in zip(got, want):
+        assert list(g[:5]) == list(w[:5])
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(g[5:], w[5:]))
+    if not caps:
+        assert st.reads - reads == 1

@@ -155,13 +155,16 @@ def test_layout_recmap_and_plan_equal_jax(tmp_path, monkeypatch):
     sts, fa = write_corpus(tmp_path, 21, lengths, n_sts=30)
     jcap = _JaxCapture(monkeypatch)
     ports = []
-    real = MerPCR._scan_plane
+    real = MerPCR._stream_geometry
 
-    def spy(eng, *args):
-        ports.append(args)
-        return real(eng, *args)
+    def spy(eng, items):  # the stream planes as the port lays them out
+        laid = real(eng, items)
+        cfg, total_scan, stream_len, rmeta, recmap, _ = laid
+        plane = MerPCR._stream_bytes(cfg, items, rmeta, total_scan)
+        ports.append((cfg, plane, total_scan, stream_len, rmeta, recmap))
+        return laid
 
-    monkeypatch.setattr(MerPCR, "_scan_plane", spy)
+    monkeypatch.setattr(MerPCR, "_stream_geometry", spy)
     port, ref, eng = _both(sts, fa, tile_len=1 << 12)
     assert port == ref and port.count("\n") >= 5
     recs = eng.load_fasta_file(fa)
