@@ -138,9 +138,9 @@ closing device line is printed only when every phase passed):
              at MERPCR_TPU_HOST_MAX=0: the golden line, the four kernels
              launched; (c) start-up in cold processes on the host clock:
              the golden CLI under (a) and (b), and each step of both paths
-             (``import torch``, ``resolve_device``, STS load and table
-             compile, CUDA context, table upload, kernel library load,
-             first search), then prefixes of the record (0.25, 0.5, 1 and
+             (``import torch`` on the device path, ``resolve_device``, STS
+             load and table compile, CUDA context, table upload, kernel
+             library load, first search), then prefixes of the record (0.25, 0.5, 1 and
              2 Mbp) cold and warm on the host path (a fresh engine each),
              on the card's device path, and on the default gate on that
              warm engine, which holds the table on the card and so takes
@@ -157,9 +157,20 @@ closing device line is printed only when every phase passed):
              one Chrome trace holding kernel events of the four kernels,
              the untraced bytes, warm s traced and untraced; then the
              golden CLI cold and traced under (a) and (b), which pays the
-             profiler's first start in its process. Under
-             ``--package-root`` a package without ``ops/host_scan.py``
-             gets a line saying the phase did not run
+             profiler's first start in its process; (f) the torch-free
+             start-up, cold processes each on a line of its own
+             (``host_path_startup``): the golden CLI on the default gate
+             (read through runpy: torch not imported), a 2 Mbp prefix of
+             the record there (torch not imported, the bytes of
+             MERPCR_TPU_HOST_MAX=0), ``import torch`` alone, the CUDA
+             driver check of ``resolve_device`` against ``import torch``
+             and ``torch.cuda.is_available()`` (the same count), and the
+             window flood (torch imported during its search, the kernels
+             launched, the bytes of device="cpu"); (c)'s default-gate
+             steps import no torch either. Under ``--package-root`` a
+             package without ``ops/host_scan.py`` gets a line saying the
+             phase did not run, and another package is not held to (f)'s
+             torch-free checks
 
 15. warm_path the warm-search path: (a) the 47 Mbp record and assembly (c)
              on one engine each: the first search, three warm searches,
@@ -181,7 +192,9 @@ closing device line is printed only when every phase passed):
 
 Phases 1-13 and 15 run at MERPCR_TPU_HOST_MAX=0 (set by this script,
 inherited by the processes it starts), so their inputs never take the host
-path; phase 14 sets the gate itself. A search launches the stage
+path; phase 14 sets the gate itself. ``MERPCR_TPU_PLATFORM`` is removed
+from the environment first, so that no setting of it sends the run to the
+CPU. A search launches the stage
 wrappers in their deferred mode (given ``totals``; rows ``*_deferred``,
 counted in the wrapper's ``launches_deferred``) once per tile, and in
 their count-first mode only to rerun a tile past a buffer.
@@ -1837,20 +1850,25 @@ def flood_corpus(tmp: str, flood: str) -> tuple:
 
 # one cold process: each start-up step on the host clock (argv: package
 # root, STS, FASTA); the device path's steps run at MERPCR_TPU_HOST_MAX=0
+# and time torch's import first; the default gate's (the host path's) import
+# no torch and report whether the run loaded it
 STARTUP = r"""
-import sys, time
+import os, sys, time
 t0 = time.perf_counter()
-import torch
-steps = {"import_torch_s": time.perf_counter() - t0}
+device_path = os.environ.get("MERPCR_TPU_HOST_MAX") == "0"
+steps = {}
+if device_path:
+    import torch
+    steps["import_torch_s"] = time.perf_counter() - t0
 sys.path.insert(0, sys.argv[1])
-import ctypes, io, json, os
+import ctypes, io, json
 from contextlib import redirect_stdout
 t = time.perf_counter()
 from merpcr_tpu_torch import MerPCR
 from merpcr_tpu_torch.engine import resolve_device
-from merpcr_tpu_torch.ops import kernels
+if device_path:
+    from merpcr_tpu_torch.ops import kernels
 steps["import_package_s"] = time.perf_counter() - t
-device_path = os.environ.get("MERPCR_TPU_HOST_MAX") == "0"
 
 def step(name, fn, on_card=False):
     t = time.perf_counter()
@@ -1878,7 +1896,88 @@ def search():
 step("first_search_s", search, device_path)
 steps["total_s"] = time.perf_counter() - t0
 print(json.dumps({"steps": steps, "out": buf.getvalue(), "tables": len(eng._tables),
-                  "scans": len(eng.last_scans)}))
+                  "scans": len(eng.last_scans), "torch_imported": "torch" in sys.modules}))
+"""
+
+# cold processes of the torch-free start-up (argv: package root, then the
+# script's own): ``python -m merpcr_tpu_torch`` through runpy, which ``-m``
+# runs, so that the process can read sys.modules after the CLI; appended to
+# a script, TORCH_LOADED prints whether torch was imported as its last line
+RUNPY_CLI = r"""
+import runpy, sys
+sys.path.insert(0, sys.argv[1])
+sys.argv = ["merpcr_tpu_torch", *sys.argv[2:]]
+try:
+    runpy.run_module("merpcr_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    if e.code not in (0, None):
+        raise
+"""
+TORCH_LOADED = """
+import json as _json, sys as _sys
+print(_json.dumps("torch" in _sys.modules))
+"""
+IMPORT_TORCH = r"""
+import json, time
+t = time.perf_counter()
+import torch
+print(json.dumps({"import_torch_s": time.perf_counter() - t}))
+"""
+# the card check of resolve_device alone (the CUDA driver through ctypes),
+# then torch's: import torch, torch.cuda.is_available()
+DRIVER_CHECK = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+t = time.perf_counter()
+from merpcr_tpu_torch.engine import cuda_device_count
+t1 = time.perf_counter()
+n = cuda_device_count()
+t2 = time.perf_counter()
+cuda_device_count()
+print(json.dumps({"count": n, "import_engine_s": t1 - t, "driver_check_s": t2 - t1,
+                  "driver_check_again_s": time.perf_counter() - t2,
+                  "torch_imported": "torch" in sys.modules}))
+"""
+TORCH_CHECK = r"""
+import json, time
+t = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+ok = torch.cuda.is_available()
+t2 = time.perf_counter()
+print(json.dumps({"available": ok, "count": torch.cuda.device_count(),
+                  "import_torch_s": t1 - t, "is_available_s": t2 - t1,
+                  "total_s": t2 - t}))
+"""
+# a search past the host path's caps on the default gate (argv: package
+# root, STS, FASTA, engine parameters as JSON): torch is imported during
+# the search, and the wrappers' launches are read after it
+FALLBACK = r"""
+import io, json, sys, time
+from contextlib import redirect_stdout
+sys.path.insert(0, sys.argv[1])
+from merpcr_tpu_torch import MerPCR
+eng = MerPCR(**json.loads(sys.argv[4]))
+assert eng.load_sts_file(sys.argv[2])
+recs = eng.load_fasta_file(sys.argv[3])
+before = "torch" in sys.modules
+buf = io.StringIO()
+t = time.perf_counter()
+with redirect_stdout(buf):
+    eng.search(recs)
+import torch
+if eng.device.type == "cuda":
+    torch.cuda.synchronize()
+search_s = time.perf_counter() - t
+from merpcr_tpu_torch.ops import expand, front_end, margin_p2, verify_p1
+wrappers = (front_end.front_end, front_end.front_end_loose, expand.expand,
+            expand.expand_loose, verify_p1.verify_p1, margin_p2.margin_p2)
+print(buf.getvalue(), end="")
+print(json.dumps({"torch_before_search": before, "search_s": search_s,
+                  "launches": {w.__name__: w.launches for w in wrappers},
+                  "launches_deferred": {w.__name__: w.launches_deferred for w in wrappers
+                                        if hasattr(w, "launches_deferred")},
+                  "planes": [[s.records, s.cfg.strict] for s in eng.last_scans]}))
 """
 
 CROSSOVER_MBP = (0.25, 0.5, 1.0, 2.0)
@@ -1913,6 +2012,88 @@ def cold_startup(g_sts: str, g_fa: str) -> dict:
     got = json.loads(r.stdout.strip().splitlines()[-1])
     check(got["out"] == GOLDEN_LINE + "\n", f"start-up script printed {got['out']!r}")
     return got
+
+
+def fresh(code: str, *args) -> tuple:
+    """(stdout before its last line, the last line's JSON, host s) of
+    ``code`` in a fresh process under this process's gate; argv: the
+    package root, then ``args``."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code, PKG, *args], cwd=PKG,
+                       capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(r.returncode == 0, f"fresh process rc={r.returncode} err={r.stderr[-2000:]}")
+    body, _, last = r.stdout.rstrip("\n").rpartition("\n")
+    return (body + "\n" if body else ""), json.loads(last), seconds
+
+
+def phase_torch_free(MerPCR, sts: str, recs, card: str, tmp: str, window_cpu: str) -> dict:
+    """Phase 14 (f): the torch-free start-up, cold processes on the host
+    clock, each reading checked and on a line of its own: the golden CLI
+    on the default gate (torch not imported, the golden line); a 2 Mbp
+    prefix of the record, the largest input the gate admits (torch not
+    imported, the bytes of MERPCR_TPU_HOST_MAX=0); ``import torch`` alone;
+    the CUDA driver check of ``resolve_device`` alone against ``import
+    torch`` and ``torch.cuda.is_available()`` (the same count); the window
+    flood on the default gate (torch imported during the search, the
+    kernels launched, the bytes of device="cpu"). The torch-free checks
+    hold only for this checkout's package. Returns {reading: line}."""
+    this = PKG == ROOT
+    data = os.path.join(ROOT, "tests", "data")
+    g_sts, g_fa = os.path.join(data, "test.sts"), os.path.join(data, "test.fa")
+    lines = {}
+
+    def reading(name: str, **kw) -> None:
+        lines[name] = {"phase": "host_path_startup", "reading": name, "card": card, **kw}
+        emit(lines[name])
+
+    set_gate(None)
+    out, torch_in, t = fresh(RUNPY_CLI + TORCH_LOADED, g_sts, g_fa)
+    check(out == GOLDEN_LINE + "\n", f"golden CLI (runpy): {out!r}")
+    check(not this or not torch_in, "golden CLI on the default gate imported torch")
+    reading("golden_cli_default_gate", process_s=t, torch_imported=torch_in, golden=True)
+
+    m = 2_000_000
+    label = "prefix"
+    fa = write_fasta(os.path.join(tmp, "prefix_2mbp.fa"),
+                     [(label, np.frombuffer(recs[0].sequence[:m].encode(), dtype=np.uint8))])
+    out, torch_in, t = fresh(RUNPY_CLI + TORCH_LOADED, sts, fa)
+    set_gate(0)
+    eng = MerPCR()
+    check(eng.load_sts_file(sts), "STS load failed")
+    want, hits, _ = search_bytes(eng, eng.load_fasta_file(fa))
+    del eng
+    set_gate(None)
+    check(out == want, "2 Mbp prefix: the default gate's bytes differ from MERPCR_TPU_HOST_MAX=0")
+    check(not this or not torch_in, "2 Mbp prefix on the default gate imported torch")
+    reading("prefix_2mbp_default_gate", bases=m, hits=hits, process_s=t,
+            torch_imported=torch_in, equal_to_host_max_0=True)
+
+    _, got, t = fresh(IMPORT_TORCH)
+    reading("import_torch", process_s=t, **got)
+
+    _, drv, t_drv = fresh(DRIVER_CHECK)
+    _, tch, t_tch = fresh(TORCH_CHECK)
+    check(tch["available"] and drv["count"] == tch["count"],
+          f"driver check {drv} against torch {tch}")
+    check(not this or not drv["torch_imported"], "the driver check imported torch")
+    reading("card_check", driver=drv, driver_process_s=t_drv, torch=tch,
+            torch_process_s=t_tch, agree=True)
+
+    f_sts, f_fa, params = flood_corpus(tmp, "window")
+    out, got, t = fresh(FALLBACK, f_sts, f_fa, json.dumps(params))
+    launched = {**got["launches"], **{f"{k}_deferred": v for k, v in
+                                      got["launches_deferred"].items()}}
+    front = "front_end" if got["planes"][0][1] else "front_end_loose"
+    exp = "expand" if got["planes"][0][1] else "expand_loose"
+    check(out == window_cpu, "window flood in a fresh process: bytes differ from device=\"cpu\"")
+    check(not this or not got["torch_before_search"], "torch imported before the flood's search")
+    check(len(got["planes"]) == 1 and launched[front] > 0 and
+          all(launched.get(k + "_deferred", 0) > 0 for k in (exp, "verify_p1", "margin_p2")),
+          f"window flood in a fresh process: planes {got['planes']}, launches {launched}")
+    reading("window_flood_fallback", params=params, process_s=t, **got,
+            equal_to_cpu=True)
+    return lines
 
 
 def traced_kernels(trace_dir: str) -> dict:
@@ -1968,7 +2149,8 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
     (its second launch), and whether expand passed its pair buffer; (e) a
     warm 47 Mbp -N 0 search under MERPCR_TPU_TRACE: one trace holding the
     four kernels, the untraced bytes; the golden CLI cold and traced under
-    (a) and (b). Returns the phase line."""
+    (a) and (b); (f) the torch-free start-up (``phase_torch_free``).
+    Returns the phase line."""
     from merpcr_tpu_torch.io.fasta import record_seq_bytes
     from merpcr_tpu_torch.models import FASTARecord
     from merpcr_tpu_torch.ops.expand import PAIRS_PER_CAP
@@ -2016,7 +2198,10 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         got = cold_startup(g_sts, g_fa)
         check((got["tables"], got["scans"]) == ((0, 0) if gate is None else (1, 1)),
               f"start-up {name}: {got['tables']} tables, {got['scans']} planes")
+        check(PKG != ROOT or got["torch_imported"] == (gate == 0),
+              f"start-up {name}: torch imported {got['torch_imported']}")
         startup[name] = got["steps"]
+        startup[f"{name}_torch_imported"] = got.get("torch_imported")
     startup["kernel_build_s_first_use"] = build_s  # phase 2: nvcc, all four
     line["startup"] = startup
     # each prefix on a fresh engine on the host path (an engine whose
@@ -2057,10 +2242,12 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         crossover.append(row)
     line["crossover"] = crossover
     # the device path's one-time cost in a cold process against the host
-    # path's warm rate: the input size at which a one-shot run breaks even
+    # path's warm rate: the input size at which a one-shot run breaks even.
+    # The cost is the difference of the two cold runs of the golden files,
+    # since the host path no longer pays what the device path does (import
+    # torch, CUDA context, table upload, library load, first launches)
     dev, host = startup["device_path"], startup["host_path"]
-    once = (dev["cuda_context_s"] + dev["table_upload_s"] + dev["kernel_library_load_s"]
-            + dev["first_search_s"] - host["first_search_s"])
+    once = dev["total_s"] - host["total_s"]
     last = crossover[-1]
     h_rate, d_rate = last["host_warm_s"] / last["mbp"], last["device_warm_s"] / last["mbp"]
     line["crossover_estimate"] = {
@@ -2072,7 +2259,7 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
     del eng
 
     # (d) floods: past each cap, the record falls back to the kernels
-    floods = {}
+    floods, flood_cpu = {}, {}
     for flood in ("candidates", "window"):
         f_sts, f_fa, params = flood_corpus(tmp, flood)
         set_gate(None)
@@ -2100,6 +2287,7 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         check(cpu.load_sts_file(f_sts), "STS load failed (cpu)")
         cpu_out, _, _ = search_bytes(cpu, f_recs)
         check(out == dev_out == cpu_out, f"{flood} flood: bytes differ")
+        flood_cpu[flood] = cpu_out
         tile_len, totals = plane_totals(eng, f_recs[0])
         pair_cap = max(1024, tile_len // PAIRS_PER_CAP)
         floods[flood] = {
@@ -2154,6 +2342,10 @@ def phase_host_path(MerPCR, wrappers, sts: str, recs, expect, want_n0: str, n: i
         check(len(os.listdir(trace_dir)) == 1, f"traced golden CLI {name}: no trace")
         line["trace"][f"cli_cold_s_traced_{name}"] = t_cli
         line["trace"][f"cli_cold_s_untraced_{name}"] = line[name]["cli_cold_s"]
+
+    # (f) the torch-free start-up in cold processes
+    line["torch_free"] = sorted(phase_torch_free(MerPCR, sts, recs, card, tmp,
+                                                 flood_cpu["window"]))
     set_gate(0)
     emit(line)
     return line
@@ -2397,6 +2589,8 @@ def main() -> int:
     global PKG
     PKG = os.path.abspath(args.package_root)
     sys.path.insert(0, PKG)
+    # the card run must not be sent to the CPU by a stray platform override
+    os.environ.pop("MERPCR_TPU_PLATFORM", None)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)

@@ -5,13 +5,16 @@ same 12 flags (plus the JAX package's ``--multihost``), same defaults,
 same bounds validators (cli.py:79-124), same legacy me-PCR ``X=value``
 argument conversion (cli.py:19-62), same exit codes (0 success / 1
 failure, cli.py:256-266), diagnostics to stderr and results to stdout
-(cli.py:65-76). The search runs on the CUDA card; without
-one, ``main`` raises before it parses the files. An input whose records
+(cli.py:65-76). The search runs on the CUDA card, or where
+``MERPCR_TPU_PLATFORM`` says ("cpu": the plain PyTorch versions; "cuda" or
+"gpu": the card; any other value is refused); without a card, ``main``
+raises before it parses the files. An input whose records
 together hold at most ``MERPCR_TPU_HOST_MAX`` bases (default 2,000,000;
 never with ``--multihost``) takes the host path: each record is scanned
 in NumPy, with no table upload and no kernel, unless it floods the host
 path's caps, and then that record runs on the card's kernels. The output
-bytes are the same on either path.
+bytes are the same on either path, and a run that stays on the host path
+never imports torch (the card is found through the CUDA driver).
 """
 
 from __future__ import annotations
@@ -188,7 +191,8 @@ def create_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None, device=None) -> int:
     """Reference cli.py:217-266 — same control flow and exit codes.
 
-    ``device`` None means the CUDA card; without one this raises."""
+    ``device`` None means ``MERPCR_TPU_PLATFORM`` when it is set, else the
+    CUDA card; without one this raises."""
     converted_argv = convert_mepcr_arguments(
         sys.argv[1:] if argv is None else list(argv)
     )

@@ -61,6 +61,14 @@ take the sharded scan of ``parallel`` (K15, the JAX package's
 whole tiles per shard, every shard tile runs the same kernels on its
 shard's device, and the tiles keep their global index, so the output bytes
 are the single-device bytes for any shard count.
+
+This module imports no torch, as the JAX engine imports no jax
+(``merpcr_tpu/engine.py:30-37``): the device side (torch, ``ops.scan``,
+``ops.table.table_from_numpy``, ``parallel``) is imported inside the
+methods that use it, so a small run on the host path never loads PyTorch.
+``resolve_device`` checks for a card through the CUDA driver API, in a
+child process (``cuda_driver.py`` says why), and the engine's
+``torch.device`` is made at its first use.
 """
 
 from __future__ import annotations
@@ -70,23 +78,25 @@ import itertools
 import logging
 import math
 import os
+import subprocess
 import sys
 import time
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
-import torch
 
+from . import cuda_driver
 from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
 from .ops.encoding import AMBIG, SCODE
 from .ops.host_scan import host_scan_record
-from .ops.scan import ScanConfig, collect_stream, default_config, dispatch_stream
-from .ops.table import build_strict1, compile_table, table_from_numpy
-from .parallel import distributed
-from .parallel.sharded import (collect_shards, dispatch_shards, make_mesh, shard_planes,
-                               shard_stream_planes, upload, upload_shards)
+from .ops.table import build_strict1, compile_table
+
+if TYPE_CHECKING:  # pragma: no cover - the device side is imported at first use
+    import torch
+
+    from .ops.scan import ScanConfig
 
 # Constants (reference engine.py:17-39)
 DEFAULT_MARGIN = 50
@@ -118,20 +128,95 @@ logger = logging.getLogger(__name__)
 _TRACE_SEQ = itertools.count()
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card. Asking for CUDA without one raises:
-    the engine never carries on silently on the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
+# MERPCR_TPU_PLATFORM values (the JAX package's override,
+# merpcr_tpu/__init__.py:14-22) and the device each one means
+PLATFORMS = {"cpu": "cpu", "cuda": "cuda", "gpu": "cuda"}
+NO_CARD = "no CUDA device is available"
+
+
+def _no_card(why: str) -> RuntimeError:
+    return RuntimeError(f"{NO_CARD} ({why}); pass device='cpu' to run the plain "
+                        "PyTorch versions of the kernels")
+
+
+def _driver_report() -> str:
+    """``cuda_driver.py``'s line (the count, or ``error: <why>``), from the
+    script run in a child process, which leaves the CUDA driver of this
+    process to torch (the module says why)."""
+    r = subprocess.run([sys.executable, "-S", cuda_driver.__file__], capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        return f"error: the driver check exited with {r.returncode}: {r.stderr[-500:]}"
+    return r.stdout.strip()
+
+
+def cuda_device_count() -> int:
+    """The CUDA cards this process may use, through the CUDA driver API
+    (``cuda_driver.py``: ``cuInit``, ``cuDeviceGetCount``), without
+    importing torch; the driver honours ``CUDA_VISIBLE_DEVICES`` as
+    ``torch.cuda`` does. Raises RuntimeError when there is no driver
+    library, a driver call fails or the driver sees no card."""
+    line = _driver_report()
+    if line.startswith("error: "):
+        raise _no_card(line[len("error: "):])
+    n = int(line)
+    if n < 1:
+        raise _no_card("the CUDA driver sees no device")
+    return n
+
+
+class _Checked(str):
+    """A device spec that ``resolve_device`` has checked: resolving it
+    again asks the driver nothing (``cli.main`` resolves before the engine
+    does)."""
+
+
+def _kind_and_index(device) -> tuple:
+    """(type, index or None) of a device spec: a string such as "cpu",
+    "cuda" or "cuda:1", a card index, or a ``torch.device``."""
+    if isinstance(device, int):
+        return "cuda", device
+    if isinstance(device, str):
+        kind, sep, index = device.partition(":")
+        if not sep:
+            return kind, None
+        if not index.isdigit():
+            raise ValueError(f"unsupported device {device!r}")
+        return kind, int(index)
+    return device.type, device.index
+
+
+def resolve_device(device=None):
+    """The engine's device, checked: ``None`` means ``MERPCR_TPU_PLATFORM``
+    when it is set ("cpu"; "cuda" or "gpu" for the card; any other value
+    raises ValueError, where the JAX package ignores it), else the CUDA
+    card. Asking for CUDA without a card, or for a card index the driver
+    does not see, raises RuntimeError: the engine never carries on
+    silently on the CPU. The card is looked for through the CUDA driver
+    (``cuda_device_count``), so this imports no torch. Returns a string
+    spec ("cpu", "cuda", "cuda:1"; checked, so resolving it again is free),
+    or the caller's ``torch.device`` as it is."""
+    if isinstance(device, _Checked):
+        return device
+    if device is None:
+        platform = os.environ.get("MERPCR_TPU_PLATFORM")
+        if platform:
+            if platform not in PLATFORMS:
+                raise ValueError(f"MERPCR_TPU_PLATFORM={platform!r}: accepted values are "
+                                 + ", ".join(repr(k) for k in PLATFORMS))
+            device = PLATFORMS[platform]
+        else:
+            device = "cuda"
+    kind, index = _kind_and_index(device)
+    if kind == "cuda":
+        n = cuda_device_count()
+        if index is not None and not 0 <= index < n:
+            raise _no_card(f"cuda:{index} asked for, the CUDA driver sees {n}")
+    elif kind != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    if isinstance(device, int):
+        return _Checked(f"cuda:{device}")
+    return _Checked(device) if isinstance(device, str) else device
 
 
 def _dirty_bytes(b: np.ndarray) -> np.ndarray:
@@ -192,7 +277,8 @@ class MerPCR:
         self.threads = threads
         # Accepted-but-unused in the reference too (SURVEY.md §2.1, cli.py:202-208)
         self.max_sts_line_length = max_sts_line_length
-        self.device = resolve_device(device)
+        # the checked spec; the torch.device is made at first use (``device``)
+        self._device = resolve_device(device)
 
         self.sts_records = []
         self.max_pcr_size = 0
@@ -240,13 +326,36 @@ class MerPCR:
                 f"Default PCR size must be between {MIN_PCR_SIZE} and {MAX_PCR_SIZE}"
             )
 
+    @property
+    def device(self) -> "torch.device":
+        """The engine's ``torch.device``, made (and torch imported) at its
+        first use from the spec that ``resolve_device`` checked; a card
+        without an index is the current one."""
+        dev = self._device
+        if isinstance(dev, str) or (dev.type == "cuda" and dev.index is None):
+            import torch
+
+            dev = torch.device(dev)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            self._device = dev
+        return dev
+
+    @device.setter
+    def device(self, dev) -> None:
+        self._device = dev
+
     def use_mesh(self, mesh) -> "MerPCR":
         """Shard the scan across a 1-D mesh (``parallel.make_mesh``: a
         tuple of devices, one per shard; None: one device again). Tiles
         are partitioned by scan position and the table replicated; the
         output is byte-identical to the single-device path
         (``merpcr_tpu/engine.py:185-190``)."""
-        self.mesh = None if mesh is None else make_mesh(mesh)
+        if mesh is not None:
+            from .parallel.sharded import make_mesh
+
+            mesh = make_mesh(mesh)
+        self.mesh = mesh
         return self
 
     def enable_multihost(
@@ -262,6 +371,8 @@ class MerPCR:
         rank (``global_mesh``), and gates emission in :meth:`search` so
         that rank 0 alone writes. The rows are gathered to every rank, so
         every rank returns the same ``total_hits``."""
+        from .parallel import distributed
+
         distributed.initialize(coordinator_address, num_processes, process_id)
         self._multihost = True
         self.device = distributed.rank_device(self.device)
@@ -273,6 +384,8 @@ class MerPCR:
         if self._table_host is None:
             return None
         if self.device not in self._tables:
+            from .ops.table import table_from_numpy
+
             self._tables[self.device] = table_from_numpy(
                 self._table_host, self._meta, self.device
             )
@@ -418,6 +531,8 @@ class MerPCR:
         (``packed`` False) scans loose without asking ``_front_end``, which
         would build the strict1 tables at -N 1 (the JAX engine builds them
         for packed records only, ``merpcr_tpu/engine.py:351-353``)."""
+        from .ops.scan import default_config
+
         strict, strict_n = self._front_end() if packed else (False, 0)
         m = self._meta
         return default_config(
@@ -500,6 +615,9 @@ class MerPCR:
         nothing (a new -M or STS set changes ``lead``/``tail`` and so the
         plane); ``make_plane()`` builds its host bytes on a miss. Returns
         the context that ``_collect`` reads."""
+        from .ops.scan import dispatch_stream
+        from .parallel.sharded import dispatch_shards, upload, upload_shards
+
         n_tiles = -(-total_scan // cfg.tile_len)
         rt = self._runtime_params()
         if self.mesh is not None:
@@ -535,8 +653,12 @@ class MerPCR:
             return [ctx[1]]
         kind, cfg, n_tiles, n_records, pend = ctx
         if kind == "mesh":
+            from .parallel.sharded import collect_shards
+
             outs, reruns = collect_shards(pend, len(self.mesh))
         else:
+            from .ops.scan import collect_stream
+
             outs, reruns = collect_stream(pend)
         rows = self._rows(cfg, n_tiles, n_records, outs, reruns)
         if n_items == 1:
@@ -553,6 +675,8 @@ class MerPCR:
         (n_hits, 7) int64 rows (pos1, pos2, entry, tile_idx, pair_order,
         rank, rec); the tile column is the index in ``outs``, the global
         tile index ``shard * tiles_per_shard + t`` under a mesh."""
+        import torch
+
         shards = 1 if self.mesh is None else len(self.mesh)
         self.last_scans.append(PlaneScan(cfg, n_tiles, n_records, shards, reruns))
         parts = []
@@ -591,6 +715,8 @@ class MerPCR:
 
         def make_plane():
             if self.mesh is not None:  # (padded_shards, tile_start0, tiles_per_shard)
+                from .parallel.sharded import shard_planes
+
                 padded, starts, _, tps = shard_planes(cfg, seq, self.wordsize,
                                                       len(self.mesh), packed_rec)
                 return padded, starts, tps
@@ -734,6 +860,8 @@ class MerPCR:
             plane = self._stream_bytes(cfg, items, rmeta, total_scan)
             if self.mesh is None:
                 return plane
+            from .parallel.sharded import shard_stream_planes
+
             return shard_stream_planes(cfg, plane, total_scan, len(self.mesh))
 
         return self._dispatch_plane(cfg, owned, make_plane, total_scan, stream_len,
@@ -780,7 +908,11 @@ class MerPCR:
         # Several processes: every rank runs every plan item (all must join
         # each gather, in the same order) but only rank 0 writes; the others
         # never create output_file (merpcr_tpu/engine.py:1394-1409)
-        emit_here = not self._multihost or distributed.is_output_host()
+        emit_here = True
+        if self._multihost:
+            from .parallel import distributed
+
+            emit_here = distributed.is_output_host()
         # None or the literal string "stdout" (any case) -> stdout
         # (reference engine.py:368-371)
         if not emit_here:
@@ -807,9 +939,10 @@ class MerPCR:
         try:
             host_max = int(os.environ.get("MERPCR_TPU_HOST_MAX", "2000000"))
             # an engine whose table is on its device already scans a small
-            # input faster on the kernels than in NumPy
+            # input faster on the kernels than in NumPy; with no table on any
+            # device, torch need not be loaded to tell
             use_host = (have_table and self.mesh is None and not self._multihost
-                        and self.device not in self._tables
+                        and not (self._tables and self.device in self._tables)
                         and sum(len(r.sequence) for r in fasta_records) <= host_max)
             if use_host:  # every record an item of its own, never a stream run
                 plan = [("host", i) for i in range(len(fasta_records))]

@@ -28,15 +28,19 @@ tables. ``Table`` also gives the port's own prefilters of the loose and
 raw front ends (``fold_bits``): ``qbloom`` and ``bloom`` folded to at most
 2^19 bits, small enough for one SM's shared memory, so that a clear
 prefilter bit spares the kernel its gather from the full table.
+
+Only the device half (``Table``, ``fold_bits``, ``table_from_numpy``)
+needs torch, and it imports torch when it runs, as the JAX package's table
+imports ``jax.numpy`` inside its device half: the host fast path compiles
+a table without loading torch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
-import torch
 
 from ..io.sts import STSLoadResult
 from .encoding import (
@@ -46,7 +50,9 @@ from .encoding import (
     match_matrix,
     nib_match_matrix,
 )
-from .units import to_i32, u32
+
+if TYPE_CHECKING:  # pragma: no cover - torch is imported by the device half
+    import torch
 
 MAX_BLOOM_BITS = 24  # 2^24 bits = 2 MB; exact for W <= 12
 GTAB_CAP_BITS = 1 << 30  # exact group-table cap: 2^30 bits = 128 MB HBM
@@ -1034,6 +1040,10 @@ def fold_bits(words: torch.Tensor, shift: int, bits: int) -> torch.Tensor:
     bits) has (b >> shift) & (2^bits - 1) == j. A key whose result bit is
     clear therefore has its table bit clear. ``words`` itself when it has
     2^bits bits. Torch ops on the table's device."""
+    import torch
+
+    from .units import to_i32, u32
+
     n = _bits_of(words.numel() * 32)
     if n == bits:
         return words
@@ -1088,6 +1098,7 @@ def table_from_numpy(host, meta: TableMeta, device) -> Table:
     stay the dummies otherwise, as in the JAX table. The front ends'
     prefilters are only sized here; ``Table.loose_prefilter`` and
     ``raw_prefilter`` fold them on first use."""
+    import torch
 
     def words(a):
         a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).view(np.int32)

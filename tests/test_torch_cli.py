@@ -109,7 +109,9 @@ def test_module_entry_point_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # the default is the card, unless MERPCR_TPU_PLATFORM (tox.ini: cpu) says otherwise
+    env = {k: v for k, v in os.environ.items() if k != "MERPCR_TPU_PLATFORM"}
     r = subprocess.run([sys.executable, "-m", "merpcr_tpu_torch", GOLDEN_STS, GOLDEN_FA],
-                       cwd=root, capture_output=True, text=True, timeout=120)
+                       cwd=root, env=env, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and r.stdout == ""
     assert "no CUDA device" in r.stderr

@@ -428,8 +428,8 @@ def test_host_path_builds_uploads_and_launches_nothing(tmp_path):
     process: no wrapper launches, no kernel build, no table upload, no
     tile scan."""
     code = f"""
-from merpcr_tpu_torch import MerPCR, cli, engine
-from merpcr_tpu_torch.ops import kernels, scan
+from merpcr_tpu_torch import MerPCR, cli
+from merpcr_tpu_torch.ops import kernels, scan, table
 from merpcr_tpu_torch.ops.expand import expand, expand_loose, expand_raw
 from merpcr_tpu_torch.ops.front_end import front_end, front_end_loose, front_end_raw
 from merpcr_tpu_torch.ops.margin_p2 import margin_p2, margin_p2_raw
@@ -438,7 +438,8 @@ from merpcr_tpu_torch.ops.verify_p1 import verify_p1, verify_p1_raw
 def refuse(*a, **k):
     raise AssertionError("device-path work on the host path")
 
-kernels.build = scan.scan_tile = engine.table_from_numpy = refuse
+# the engine imports table_from_numpy from ops.table when it uploads
+kernels.build = scan.scan_tile = table.table_from_numpy = refuse
 eng = MerPCR(device="cpu")
 assert eng.load_sts_file({GOLDEN_STS!r})
 assert eng.search(eng.load_fasta_file({GOLDEN_FA!r}), {str(tmp_path / "api.txt")!r}) == 1

@@ -223,9 +223,11 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         kernels.build()
 
 
-def test_default_device_needs_a_card():
+def test_default_device_needs_a_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    # the default is the card, unless MERPCR_TPU_PLATFORM (tox.ini: cpu) says otherwise
+    monkeypatch.delenv("MERPCR_TPU_PLATFORM", raising=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         MerPCR()
     from merpcr_tpu_torch import cli
@@ -1142,6 +1144,76 @@ def test_card_host_path_launches_nothing(cuda, monkeypatch):
     assert _search(eng, GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
     assert [f.launches for f in WRAPPERS] == counts
     assert eng._tables == {} and eng.last_scans == []
+
+
+@pytest.mark.gpu
+def test_card_driver_check_agrees_with_torch(cuda):
+    """The engine finds the card through the CUDA driver, without torch:
+    the driver sees the cards that torch sees."""
+    from merpcr_tpu_torch.engine import cuda_device_count, resolve_device
+
+    assert cuda_device_count() == torch.cuda.device_count() >= 1
+    assert resolve_device(None) == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        resolve_device(f"cuda:{torch.cuda.device_count()}")
+
+
+@pytest.mark.gpu
+def test_card_golden_cli_on_the_default_gate_loads_no_torch(cuda):
+    """``python -m merpcr_tpu_torch`` on the golden files and the default
+    gate, in a fresh process on the card: the golden line, and no torch in
+    ``sys.modules`` at exit (read through runpy, which ``-m`` runs)."""
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = ['merpcr_tpu_torch', {GOLDEN_STS!r}, {GOLDEN_FA!r}]\n"
+        "try:\n"
+        "    runpy.run_module('merpcr_tpu_torch', run_name='__main__', alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "print(json.dumps('torch' in sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MERPCR_TPU_HOST_MAX", "MERPCR_TPU_PLATFORM")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout == GOLDEN_LINE + "\nfalse\n"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate", ["default", "0"])
+@pytest.mark.parametrize("run", [1, 2])
+def test_card_traced_cli_exits_cleanly(cuda, tmp_path, gate, run):
+    """A cold traced golden CLI (``MERPCR_TPU_TRACE``) on each side of the
+    gate, twice: exit code 0, the golden line, one trace. The card check
+    leaves the process's CUDA driver to torch; a driver initialised in the
+    process before torch loaded its CUDA libraries made such runs abort at
+    exit, in the profiler's teardown, now and then."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MERPCR_TPU_HOST_MAX", "MERPCR_TPU_PLATFORM")}
+    if gate == "0":
+        env["MERPCR_TPU_HOST_MAX"] = "0"
+    env["MERPCR_TPU_TRACE"] = str(tmp_path / "trace")
+    r = subprocess.run([sys.executable, "-m", "merpcr_tpu_torch", GOLDEN_STS, GOLDEN_FA],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout == GOLDEN_LINE + "\n" and len(os.listdir(tmp_path / "trace")) == 1
+
+
+@pytest.mark.gpu
+def test_card_forced_fallback_launches_the_kernels(cuda, monkeypatch):
+    """With the host path's candidate cap lowered to 0 (a test hook), the
+    golden record leaves the host path on the default gate: the kernels
+    launch and print the golden line."""
+    from merpcr_tpu_torch.ops import host_scan
+
+    monkeypatch.delenv("MERPCR_TPU_HOST_MAX")
+    monkeypatch.setattr(host_scan, "MAX_CANDIDATES", 0)
+    counts = [f.launches for f in PATH]
+    eng = MerPCR()
+    assert _search(eng, GOLDEN_STS, GOLDEN_FA) == GOLDEN_LINE + "\n"
+    assert all(b > a for a, b in zip(counts, [f.launches for f in PATH]))
+    assert [s.records for s in eng.last_scans] == [1] and eng.device.type == "cuda"
 
 
 @pytest.mark.gpu

@@ -31,7 +31,7 @@ import torch
 pytest.importorskip("jax")
 
 from merpcr_tpu import MerPCR as JaxMerPCR  # noqa: E402
-from merpcr_tpu_torch import MerPCR, engine as engine_mod  # noqa: E402
+from merpcr_tpu_torch import MerPCR  # noqa: E402
 from merpcr_tpu_torch.io.fasta import record_packed  # noqa: E402
 from merpcr_tpu_torch.models import FASTARecord  # noqa: E402
 from merpcr_tpu_torch.ops import expand as expand_mod  # noqa: E402
@@ -69,13 +69,14 @@ def _corpus(tmp_path, seed: int = 41):
 
 def _count_uploads(monkeypatch) -> list:
     calls = []
-    real = engine_mod.upload
+    # the engine imports ``upload`` from parallel.sharded when it dispatches
+    real = sharded.upload
 
     def counted(arr, dev):
         calls.append(arr.nbytes)
         return real(arr, dev)
 
-    monkeypatch.setattr(engine_mod, "upload", counted)
+    monkeypatch.setattr(sharded, "upload", counted)
     return calls
 
 
