@@ -12,7 +12,7 @@ tree, this tree, parent in one command. The device-operation gate below
 holds only for this checkout's package. ``--only warm_path`` runs phases
 1-3 and phase 15 alone, without its device="cpu" comparisons, floods and
 mixed plan: the A/B of the warm-search path, which a checkout before it
-runs as well.
+runs as well. ``--only sweep`` runs phases 1-3 and phase 16 alone.
 
 Phases (each prints one JSON line; any failure exits non-zero, and the
 closing device line is printed only when every phase passed):
@@ -179,7 +179,8 @@ closing device line is printed only when every phase passed):
              here), planes, tiles, tiles rerun and launches, bytes equal to
              device="cpu"; device busy and idle share of a warm search;
              the first search's host steps (dirty rate, plane, upload; a
-             warm search takes them from the engine's cache); (b) the
+             warm search takes them from the record store, which is
+             cleared before each first search); (b) the
              record at -N 2 and assemblies (a), (b), (d), (e) on fresh
              engines, first search and warm; (c) phase 14's two floods and
              their RNA renderings on the deferred scan: the tiles rerun
@@ -188,9 +189,19 @@ closing device line is printed only when every phase passed):
              ``margin_p2``'s row buffer, bytes equal to device="cpu"; (d) a
              mixed plan (a stream run, an empty record, a 2 Mbp lone
              record, an RNA scaffold, another run) under the depth-1
-             prefetch: FASTA order, bytes equal to device="cpu"
+             prefetch: FASTA order, bytes equal to device="cpu"; the host
+             split of each search times the plan too (``plan_s``: a repeat
+             search over the same records takes it from the engine)
+16. sweep    ``tools/margin_sweep.py``'s workflow: a fresh engine per -M at
+             M = 50, 60, ..., 100 and -I 1, over the 47 Mbp record and over
+             assembly (c), with the record store cleared before each engine
+             (one store per engine) and shared (cleared once): per engine its
+             STS load and first search (host s), uploads and dirty-rate
+             samples; bytes equal between the two runs at each M, every
+             exact plant present; on the shared store uploads only at M 50
+             and M 70 (the margin caps 64 and 128) and samples only at M 50
 
-Phases 1-13 and 15 run at MERPCR_TPU_HOST_MAX=0 (set by this script,
+Phases 1-13, 15 and 16 run at MERPCR_TPU_HOST_MAX=0 (set by this script,
 inherited by the processes it starts), so their inputs never take the host
 path; phase 14 sets the gate itself. ``MERPCR_TPU_PLATFORM`` is removed
 from the environment first, so that no setting of it sends the run to the
@@ -2359,22 +2370,25 @@ WARM_SWEEP = (("N2", {"mismatches": 2}), ("N1", {"mismatches": 1}),
 def searched(eng, recs, wrappers, want=None, what: str = "") -> tuple:
     """(output, figures) of one search: host seconds, the host's waits on
     the card (READS), planes, tiles, tiles rerun past a buffer, launches,
-    and ``host_split``: the host seconds of the engine's dispatch and
-    collect steps, of the waits on the card (within collect) and of
-    Python's garbage collections (CLOCK); the output held to ``want`` when
-    given."""
+    and ``host_split``: the host seconds of the engine's plan (a repeat
+    search over the same records takes it from the engine's cache),
+    dispatch and collect steps, of the waits on the card (within collect)
+    and of Python's garbage collections (CLOCK); the output held to
+    ``want`` when given."""
     for w in wrappers.values():
         w.launches = 0
     r0, c0 = READS[0], dict(CLOCK)
-    steps = {"dispatch_s": 0.0, "collect_s": 0.0}
-    for step, attr in (("dispatch_s", "_dispatch_item"), ("collect_s", "_collect")):
-        real = getattr(eng, attr, None)  # (an A/B parent has neither)
+    steps = {"plan_s": 0.0, "dispatch_s": 0.0, "collect_s": 0.0}
+    clocked_steps = (("plan_s", "_plan"), ("dispatch_s", "_dispatch_item"),
+                     ("collect_s", "_collect"))
+    for step, attr in clocked_steps:
+        real = getattr(eng, attr, None)  # (an A/B parent may lack one)
         if real is not None:
             setattr(eng, attr, clocked(real, steps, step))
     try:
         out, hits, t = search_bytes(eng, recs)
     finally:
-        for attr in ("_dispatch_item", "_collect"):
+        for _step, attr in clocked_steps:
             eng.__dict__.pop(attr, None)
     scans = eng.last_scans
     fig = {"s": t, "host_reads": READS[0] - r0, "planes": len(scans),
@@ -2406,6 +2420,18 @@ def cpu_bytes(MerPCR, sts: str, recs, **params) -> str:
     return search_bytes(cpu, recs)[0]
 
 
+def clear_store() -> bool:
+    """Empty the record store (dirty rates, layouts, planes) that every
+    engine of the process shares; False for a package without one (an A/B
+    parent)."""
+    from merpcr_tpu_torch import engine as engine_mod
+
+    store = getattr(engine_mod, "_OWNERS", None)
+    if store is not None:
+        store.clear()
+    return store is not None
+
+
 def warm_engine(MerPCR, wrappers, sts: str, recs, what: str, cpu: bool, sweep: bool,
                 **params) -> dict:
     """A fresh engine's first search, then warm searches: three at the
@@ -2413,10 +2439,13 @@ def warm_engine(MerPCR, wrappers, sts: str, recs, what: str, cpu: bool, sweep: b
     torch.profiler against the unprofiled warm seconds), then with
     ``sweep`` -N 2, -N 1, -N 0 and -M 1000 in turn on the same engine. Every
     search's bytes equal the first one's at the same parameters and, with
-    ``cpu``, device="cpu"'s."""
+    ``cpu``, device="cpu"'s. The record store that engines share is
+    cleared first, so that the first search pays what a fresh process's
+    does (phase 16 measures the store shared)."""
     eng = MerPCR(**params)
     check(eng.load_sts_file(sts), "STS load failed")
     want = cpu_bytes(MerPCR, sts, recs, **params) if cpu else None
+    clear_store()
     first, fig = searched(eng, recs, wrappers, want, f"{what} first")
     got = {"first": fig, "warm": []}
     for _ in range(3):
@@ -2573,6 +2602,101 @@ def phase_warm_path(MerPCR, wrappers, sts: str, recs, a_sts: str, fas: dict, tmp
     return line, floods
 
 
+# ---------------------------------------------------------------- sweep
+SWEEP_MARGINS = tuple(range(50, 101, 10))  # tools/margin_sweep.py's -M 50-100
+
+
+def sweep_counters(MerPCR) -> tuple:
+    """(counts, undo): every upload of the package (planes and record
+    tables, ``parallel.sharded.upload``) and every dirty-rate sample
+    (``_dirty_of``, ``_run_dirty_pos``) counted in ``counts``; ``undo()``
+    puts the originals back."""
+    from merpcr_tpu_torch.parallel import sharded
+
+    counts = {"uploads": 0, "dirty_samples": 0}
+    real = {"upload": sharded.upload, "_dirty_of": MerPCR.__dict__["_dirty_of"],
+            "_run_dirty_pos": MerPCR.__dict__.get("_run_dirty_pos")}
+
+    def counted(fn, key):
+        def run(*args):
+            counts[key] += 1
+            return fn(*args)
+        return run
+
+    sharded.upload = counted(real["upload"], "uploads")
+    for name in ("_dirty_of", "_run_dirty_pos"):
+        if real[name] is not None:
+            setattr(MerPCR, name, staticmethod(counted(real[name].__func__, "dirty_samples")))
+
+    def undo():
+        sharded.upload = real["upload"]
+        for name in ("_dirty_of", "_run_dirty_pos"):
+            if real[name] is not None:
+                setattr(MerPCR, name, real[name])
+
+    return counts, undo
+
+
+def phase_sweep(MerPCR, sts: str, recs, expect, a_sts: str, a_recs, a_expect,
+                card: str) -> dict:
+    """Phase 16: ``tools/margin_sweep.py``'s workflow, a fresh engine per
+    -M at M = 50, 60, ..., 100 and -I 1 (BASELINE config 4's verify), over
+    the 47 Mbp record and over assembly (c), twice: with the record store
+    cleared before each engine (a store per engine, what the port paid
+    before the store was shared) and shared (cleared once, before the
+    first engine). Per engine one line: the host seconds of its STS load
+    and of its first search, its uploads (planes and record tables) and
+    dirty-rate samples; the bytes of the two runs equal at each M, every
+    exact plant present. Returns the summary line."""
+    shared = clear_store()  # (an A/B parent has no store)
+    summary = {"phase": "sweep_summary", "card": card, "margins": list(SWEEP_MARGINS)}
+    counts, undo = sweep_counters(MerPCR)
+    try:
+        for what, s_path, rs, want_lines in (("record_I1", sts, recs, expect),
+                                             ("assembly_c", a_sts, a_recs, a_expect)):
+            outs = {}
+            for run in ("cleared", "shared"):
+                clear_store()
+                firsts = []
+                for margin in SWEEP_MARGINS:
+                    if run == "cleared":
+                        clear_store()
+                    c0 = dict(counts)
+                    t0 = time.perf_counter()
+                    eng = MerPCR(margin=margin, iupac_mode=1)
+                    check(eng.load_sts_file(s_path), "STS load failed")
+                    load_s = time.perf_counter() - t0
+                    out, hits, t = search_bytes(eng, rs)
+                    lines = set(out.splitlines())
+                    missing = [e for e in want_lines if e not in lines]
+                    check(not missing, f"sweep {what} {run} -M {margin}: {len(missing)} "
+                                       f"planted lines missing, e.g. {missing[:3]}")
+                    if run == "shared":
+                        check(out == outs[margin], f"sweep {what} -M {margin}: the shared "
+                                                   "store's bytes differ from the cleared one's")
+                    outs[margin] = out
+                    fig = {k: counts[k] - c0[k] for k in counts}
+                    if run == "shared" and shared:
+                        # uploads where the margin cap (the halos) moves, one
+                        # sample per record or run, by the first engine
+                        new_cap = margin in (SWEEP_MARGINS[0], 70)
+                        check(bool(fig["uploads"]) == new_cap
+                              and bool(fig["dirty_samples"]) == (margin == SWEEP_MARGINS[0]),
+                              f"sweep {what} -M {margin}: {fig} on the shared store")
+                    emit({"phase": "sweep", "workload": what, "run": run, "margin": margin,
+                          "margin_cap": eng.last_scans[0].cfg.margin, "card": card,
+                          "sts_load_s": load_s, "first_search_s": t, "hits": hits,
+                          "planes": len(eng.last_scans), **fig,
+                          "equal_to_cleared": run == "shared", "plants_present": True})
+                    firsts.append(t)
+                    del eng
+                summary[f"{what}_{run}_first_search_s"] = firsts
+    finally:
+        undo()
+    emit(summary)
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2582,9 +2706,9 @@ def main() -> int:
     ap.add_argument("--package-root", default=ROOT,
                     help="run the merpcr_tpu_torch of this checkout (an A/B "
                          "against another commit), measured by this script")
-    ap.add_argument("--only", choices=("warm_path",),
-                    help="phases 1-3 and this phase alone, without its "
-                         "device=\"cpu\" comparisons, floods and mixed plan (the A/B)")
+    ap.add_argument("--only", choices=("warm_path", "sweep"),
+                    help="phases 1-3 and this phase alone (warm_path: without its "
+                         "device=\"cpu\" comparisons, floods and mixed plan, the A/B)")
     args = ap.parse_args()
     global PKG
     PKG = os.path.abspath(args.package_root)
@@ -2639,11 +2763,17 @@ def main() -> int:
               "genome_bp": n, "sts": args.nsts, "planted_lines": len(expect),
               "mismatch_lines": {k: len(v) for k, v in mism.items()},
               "off_size_lines": {d: len(v) for d, v in off_size.items()}})
-        if args.only:  # the A/B: phase 15 alone
-            a_sts, a_clean, a_dirty, *_ = make_assembly(tmp, args.seed, args.nsts, args.planted)
+        if args.only:  # phase 15 alone (the A/B) or phase 16 alone
+            a_sts, a_clean, a_dirty, _, a_expect, a_expect_i = make_assembly(
+                tmp, args.seed, args.nsts, args.planted)
             recs = MerPCR(device="cpu").load_fasta_file(fa)
-            phase_warm_path(MerPCR, wrappers, sts, recs, a_sts,
-                            {"clean": a_clean, "dirty": a_dirty}, tmp, card, False)
+            if args.only == "warm_path":
+                phase_warm_path(MerPCR, wrappers, sts, recs, a_sts,
+                                {"clean": a_clean, "dirty": a_dirty}, tmp, card, False)
+            else:
+                phase_sweep(MerPCR, sts, recs, expect, a_sts,
+                            MerPCR(device="cpu").load_fasta_file(a_dirty),
+                            a_expect + a_expect_i, card)
             print(smi())
             emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                          "count": torch.cuda.device_count()}})
@@ -2820,6 +2950,10 @@ def main() -> int:
         _, rerun_launches = phase_warm_path(MerPCR, wrappers, sts, recs, a_sts,
                                             {"clean": a_clean, "dirty": a_dirty}, tmp, card,
                                             True)
+
+        # 16. a sweep of fresh engines over the record store they share
+        phase_sweep(MerPCR, sts, recs, plants, a_sts,
+                    MerPCR(device="cpu").load_fasta_file(a_dirty), a_expect + a_expect_i, card)
 
     rows = []
     for kern, launched in ((res, launches), (s_res, stream_launches), *mm.values(),

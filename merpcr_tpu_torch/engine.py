@@ -36,7 +36,12 @@ path (one record per plane).
 
 Repeat searches reuse what does not depend on -N, -X or -I: a record's
 (or stream run's) dirty rates, layout and planes on the device, kept in a
-cache entry that holds the record's arrays (``_owned``). A plane's tiles
+cache entry that holds the record's arrays (``_owned``). The entries are
+shared by every engine of the process, as the JAX package's plane cache is
+(``merpcr_tpu/engine.py:72-74``), so a sweep that builds a fresh engine per
+setting samples and uploads each record once; an engine also keeps the
+plan of its last search (``_plan``) for a repeat search over the same
+records. A plane's tiles
 are enqueued with no host read between their stages
 (``ops.scan.dispatch_stream``): each stage reads the count of the one
 before from device memory, and the host reads the plane once, when it
@@ -77,6 +82,7 @@ import functools
 import itertools
 import logging
 import math
+import operator
 import os
 import subprocess
 import sys
@@ -234,6 +240,37 @@ def _window_flags(dirty: np.ndarray) -> np.ndarray:
     return clean6 & (dirty[6 : 6 + n] | dirty[7 : 7 + n])
 
 
+# Owners (records, stream runs) whose dirty rates, layouts and uploaded
+# planes every engine of the process reuses: past this many the store is
+# cleared (the JAX package's bound, ``merpcr_tpu/engine.py:575``)
+OWNERS_MAX = 64
+# (arrays, entry) of each owner (``_owned``); one store per process, as the
+# JAX package's ``_DEVICE_PLANE_CACHE``
+_OWNERS: list = []
+
+
+def _owned(arrays: tuple) -> dict:
+    """The cache entry of a record (``arrays``: its packed bytes, or its
+    raw bytes) or a stream run (every item's packed bytes), which repeat
+    searches and every other engine of the process reuse
+    (``merpcr_tpu/engine.py:492-499``, ``:556-579``): the dirty rates
+    ("dirty"), a run's layout ("layout") and the uploaded planes, keyed by
+    device and all that their bytes and length depend on. None of it depends
+    on an engine's -W, -N, -X, -I, STS set or table, except through a plane's
+    key. The entry holds ``arrays`` and is found by the identity of every one
+    of them, so an entry is never served to another record, even one of the
+    same length, and no key is an object's id number, which a new object
+    could reuse. Cleared past ``OWNERS_MAX`` owners."""
+    for owners, entry in _OWNERS:
+        if len(owners) == len(arrays) and all(map(operator.is_, owners, arrays)):
+            return entry
+    if len(_OWNERS) >= OWNERS_MAX:
+        _OWNERS.clear()
+    entry: dict = {}
+    _OWNERS.append((arrays, entry))
+    return entry
+
+
 class PlaneScan(tuple):
     """(cfg, tiles, records) of one scanned plane, with ``shards``: the
     mesh's shard count (1 without a mesh), and ``reruns``: the (global)
@@ -299,9 +336,8 @@ class MerPCR:
         # Test hook: force a specific tile length (exercises multi-tile
         # paths on small inputs). None -> TILE_LEN_BUCKETS heuristic.
         self._tile_len_override: Optional[int] = None
-        # (arrays, entry) of the records and stream runs whose dirty rates,
-        # layouts and uploaded planes repeat searches reuse (``_owned``)
-        self._owners: list = []
+        # (records, their sequences, plan) of the last plan built (``_plan``)
+        self._plan_cache: Optional[tuple] = None
 
         self._validate_parameters()
 
@@ -581,47 +617,29 @@ class MerPCR:
                 return b
         return buckets[-1]
 
-    # Owners (records, stream runs) whose dirty rates and planes the engine
-    # keeps: past this many the cache is cleared (the JAX package's bound)
-    OWNERS_MAX = 64
-
-    def _owned(self, arrays: tuple) -> dict:
-        """The cache entry of a record (``arrays``: its packed bytes, or its
-        raw bytes) or a stream run (every item's packed bytes), which repeat
-        searches reuse (``merpcr_tpu/engine.py:492-499``, ``:556-579``): the
-        dirty rates ("dirty"), a run's layout ("layout") and the uploaded
-        planes, keyed by device and the geometry that their bytes depend on.
-        The entry holds ``arrays`` and is found by the identity of every one
-        of them, so an entry is never served to another record, even one of
-        the same length, and no key is an object's id number, which a new
-        object could reuse. Cleared past ``OWNERS_MAX`` owners."""
-        for owners, entry in self._owners:
-            if len(owners) == len(arrays) and all(x is y for x, y in zip(owners, arrays)):
-                return entry
-        if len(self._owners) >= self.OWNERS_MAX:
-            self._owners.clear()
-        entry: dict = {}
-        self._owners.append((arrays, entry))
-        return entry
-
     def _dispatch_plane(self, cfg: ScanConfig, owned: dict, make_plane,
                         total_scan: int, stream_len: int, rmeta: np.ndarray,
                         recmap, n_records: int) -> tuple:
         """Enqueue the scan of one plane without a host read
         (``ops.scan.dispatch_stream``, or with a mesh
         ``parallel.sharded.dispatch_shards``). The plane, and its ``rmeta``
-        and ``recmap``, are uploaded once per device and geometry and kept
-        in ``owned``, so a repeat search with a new -N, -X or -I uploads
-        nothing (a new -M or STS set changes ``lead``/``tail`` and so the
-        plane); ``make_plane()`` builds its host bytes on a miss. Returns
+        and ``recmap``, are uploaded once per device (or mesh) and geometry
+        and kept in ``owned``, so a repeat search with a new -N, -X or -I,
+        or another engine's search, uploads nothing (a new -M or STS set
+        changes ``lead``/``tail`` and so the plane, a new -W the number of
+        tiles); ``make_plane()`` builds its host bytes on a miss. Returns
         the context that ``_collect`` reads."""
         from .ops.scan import dispatch_stream
         from .parallel.sharded import dispatch_shards, upload, upload_shards
 
         n_tiles = -(-total_scan // cfg.tile_len)
         rt = self._runtime_params()
+        # all that the plane's bytes and length depend on: its halos, its
+        # tiles (their number follows -W: total_scan = n - W + 1; under a
+        # mesh it sets the tiles per shard) and the record or run
+        geometry = (cfg.lead, cfg.tail, cfg.tile_len, n_tiles, cfg.packed, stream_len)
         if self.mesh is not None:
-            key = (self.mesh, cfg.lead, cfg.tail, cfg.tile_len, cfg.packed, stream_len)
+            key = (self.mesh, *geometry)
             up = owned.get(key)
             if up is None:
                 up = owned[key] = upload_shards(make_plane(), rmeta, recmap, self.mesh)
@@ -629,7 +647,7 @@ class MerPCR:
                                    self._tables)
             return ("mesh", cfg, n_tiles, n_records, pend)
         dev = self.device
-        key = (dev, cfg.lead, cfg.tail, cfg.tile_len, cfg.packed, stream_len)
+        key = (dev, *geometry)
         up = owned.get(key)
         if up is None:
             up = owned[key] = (upload(make_plane(), dev), upload(rmeta, dev),
@@ -704,7 +722,7 @@ class MerPCR:
         packed = packed_rec is not None
         total_scan = n - self.wordsize + 1
         tile_len = self._tile_len_override or self._pick_tile_len(total_scan)
-        owned = self._owned((packed_rec if packed else seq,))
+        owned = _owned((packed_rec if packed else seq,))
         dirty_pos = 0.0
         if packed and self._front_end()[0]:
             if "dirty" not in owned:
@@ -758,6 +776,25 @@ class MerPCR:
         return np.repeat(np.arange(len(rmeta), dtype=np.int32), counts)
 
     def _plan(self, fasta_records) -> list:
+        """The dispatch plan of ``fasta_records`` (``_build_plan``), kept
+        for repeat searches (``merpcr_tpu/engine.py:1452-1489``): reused
+        while the records are the same objects in the same order and each
+        ``sequence`` is the string object the plan was built from, all
+        checked with ``is`` (the JAX package keys its plan by the records'
+        id numbers, which a new object can reuse). A reassigned
+        ``sequence``, another record in the list or another length builds
+        it anew."""
+        pc = self._plan_cache
+        seqs = tuple(map(operator.attrgetter("sequence"), fasta_records))
+        if (pc is not None and len(pc[0]) == len(fasta_records)
+                and all(map(operator.is_, pc[0], fasta_records))
+                and all(map(operator.is_, pc[1], seqs))):
+            return pc[2]
+        plan = self._build_plan(fasta_records)
+        self._plan_cache = (tuple(fasta_records), seqs, plan)
+        return plan
+
+    def _build_plan(self, fasta_records) -> list:
         """Dispatch plan in FASTA order (``merpcr_tpu/engine.py:1448-1491``):
         ("stream", record indices, items) for every run of >= 2
         consecutive packable records, ("single", index) otherwise. An empty
@@ -799,7 +836,7 @@ class MerPCR:
         run can be scanned (every record shorter than a word). The layout
         and the run's dirty rate come from the run's cache entry
         (``_owned``) after the first search."""
-        owned = self._owned(tuple(p for _s, p in items))
+        owned = _owned(tuple(p for _s, p in items))
         if "layout" not in owned:
             rmeta, stream_len = self._stream_layout(items)
             owned["layout"] = (rmeta, stream_len, self._recmap(rmeta, stream_len))

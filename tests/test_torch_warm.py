@@ -32,6 +32,7 @@ pytest.importorskip("jax")
 
 from merpcr_tpu import MerPCR as JaxMerPCR  # noqa: E402
 from merpcr_tpu_torch import MerPCR  # noqa: E402
+from merpcr_tpu_torch import engine as engine_mod  # noqa: E402
 from merpcr_tpu_torch.io.fasta import record_packed  # noqa: E402
 from merpcr_tpu_torch.models import FASTARecord  # noqa: E402
 from merpcr_tpu_torch.ops import expand as expand_mod  # noqa: E402
@@ -50,6 +51,7 @@ PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 @pytest.fixture(autouse=True)
 def _jax_device_path(monkeypatch):
     monkeypatch.setenv("MERPCR_TPU_HOST_MAX", "0")
+    engine_mod._OWNERS.clear()  # the record store is shared by every engine
 
 
 def _jax(sts, recs, **params) -> str:
@@ -114,7 +116,7 @@ def test_warm_engine_sweeps_equal_jax(tmp_path, monkeypatch):
         # two planes (the lone record and the run), 2 + 3 arrays each time
         assert new == (0 if key in seen else 5), (name, value, new)
         seen.append(key)
-    assert len(eng._owners) == 2
+    assert len(engine_mod._OWNERS) == 2
 
 
 def test_same_length_new_record_is_not_served_from_cache(tmp_path):
@@ -135,7 +137,7 @@ def test_same_length_new_record_is_not_served_from_cache(tmp_path):
     new = [FASTARecord(defline=">scaf0 scaffold 0", sequence=other.tobytes().decode())]
     got = run_search(eng, new)
     assert got == _jax(sts, new) and got != first
-    assert len(eng._owners) == 2
+    assert len(engine_mod._OWNERS) == 2
 
 
 @pytest.mark.parametrize("raw", [False, True])
