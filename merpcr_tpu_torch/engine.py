@@ -91,7 +91,7 @@ from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
 
-from . import cuda_driver
+from . import cuda_driver, trace
 from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
@@ -338,6 +338,10 @@ class MerPCR:
         self._tile_len_override: Optional[int] = None
         # (records, their sequences, plan) of the last plan built (``_plan``)
         self._plan_cache: Optional[tuple] = None
+        # set: each search fills a ``trace.SearchTrace`` (spans and
+        # counters), left in ``last_trace``; unset, ``last_trace`` is None
+        self.tracing = False
+        self.last_trace: Optional[trace.SearchTrace] = None
 
         self._validate_parameters()
 
@@ -642,7 +646,8 @@ class MerPCR:
             key = (self.mesh, *geometry)
             up = owned.get(key)
             if up is None:
-                up = owned[key] = upload_shards(make_plane(), rmeta, recmap, self.mesh)
+                with trace.span("dispatch.upload"):
+                    up = owned[key] = upload_shards(make_plane(), rmeta, recmap, self.mesh)
             pend = dispatch_shards(cfg, self._table, up, total_scan, stream_len, rt,
                                    self._tables)
             return ("mesh", cfg, n_tiles, n_records, pend)
@@ -650,8 +655,9 @@ class MerPCR:
         key = (dev, *geometry)
         up = owned.get(key)
         if up is None:
-            up = owned[key] = (upload(make_plane(), dev), upload(rmeta, dev),
-                               None if recmap is None else upload(recmap, dev))
+            with trace.span("dispatch.upload"):
+                up = owned[key] = (upload(make_plane(), dev), upload(rmeta, dev),
+                                   None if recmap is None else upload(recmap, dev))
         pend = dispatch_stream(cfg, self._table, up[0], total_scan, stream_len, up[1],
                                up[2], rt, n_tiles)
         return ("plane", cfg, n_tiles, n_records, pend)
@@ -678,14 +684,15 @@ class MerPCR:
             from .ops.scan import collect_stream
 
             outs, reruns = collect_stream(pend)
-        rows = self._rows(cfg, n_tiles, n_records, outs, reruns)
-        if n_items == 1:
-            return [rows[:, :6]]
-        # split by record with one stable argsort (:1163-1168); the
-        # emitter re-sorts each record's rows by their unique keys
-        rows = rows[np.argsort(rows[:, 6], kind="stable")]
-        bounds = np.searchsorted(rows[:, 6], np.arange(n_items + 1))
-        return [rows[bounds[i] : bounds[i + 1], :6] for i in range(n_items)]
+        with trace.span("collect.rows"):
+            rows = self._rows(cfg, n_tiles, n_records, outs, reruns)
+            if n_items == 1:
+                return [rows[:, :6]]
+            # split by record with one stable argsort (:1163-1168); the
+            # emitter re-sorts each record's rows by their unique keys
+            rows = rows[np.argsort(rows[:, 6], kind="stable")]
+            bounds = np.searchsorted(rows[:, 6], np.arange(n_items + 1))
+            return [rows[bounds[i] : bounds[i + 1], :6] for i in range(n_items)]
 
     def _rows(self, cfg: ScanConfig, n_tiles: int, n_records: int, outs,
               reruns) -> np.ndarray:
@@ -917,8 +924,9 @@ class MerPCR:
         rec = fasta_records[item[1]]
         seq = record_seq_bytes(rec)
         if item[0] == "host":
-            rows = host_scan_record(self._table_host, self._meta, seq, self.margin,
-                                    self.mismatches, self.three_prime_match)
+            with trace.span("dispatch.host_scan"):
+                rows = host_scan_record(self._table_host, self._meta, seq, self.margin,
+                                        self.mismatches, self.three_prime_match)
             if rows is not None:
                 return ("rows", rows)
         packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
@@ -940,7 +948,10 @@ class MerPCR:
         work overlaps this one's kernels; output stays in FASTA order.
         ``MERPCR_TPU_TRACE`` naming a directory wraps the search in
         ``torch.profiler`` and writes a Chrome trace there
-        (``merpcr_tpu/engine.py:1411-1419``)."""
+        (``merpcr_tpu/engine.py:1411-1419``). With ``tracing`` set, or
+        ``MERPCR_TPU_TRACE``, the search fills a ``trace.SearchTrace`` and
+        leaves it in ``last_trace`` (its spans are in the Chrome trace
+        too)."""
         total_hits = 0
         # Several processes: every rank runs every plan item (all must join
         # each gather, in the same order) but only rank 0 writes; the others
@@ -968,71 +979,87 @@ class MerPCR:
                 activities.append(ProfilerActivity.CUDA)
             prof = profile(activities=activities)
             prof.__enter__()
-        search_t0 = time.time()
+        search_t0 = time.perf_counter()
         total_bp = 0
         have_table = self._meta is not None and self._meta.n_entries > 0
         self.last_scans = []
+        self.last_trace = None
         log_debug = logger.isEnabledFor(logging.DEBUG)
+        search_trace = trace.start() if self.tracing or trace_dir else None
         try:
-            host_max = int(os.environ.get("MERPCR_TPU_HOST_MAX", "2000000"))
-            # an engine whose table is on its device already scans a small
-            # input faster on the kernels than in NumPy; with no table on any
-            # device, torch need not be loaded to tell
-            use_host = (have_table and self.mesh is None and not self._multihost
-                        and not (self._tables and self.device in self._tables)
-                        and sum(len(r.sequence) for r in fasta_records) <= host_max)
-            if use_host:  # every record an item of its own, never a stream run
-                plan = [("host", i) for i in range(len(fasta_records))]
-            elif have_table:
-                plan = self._plan(fasta_records)
-            else:
-                plan = [("single", i) for i in range(len(fasta_records))]
+            with trace.span("plan"):
+                host_max = int(os.environ.get("MERPCR_TPU_HOST_MAX", "2000000"))
+                # an engine whose table is on its device already scans a small
+                # input faster on the kernels than in NumPy; with no table on
+                # any device, torch need not be loaded to tell
+                use_host = (have_table and self.mesh is None and not self._multihost
+                            and not (self._tables and self.device in self._tables)
+                            and sum(len(r.sequence) for r in fasta_records) <= host_max)
+                if use_host:  # every record an item of its own, never a stream run
+                    plan = [("host", i) for i in range(len(fasta_records))]
+                elif have_table:
+                    plan = self._plan(fasta_records)
+                else:
+                    plan = [("single", i) for i in range(len(fasta_records))]
             # depth-1 prefetch (merpcr_tpu/engine.py:1519-1532): the next
             # item's host preparation and dispatch overlap this item's
             # device work; collect reads each plane once, in plan order
             dispatch = (functools.partial(self._dispatch_item, fasta_records)
                         if have_table else lambda item: None)
-            ctx_next = dispatch(plan[0]) if plan else None
+            if plan:
+                with trace.span("dispatch", 0):
+                    ctx_next = dispatch(plan[0])
             for pi, item in enumerate(plan):
-                t0 = time.time()
-                ctx = ctx_next
-                ctx_next = dispatch(plan[pi + 1]) if pi + 1 < len(plan) else None
+                t0 = time.perf_counter() if log_debug else 0.0
+                ctx, ctx_next = ctx_next, None
+                if pi + 1 < len(plan):
+                    with trace.span("dispatch", pi + 1):
+                        ctx_next = dispatch(plan[pi + 1])
                 idxs = item[1] if item[0] == "stream" else [item[1]]
-                arrs = self._collect(ctx, len(idxs))
-                for j, arr in zip(idxs, arrs):
-                    record = fasta_records[j]
-                    seq_label = record.label
-                    seq_len = len(record.sequence)
-                    logger.info("Processing sequence: %s (%d bp)", seq_label, seq_len)
-                    if len(arr):
-                        # Reproduce T=1 ordering: stable sort by pos1 over
-                        # hits emitted scan-order (tile, pair, rank) --
-                        # engine.py:434. Host rows carry tile 0 and a
-                        # record-wide pair order, which sort the same way.
-                        key = np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))
-                        arr = arr[key]
-                        e2r = self._meta.entry_to_record
-                        for pos1, pos2, entry, _t, _o, _r in arr:
-                            sts = self.sts_records[int(e2r[int(entry)])]
-                            print(
-                                f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
-                                file=output,
-                            )
-                        total_hits += len(arr)
-                    total_bp += seq_len
-                    if log_debug:
-                        logger.debug("searched %s (%d bp) in %.3fs",
-                                     seq_label, seq_len, time.time() - t0)
+                with trace.span("collect", pi):
+                    arrs = self._collect(ctx, len(idxs))
+                with trace.span("emit", pi):
+                    # Reproduce T=1 ordering: stable sort by pos1 over hits
+                    # emitted scan-order (tile, pair, rank) -- engine.py:434.
+                    # Host rows carry tile 0 and a record-wide pair order,
+                    # which sort the same way.
+                    with trace.span("emit.sort"):
+                        arrs = [arr[np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))]
+                                if len(arr) else arr for arr in arrs]
+                    with trace.span("emit.write"):
+                        for j, arr in zip(idxs, arrs):
+                            record = fasta_records[j]
+                            seq_label = record.label
+                            seq_len = len(record.sequence)
+                            logger.info("Processing sequence: %s (%d bp)", seq_label,
+                                        seq_len)
+                            if len(arr):
+                                e2r = self._meta.entry_to_record
+                                for pos1, pos2, entry, _t, _o, _r in arr:
+                                    sts = self.sts_records[int(e2r[int(entry)])]
+                                    print(
+                                        f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
+                                        file=output,
+                                    )
+                                total_hits += len(arr)
+                            total_bp += seq_len
+                            if log_debug:
+                                logger.debug("searched %s (%d bp) in %.3fs",
+                                             seq_label, seq_len, time.perf_counter() - t0)
         finally:
-            if output is not sys.stdout:
-                output.close()
-            if prof is not None:
-                prof.__exit__(None, None, None)
-                os.makedirs(trace_dir, exist_ok=True)
-                prof.export_chrome_trace(os.path.join(
-                    trace_dir, f"merpcr_{os.getpid()}_{next(_TRACE_SEQ)}.pt.trace.json"))
+            try:  # the search span closes inside the profiler's run
+                if search_trace is not None:
+                    self.last_trace = trace.stop(search_trace, total_hits, self.last_scans)
+            finally:
+                if output is not sys.stdout:
+                    output.close()
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+                    os.makedirs(trace_dir, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(
+                        trace_dir, f"merpcr_{os.getpid()}_{next(_TRACE_SEQ)}.pt.trace.json"))
 
-        elapsed = time.time() - search_t0
+        elapsed = time.perf_counter() - search_t0
         if elapsed > 0 and total_bp:
             logger.info(
                 "Throughput: %.2f Mbp/s (%d bp in %.3fs)",

@@ -67,6 +67,7 @@ from typing import List, NamedTuple
 
 import torch
 
+from .. import trace
 from . import expand as expand_mod
 from . import kernels
 from . import margin_p2 as margin_p2_mod
@@ -397,21 +398,22 @@ def dispatch_stream(cfg: ScanConfig, table: Table, plane: torch.Tensor,
     rows = buf[5 * n_tiles :].view(n_tiles, row_cap, 6)
     p1, p1x, p2, p2x = _primers(cfg, table)
     vf, mf = (verify_p1, margin_p2) if cfg.packed else (verify_p1_raw, margin_p2_raw)
-    for t, (tile, t0, n_scan) in enumerate(_tiles(cfg, plane, total_scan, stream_len,
-                                                  recmap, n_tiles, start)):
-        tot = totals[t]
-        entry, ppos = _front_and_expand(cfg, table, tile, n_scan, tot)
-        a_idx = vf(tile, entry, ppos, table.emeta, p1, p1x, t0, rmeta, recmap,
-                   cfg.lead, nmm, x, totals=tot)
-        mf(tile, a_idx, entry, ppos, table.emeta, p2, p2x, t0, rmeta, recmap,
-           cfg.lead, margin, nmm, x, totals=tot, rows=rows[t])
     host = event = None
-    if dev.type == "cuda":
-        with torch.cuda.device(dev):
-            host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
-            host.copy_(buf, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
+    with trace.span("dispatch.enqueue"):
+        for t, (tile, t0, n_scan) in enumerate(_tiles(cfg, plane, total_scan, stream_len,
+                                                      recmap, n_tiles, start)):
+            tot = totals[t]
+            entry, ppos = _front_and_expand(cfg, table, tile, n_scan, tot)
+            a_idx = vf(tile, entry, ppos, table.emeta, p1, p1x, t0, rmeta, recmap,
+                       cfg.lead, nmm, x, totals=tot)
+            mf(tile, a_idx, entry, ppos, table.emeta, p2, p2x, t0, rmeta, recmap,
+               cfg.lead, margin, nmm, x, totals=tot, rows=rows[t])
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+                host.copy_(buf, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
     return PendingScan(cfg, table, plane, total_scan, stream_len, rmeta, recmap,
                        tuple(rt), n_tiles, start, expand_mod.pair_cap(cfg.tile_len),
                        row_cap, buf, host, event)
@@ -425,20 +427,28 @@ def collect_stream(p: PendingScan) -> tuple:
     (``scan_tile``), so no hit is dropped. The other tiles' rows are host
     tensors."""
     if p.event is not None:
-        kernels.scan_state(p.plane).wait(p.event)
+        with trace.span("collect.wait"):
+            kernels.scan_state(p.plane).wait(p.event)
         got = p.host
     else:
         got = p.buf
     n = p.n_tiles
     totals = got[: 5 * n].view(n, 5).tolist()
     rows = got[5 * n :].view(n, p.row_cap, 6)
-    outs, reruns = [], []
+    outs, reruns = [], {}
     tiles = _tiles(p.cfg, p.plane, p.total_scan, p.stream_len, p.recmap, n, p.start)
-    for t, ((tile, t0, n_scan), tot) in enumerate(zip(tiles, totals)):
+    for t, (tile, tot) in enumerate(zip(tiles, totals)):
         if tot[2] > p.pair_cap or tot[4] > p.row_cap:
-            reruns.append(t)
-            outs.append(scan_tile(p.cfg, p.table, tile, t0, n_scan, p.rmeta, p.recmap,
-                                  p.rt))
+            reruns[t] = tile
+            outs.append(None)
         else:
             outs.append(ScanOut(*tot, *rows[t, : tot[4]].unbind(dim=1)))
-    return outs, reruns
+    if reruns:
+        with trace.span("collect.rerun"):
+            for t, (tile, t0, n_scan) in reruns.items():
+                outs[t] = scan_tile(p.cfg, p.table, tile, t0, n_scan, p.rmeta, p.recmap,
+                                    p.rt)
+    search_trace = trace.active()
+    if search_trace is not None:
+        search_trace.add("pairs", sum(o.pair_total for o in outs))
+    return outs, list(reruns)

@@ -1276,6 +1276,33 @@ def test_card_trace_holds_the_kernels(cuda, monkeypatch, tmp_path):
         assert any(k in n for n in names), (k, sorted(set(names))[:20])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["record", "assembly"])
+def test_card_trace_counts_launches_and_waits(cuda, tmp_path, layout):
+    """A traced warm card search with no rerun: four launches a tile (the
+    front end and three deferred stages), one host read and one
+    ``collect.wait`` span a plane, and the bytes of the untraced search."""
+    sts, fa = _corpus(tmp_path) if layout == "record" else _assembly(tmp_path)
+    eng = MerPCR(device=cuda)
+    eng._tile_len_override = 1 << 15  # tens of tiles on one plane
+    recs = eng.load_fasta_file(fa)
+    want = _search_records(eng, sts, recs)
+    eng.tracing = True
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        eng.search(recs)
+    assert buf.getvalue() == want and want.count("\n") > 0
+    rec, scans = eng.last_trace, eng.last_scans
+    c = rec.counters
+    assert c["reruns"] == 0 and c["tiles"] == sum(p.tiles for p in scans) > len(scans)
+    assert c["launches"] == 4 * c["tiles"], c
+    stages = {k: v for k, v in c.items() if k.startswith("launches.")}
+    assert sorted(stages.values()) == [c["tiles"]] * 4, stages
+    assert c["host_reads"] == len(scans)
+    assert sum(s.name == "collect.wait" for s in rec.spans) == len(scans)
+    assert c["lines"] == want.count("\n")
+
+
 # ------------------------------------------------ the deferred tile scan
 def _deferred_stages(cfg, tb, tile, t0, n_scan, n, device, kernel: bool, rows_cap: int):
     """The deferred expand, verify_p1 and margin_p2 of one tile: the
