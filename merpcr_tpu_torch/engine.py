@@ -91,7 +91,7 @@ from typing import TYPE_CHECKING, List, Optional
 
 import numpy as np
 
-from . import cuda_driver, trace
+from . import cuda_driver, native, trace
 from .io.fasta import FASTALoader, record_packed, record_seq_bytes
 from .io.sts import STSLoader
 from .models import FASTARecord
@@ -128,6 +128,9 @@ MAX_PCR_SIZE = 10000
 # tiles stop at STREAM_MAX_TILE.
 TILE_LEN_BUCKETS = (1 << 15, 1 << 17, 1 << 19, 1 << 21, 1 << 23)
 STREAM_MAX_TILE = 1 << 21
+# hit lines formatted and written at a time: a whole genome's lines never
+# sit in one buffer
+EMIT_ROWS = 1 << 16
 
 logger = logging.getLogger(__name__)
 # per-process number of a search's trace file (MERPCR_TPU_TRACE)
@@ -332,6 +335,9 @@ class MerPCR:
         # of every plane and only rank 0 writes
         self._multihost = False
         self._meta = None  # TableMeta
+        # (meta, sts_records, native.Texts): the end of each device entry's
+        # hit line, built from those two objects (``_line_tails``)
+        self._tails: Optional[tuple] = None
         self._strict1_tried = False  # build_strict1 ran for this table
         # Test hook: force a specific tile length (exercises multi-tile
         # paths on small inputs). None -> TILE_LEN_BUCKETS heuristic.
@@ -932,6 +938,41 @@ class MerPCR:
         packed = record_packed(rec) if len(rec.sequence) > self.wordsize else None
         return self._dispatch_record(seq, packed)
 
+    def _line_tails(self) -> native.Texts:
+        r"""``"\t{id}\t{alias}\t({direct})\n"`` of each device entry's STS
+        record, the end of its hit line (reference engine.py:442), kept
+        with the table's meta and ``sts_records`` it was built from and
+        built anew once either is another object (checked with ``is``)."""
+        meta, recs = self._meta, self.sts_records
+        t = self._tails
+        if t is None or t[0] is not meta or t[1] is not recs:
+            sts = map(recs.__getitem__, meta.entry_to_record.tolist())
+            t = self._tails = (meta, recs, native.Texts(
+                [f"\t{s.id}\t{s.alias}\t({s.direct})\n" for s in sts]))
+        return t[2]
+
+    def _write_hits(self, output, labelled: list) -> None:
+        """Write one plan item's hit lines (reference engine.py:442):
+        ``labelled`` holds (label, rows) of each of its records with rows,
+        in FASTA order, the rows sorted. One ``native.format_hits`` call and
+        one write per ``EMIT_ROWS`` rows of the item; the active trace
+        record counts the lines the native codec wrote (``lines_native``)."""
+        rows = (labelled[0][1] if len(labelled) == 1
+                else np.concatenate([a for _l, a in labelled]))
+        pos1, pos2 = rows[:, 0] + 1, rows[:, 1] + 1
+        entry = np.ascontiguousarray(rows[:, 2])
+        rec = np.repeat(np.arange(len(labelled), dtype=np.int64),
+                        [len(a) for _l, a in labelled])
+        labels = native.Texts([f"{label}\t" for label, _a in labelled])
+        tails = self._line_tails()
+        for a in range(0, len(rows), EMIT_ROWS):
+            b = a + EMIT_ROWS
+            output.write(native.format_hits(pos1[a:b], pos2[a:b], entry[a:b], rec[a:b],
+                                            labels, tails))
+        rec_trace = trace.active()
+        if rec_trace is not None and native.get_lib() is not None:
+            rec_trace.add("lines_native", len(rows))
+
     def search(
         self, fasta_records: List[FASTARecord], output_file: Optional[str] = None
     ) -> int:
@@ -964,7 +1005,7 @@ class MerPCR:
         # None or the literal string "stdout" (any case) -> stdout
         # (reference engine.py:368-371)
         if not emit_here:
-            output = open(os.devnull, "w")
+            output = None  # nothing formatted
         elif output_file and output_file.lower() != "stdout":
             output = open(output_file, "w")
         else:
@@ -1027,6 +1068,7 @@ class MerPCR:
                         arrs = [arr[np.lexsort((arr[:, 5], arr[:, 4], arr[:, 3], arr[:, 0]))]
                                 if len(arr) else arr for arr in arrs]
                     with trace.span("emit.write"):
+                        labelled = []  # (label, rows) of the item's records with rows
                         for j, arr in zip(idxs, arrs):
                             record = fasta_records[j]
                             seq_label = record.label
@@ -1034,24 +1076,20 @@ class MerPCR:
                             logger.info("Processing sequence: %s (%d bp)", seq_label,
                                         seq_len)
                             if len(arr):
-                                e2r = self._meta.entry_to_record
-                                for pos1, pos2, entry, _t, _o, _r in arr:
-                                    sts = self.sts_records[int(e2r[int(entry)])]
-                                    print(
-                                        f"{seq_label}\t{pos1 + 1}..{pos2 + 1}\t{sts.id}\t{sts.alias}\t({sts.direct})",
-                                        file=output,
-                                    )
+                                labelled.append((seq_label, arr))
                                 total_hits += len(arr)
                             total_bp += seq_len
                             if log_debug:
                                 logger.debug("searched %s (%d bp) in %.3fs",
                                              seq_label, seq_len, time.perf_counter() - t0)
+                        if labelled and output is not None:
+                            self._write_hits(output, labelled)
         finally:
             try:  # the search span closes inside the profiler's run
                 if search_trace is not None:
                     self.last_trace = trace.stop(search_trace, total_hits, self.last_scans)
             finally:
-                if output is not sys.stdout:
+                if output is not None and output is not sys.stdout:
                     output.close()
                 if prof is not None:
                     prof.__exit__(None, None, None)

@@ -13,8 +13,8 @@ With no record active, ``span`` returns one shared no-op and reads no
 clock: tracing off costs a global read per span site. The counters are
 read just outside the ends of the ``search`` span, as the change over the
 search of those the port keeps (the wrappers' launch counts, ``ScanState.reads``,
-``last_scans``), and ``pairs`` is added in ``ops.scan.collect_stream``
-while a record is active.
+``last_scans``); ``pairs`` is added in ``ops.scan.collect_stream`` and
+``lines_native`` in the engine's emission while a record is active.
 
 The recorder is one per process and not thread-safe: the active record is
 a module global, so two engines searching at once in two threads, with
@@ -61,8 +61,9 @@ class Span(NamedTuple):
 class SearchTrace:
     """One search's spans, in the order they opened, and its counters:
     ``launches`` (and ``launches.<wrapper>`` per stage), ``host_reads``,
-    ``tiles``, ``reruns``, ``pairs``, ``lines`` and ``cpu_ns``, the main
-    thread's CPU time over the ``search`` span."""
+    ``tiles``, ``reruns``, ``pairs``, ``lines``, ``lines_native`` (the
+    lines the native codec formatted) and ``cpu_ns``, the main thread's
+    CPU time over the ``search`` span."""
 
     search: int
     spans: list = field(default_factory=list)
@@ -181,5 +182,6 @@ def stop(rec: SearchTrace, lines: int, scans) -> SearchTrace:
     c["tiles"] = sum(p.tiles for p in scans)
     c["reruns"] = sum(len(p.reruns) for p in scans)
     c.setdefault("pairs", 0)
+    c.setdefault("lines_native", 0)
     c["lines"] = lines
     return rec

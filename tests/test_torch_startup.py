@@ -345,8 +345,8 @@ def test_explicit_device_beats_the_platform(monkeypatch):
 
 # ------------------------------------------------ no torch at module level
 HOST_MODULES = ("__init__", "__main__", "cli", "cuda_driver", "engine", "io/__init__",
-                "io/fasta", "io/sts", "models/__init__", "ops/__init__", "ops/encoding",
-                "ops/host_scan", "ops/table", "trace")
+                "io/fasta", "io/sts", "models/__init__", "native/__init__", "ops/__init__",
+                "ops/encoding", "ops/host_scan", "ops/table", "trace")
 
 
 def _module_name(rel: str) -> str:
