@@ -562,8 +562,9 @@ class MerPCR:
             return True, 0
         if self.mismatches == 1 and m.strict:
             if not self._strict1_tried:
-                self._table_host, self._meta = build_strict1(
-                    self._table_host, m, bool(self.iupac_mode))
+                with trace.span("table.strict1"):
+                    self._table_host, self._meta = build_strict1(
+                        self._table_host, m, bool(self.iupac_mode))
                 self._tables = {}
                 self._strict1_tried = True
             return (True, 1) if self._meta.strict1 else (False, 0)

@@ -450,5 +450,7 @@ def collect_stream(p: PendingScan) -> tuple:
                                     p.rt)
     search_trace = trace.active()
     if search_trace is not None:
+        search_trace.add("flagged", sum(o.c_total for o in outs))
+        search_trace.add("positions", sum(o.pos_total for o in outs))
         search_trace.add("pairs", sum(o.pair_total for o in outs))
     return outs, list(reruns)

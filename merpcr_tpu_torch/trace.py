@@ -13,8 +13,9 @@ With no record active, ``span`` returns one shared no-op and reads no
 clock: tracing off costs a global read per span site. The counters are
 read just outside the ends of the ``search`` span, as the change over the
 search of those the port keeps (the wrappers' launch counts, ``ScanState.reads``,
-``last_scans``); ``pairs`` is added in ``ops.scan.collect_stream`` and
-``lines_native`` in the engine's emission while a record is active.
+``last_scans``); ``pairs``, ``flagged`` and ``positions`` are added in
+``ops.scan.collect_stream`` and ``lines_native`` in the engine's emission
+while a record is active.
 
 The recorder is one per process and not thread-safe: the active record is
 a module global, so two engines searching at once in two threads, with
@@ -61,7 +62,12 @@ class Span(NamedTuple):
 class SearchTrace:
     """One search's spans, in the order they opened, and its counters:
     ``launches`` (and ``launches.<wrapper>`` per stage), ``host_reads``,
-    ``tiles``, ``reruns``, ``pairs``, ``lines``, ``lines_native`` (the
+    ``tiles`` (and ``front_end.<mode>``, the tiles each front end scanned:
+    ``strict0``, ``strict1``, ``loose`` or ``raw``), ``reruns``, ``flagged``
+    (the tiles' ``c_total``: units the strict front end flagged, groups the
+    loose one did, positions the raw one did), ``positions`` (their
+    ``pos_total``: the (unit or group, phase) positions before the t16
+    filter, 0 on a raw plane), ``pairs``, ``lines``, ``lines_native`` (the
     lines the native codec formatted) and ``cpu_ns``, the main thread's
     CPU time over the ``search`` span."""
 
@@ -116,6 +122,14 @@ class _Span:
         rec.spans[self.index] = Span(self.name, self.parent, self.item, self.start, _clock())
         rec._open.pop()
         return False
+
+
+def front_end_mode(cfg) -> str:
+    """The front end a scan config runs: ``strict0``, ``strict1``,
+    ``loose`` or ``raw`` (a raw-byte plane)."""
+    if not cfg.packed:
+        return "raw"
+    return f"strict{cfg.strict_n}" if cfg.strict else "loose"
 
 
 def span(name: str, item: Optional[int] = None):
@@ -180,8 +194,11 @@ def stop(rec: SearchTrace, lines: int, scans) -> SearchTrace:
     c.update((f"launches.{n}", v) for n, v in per.items() if v)
     c["host_reads"] = _host_reads() - base["host_reads"]
     c["tiles"] = sum(p.tiles for p in scans)
+    for p in scans:
+        rec.add(f"front_end.{front_end_mode(p.cfg)}", p.tiles)
     c["reruns"] = sum(len(p.reruns) for p in scans)
-    c.setdefault("pairs", 0)
+    for k in ("pairs", "flagged", "positions"):
+        c.setdefault(k, 0)
     c.setdefault("lines_native", 0)
     c["lines"] = lines
     return rec

@@ -1303,6 +1303,48 @@ def test_card_trace_counts_launches_and_waits(cuda, tmp_path, layout):
     assert c["lines"] == want.count("\n")
 
 
+@pytest.mark.gpu
+def test_card_front_end_counters(cuda, tmp_path, monkeypatch):
+    """-N 0, 1, 1, 2 on one traced card engine: the strict0, strict1 and
+    loose front ends, one host read a search, ``flagged`` and
+    ``positions`` the sums of the tiles' ``c_total`` and ``pos_total``,
+    ``front_end.<mode>`` the tiles, and ``table.strict1`` in the first -N 1
+    search alone; the bytes of an untraced engine's search."""
+    sts, fa = _corpus(tmp_path)
+    eng, plain = MerPCR(device=cuda), MerPCR(device=cuda)
+    eng._tile_len_override = plain._tile_len_override = 1 << 15
+    recs = eng.load_fasta_file(fa)
+    assert eng.load_sts_file(sts) and plain.load_sts_file(sts)
+    outs = []
+    real = scan_mod.collect_stream
+
+    def collect(p):
+        got, reruns = real(p)
+        outs.extend(got)
+        return got, reruns
+
+    monkeypatch.setattr(scan_mod, "collect_stream", collect)
+    eng.tracing = True
+    builds = []
+    for n, mode in ((0, "strict0"), (1, "strict1"), (1, "strict1"), (2, "loose")):
+        eng.mismatches = plain.mismatches = n
+        want = io.StringIO()
+        with redirect_stdout(want):
+            plain.search(recs)
+        outs.clear()
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            eng.search(recs)
+        assert buf.getvalue() == want.getvalue() and buf.getvalue().count("\n") > 0
+        c, (scan,) = eng.last_trace.counters, eng.last_scans
+        assert c["host_reads"] == 1 and c["reruns"] == 0, c
+        assert c[f"front_end.{mode}"] == c["tiles"] == scan.tiles == len(outs) > 1, c
+        assert c["flagged"] == sum(o.c_total for o in outs) > 0
+        assert c["positions"] == sum(o.pos_total for o in outs) > 0
+        builds.append(sum(s.name == "table.strict1" for s in eng.last_trace.spans))
+    assert builds == [0, 1, 0, 0]
+
+
 # ------------------------------------------------ the deferred tile scan
 def _deferred_stages(cfg, tb, tile, t0, n_scan, n, device, kernel: bool, rows_cap: int):
     """The deferred expand, verify_p1 and margin_p2 of one tile: the

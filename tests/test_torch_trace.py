@@ -7,6 +7,10 @@
   and the bytes equal those of the same search untraced, on the golden
   corpus and on a plan of a lone record, an empty record and a stream
   run; shrunk buffers give the rerun span.
+* One engine at -N 0, 1, 1 and 2 runs the strict0, strict1 and loose
+  front ends: ``flagged`` and ``positions`` are the sums of the tiles'
+  ``c_total`` and ``pos_total``, ``front_end.<mode>`` counts the tiles, and
+  ``table.strict1`` spans the strict1 build in the first -N 1 search alone.
 * Each search has the next number; a search that raises leaves no record
   active.
 * ``MERPCR_TPU_TRACE``: the Chrome trace holds every span of the record,
@@ -32,6 +36,7 @@ import pytest
 from merpcr_tpu_torch import MerPCR, engine, trace
 from merpcr_tpu_torch.ops import expand as expand_mod
 from merpcr_tpu_torch.ops import margin_p2 as margin_mod
+from merpcr_tpu_torch.ops import scan as scan_mod
 
 from .conftest import GOLDEN_FA, GOLDEN_LINE, GOLDEN_STS
 from .test_torch_stream import write_corpus
@@ -42,7 +47,7 @@ PARENT = {"plan": "search", "dispatch": "search", "collect": "search", "emit": "
           "dispatch.upload": "dispatch", "dispatch.enqueue": "dispatch",
           "dispatch.host_scan": "dispatch", "collect.wait": "collect",
           "collect.rerun": "collect", "collect.rows": "collect", "emit.sort": "emit",
-          "emit.write": "emit"}
+          "emit.write": "emit", "table.strict1": "dispatch"}
 
 
 @pytest.fixture(autouse=True)
@@ -152,6 +157,49 @@ def test_shrunk_buffers_record_the_rerun(tmp_path, monkeypatch, stream):
     (rerun,) = [s for s in rec.spans if s.name == "collect.rerun"]
     assert rec.spans[rerun.parent].name == "collect"
     _check_nesting(rec, 1)
+
+
+@pytest.mark.parametrize("rerun", [False, True])
+def test_front_end_counters_and_strict1_span(tmp_path, monkeypatch, rerun):
+    """-N 0, 1, 1, 2 on one traced engine: each search's ``flagged`` and
+    ``positions`` are the sums of ``c_total`` and ``pos_total`` over the
+    tiles ``collect_stream`` returned (rerun tiles included), and its one
+    front end's ``front_end.<mode>`` counts them; the strict1 build is one
+    ``table.strict1`` span, inside the dispatch of the first -N 1 search.
+    The bytes are those of an untraced engine's search."""
+    sts, fa = write_corpus(tmp_path, 73, [50_000], n_sts=40)
+    (eng, recs), (plain, precs) = _engine(sts, fa), _engine(sts, fa)
+    eng._tile_len_override = plain._tile_len_override = 1 << 13  # several tiles
+    if rerun:
+        monkeypatch.setattr(expand_mod, "_pair_cap_override", 3)
+    outs = []
+    real = scan_mod.collect_stream
+
+    def collect(p):
+        got, reruns = real(p)
+        outs.extend(got)
+        return got, reruns
+
+    monkeypatch.setattr(scan_mod, "collect_stream", collect)
+    eng.tracing = True
+    builds = []
+    for n, mode in ((0, "strict0"), (1, "strict1"), (1, "strict1"), (2, "loose")):
+        eng.mismatches = plain.mismatches = n
+        want = _out(plain, precs)
+        outs.clear()
+        assert _out(eng, recs) == want and want.count("\n") > 0
+        rec, (scan,) = eng.last_trace, eng.last_scans
+        _check_nesting(rec, 1)
+        c = rec.counters
+        assert trace.front_end_mode(scan.cfg) == mode
+        assert c[f"front_end.{mode}"] == c["tiles"] == scan.tiles == len(outs) > 1
+        assert [k for k in c if k.startswith("front_end.")] == [f"front_end.{mode}"]
+        assert c["flagged"] == sum(o.c_total for o in outs) > 0
+        assert c["positions"] == sum(o.pos_total for o in outs) > 0
+        assert c["pairs"] == sum(o.pair_total for o in outs) > 0
+        assert (c["reruns"] > 0) == rerun and c["host_reads"] == 0  # the CPU waits on none
+        builds.append([rec.spans[s.parent].name for s in rec.spans if s.name == "table.strict1"])
+    assert builds == [[], ["dispatch"], [], []] and eng._meta.strict1
 
 
 def test_search_numbers_rise_by_one(tmp_path):
